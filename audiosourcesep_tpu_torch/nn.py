@@ -1,0 +1,141 @@
+"""NN primitives the NCSN score network needs (port of ``audiosourcesep_tpu/nn.py``).
+
+Inside the models activations are NCHW tensors kept in
+``torch.channels_last`` memory, which is physically NHWC: a
+``.permute(0, 2, 3, 1)`` of one is a contiguous NHWC view, so the Winograd
+kernel (NHWC in and out) needs no copy. Conv kernels are stored OIHW
+(PyTorch's layout); ``training.checkpoint`` converts from the JAX
+package's HWIO.
+
+Initialisation follows the JAX package (Keras defaults: Glorot-uniform
+kernels, zero biases), drawn from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# When enabled, every conv the Winograd kernel computes (3x3, stride 1,
+# undilated, even H and W) routes through ops.winograd: on a CUDA tensor
+# the Hopper kernel, on a CPU tensor its plain version. Dilated and all
+# other convs stay on F.conv2d. Off by default, as in the JAX package.
+_WINOGRAD = False
+
+
+def set_winograd(enable: bool) -> None:
+    global _WINOGRAD
+    _WINOGRAD = bool(enable)
+
+
+def winograd_enabled() -> bool:
+    return _WINOGRAD
+
+
+# ---------------------------------------------------------------------------
+# initialisers
+# ---------------------------------------------------------------------------
+
+def glorot_uniform(shape: Sequence[int],
+                   generator: Optional[torch.Generator] = None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Keras-default Glorot/Xavier uniform for an OIHW conv kernel (or an
+    ``[out, in]`` matrix)."""
+    rf = math.prod(shape[2:])
+    fan_in, fan_out = shape[1] * rf, shape[0] * rf
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(tuple(shape), generator=generator, dtype=dtype)
+    return (2.0 * u - 1.0) * limit
+
+
+def normal_init(shape: Sequence[int], stddev: float = 0.02,
+                generator: Optional[torch.Generator] = None,
+                dtype=torch.float32) -> torch.Tensor:
+    return stddev * torch.randn(tuple(shape), generator=generator,
+                                dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# conv
+# ---------------------------------------------------------------------------
+
+def conv2d(x: torch.Tensor, kernel: torch.Tensor,
+           bias: Optional[torch.Tensor] = None,
+           dilation: int = 1) -> torch.Tensor:
+    """SAME stride-1 conv of NCHW ``x`` with an OIHW ``kernel`` (odd size).
+
+    Weights are cast to ``x``'s dtype at use, as in the JAX package. With
+    :func:`set_winograd` on, eligible convs run through the Winograd
+    kernel.
+    """
+    kh, kw = kernel.shape[2:]
+    if kh != kw or kh % 2 == 0:
+        raise ValueError(f"SAME conv needs an odd square kernel, got "
+                         f"{tuple(kernel.shape)}")
+    n, _, h, w = x.shape
+    if _WINOGRAD:
+        from .ops.winograd import winograd_conv2d, winograd_eligible
+        kshape = (kh, kw, kernel.shape[1], kernel.shape[0])
+        if winograd_eligible((n, h, w, x.shape[1]), kshape,
+                             dilation=dilation):
+            x_nhwc = x.contiguous(
+                memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            y = winograd_conv2d(x_nhwc, kernel.permute(2, 3, 1, 0))
+            y = y.permute(0, 3, 1, 2)          # NCHW view, channels_last
+            if bias is not None:
+                y = y + bias.to(x.dtype)[:, None, None]
+            return y
+    pad = dilation * (kh // 2)
+    return F.conv2d(x, kernel.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype),
+                    padding=pad, dilation=dilation)
+
+
+class Conv2d(torch.nn.Module):
+    """SAME conv with parameters named as the JAX param dict
+    (``kernel`` stored OIHW, optional ``bias``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 use_bias: bool = True, dilation: int = 1, device=None):
+        super().__init__()
+        self.dilation = dilation
+        self.kernel = torch.nn.Parameter(torch.empty(
+            out_ch, in_ch, kernel_size, kernel_size, device=device))
+        self.bias = (torch.nn.Parameter(torch.empty(out_ch, device=device))
+                     if use_bias else None)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.kernel.copy_(glorot_uniform(self.kernel.shape, generator))
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.kernel, self.bias, self.dilation)
+
+
+# ---------------------------------------------------------------------------
+# pooling / resize
+# ---------------------------------------------------------------------------
+
+def avg_pool_same(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Stride-1 average pooling with SAME padding that counts only valid
+    elements (JAX ``avg_pool_same``, odd ``window``)."""
+    return F.avg_pool2d(x, window, 1, window // 2, count_include_pad=False)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling, stride 2, VALID."""
+    return F.avg_pool2d(x, 2, 2)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize with half-pixel centres (``tf.image.resize`` /
+    ``jax.image.resize`` for upsampling); identity at the same size."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="bilinear",
+                         align_corners=False)

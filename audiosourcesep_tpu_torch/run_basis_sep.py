@@ -1,0 +1,262 @@
+"""BASIS source separation with two NCSN priors, on PyTorch.
+
+Port of the NCSN branch of the repository's ``run_basis_sep.py``: the
+same positional ``RESTORE1 RESTORE2`` (JAX-format flat-npz checkpoints or
+directories of them), the same flags, and the same outputs in ``--output``:
+``results.npz`` (``x1 x2 gt1 gt2 mixed stft_mixture``),
+``results_convergence.npz`` (the L+1 per-level states), ``out.log`` and the
+``mix.wav`` / ``ground_truth{1,2}.wav`` extracts.
+
+    python -m audiosourcesep_tpu_torch.run_basis_sep CKPT1 CKPT2 \\
+        --song_dir SONG --device cuda --compute_dtype bf16 --winograd
+
+``--device`` defaults to ``cuda`` and never falls back to the CPU.
+``--model_type glow``, ``--shard_sources`` and ``--inverse`` are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from . import nn as nn_mod
+from .data import get_song_extract, write_wav
+from .models.ncsn import get_score_model, get_sigmas
+from .separation import (BasisConfig, basis_separate_per_level,
+                         ncsn_score_fn, postprocess, preprocess_mixture)
+from .training.checkpoint import restore_ncsn_params
+
+SPEC_PARAMS = {"length_sec": 2.04, "dbmin": -100.0, "dbmax": 20.0,
+               "fmin": 125.0, "fmax": 7600.0, "n_fft": 2048,
+               "hop_length": 512, "n_mels": 96, "sr": 16000}
+
+_KEEP = ("dataset", "output", "debug", "restore", "RESTORE", "song_dir",
+         "inverse", "model_type", "n_mixed", "RESTORE1", "RESTORE2",
+         "device", "winograd", "compute_dtype")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="BASIS Separation")
+    parser.add_argument("RESTORE1", type=str,
+                        help="checkpoint (or directory) of model 1")
+    parser.add_argument("RESTORE2", type=str,
+                        help="checkpoint (or directory) of model 2")
+    parser.add_argument("--output", type=str, default="basis_sep")
+    parser.add_argument("--debug", action="store_true",
+                        help="print to stdout instead of out.log")
+    parser.add_argument("--dataset", type=str, default="melspec",
+                        help="melspec (mnist | cifar10 not ported yet)")
+    parser.add_argument("--song_dir", type=str, default=None,
+                        help="dir with mix.wav, piano.wav, violin.wav")
+    parser.add_argument("--inverse", action="store_true",
+                        help="not ported yet: raises")
+    parser.add_argument("--model_type", type=str, default="ncsn",
+                        help="ncsn (glow not ported yet)")
+    parser.add_argument("--version", type=str, default="v1")
+    parser.add_argument("--ema", action="store_true",
+                        help="restore the EMA weights of the priors")
+    parser.add_argument("--compute_dtype", type=str, default="f32",
+                        help="f32 or bf16 (convs in bf16, norm statistics "
+                             "in f32)")
+    parser.add_argument("--winograd", action="store_true",
+                        help="route every 3x3 stride-1 undilated conv with "
+                             "even H, W through the hand-written Winograd "
+                             "CUDA kernel (its plain version on the CPU)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; cuda raises when no GPU is "
+                             "present")
+    parser.add_argument("--shard_sources", action="store_true",
+                        help="not ported yet: raises")
+    parser.add_argument("--score_chunk", type=int, default=8,
+                        help="Glow priors only (not ported); ignored")
+    parser.add_argument("--n_mixed", type=int, default=30)
+    parser.add_argument("--config", type=str)
+    parser.add_argument("--seed", type=int, default=0)
+    # spectrograms
+    parser.add_argument("--height", type=int, default=96)
+    parser.add_argument("--width", type=int, default=64)
+    parser.add_argument("--scale", type=str, default="dB")
+    # BASIS
+    parser.add_argument("--T", type=int, default=100)
+    parser.add_argument("--step_lr", type=float, default=2e-5,
+                        help="Langevin step size delta (eta = delta * "
+                             "(sigma/sigmaL)^2)")
+    parser.add_argument("--sigma1", type=float, default=1.0)
+    parser.add_argument("--sigmaL", type=float, default=0.01)
+    parser.add_argument("--score_clip", type=float, default=None,
+                        help="clip per-pixel scores to +-score_clip/sigma; "
+                             "off by default")
+    parser.add_argument("--num_classes", type=float, default=10)
+    parser.add_argument("--progression", type=str, default="geometric")
+    # model hyperparameters
+    parser.add_argument("--n_filters", type=int, default=192)
+    parser.add_argument("--L", type=int, default=3)
+    parser.add_argument("--K", type=int, default=32)
+    parser.add_argument("--l2_reg", type=float, default=None)
+    parser.add_argument("--learntop", action="store_true")
+    # optimization (unused at separation time; kept for config compat)
+    parser.add_argument("--optimizer", type=str, default="adamax")
+    parser.add_argument("--batch_size", type=int, default=256)
+    parser.add_argument("--learning_rate", type=float, default=0.001)
+    # preprocessing
+    parser.add_argument("--use_logit", action="store_true")
+    parser.add_argument("--alpha", type=float, default=1e-6)
+    return parser
+
+
+def apply_config_override(args: argparse.Namespace) -> argparse.Namespace:
+    """``--config`` (YAML) overrides the hyperparameters it names; the
+    run-level flags in ``_KEEP`` always stay as given."""
+    if args.config is None:
+        return args
+    import yaml   # only needed with --config
+    with open(args.config) as f:
+        config = yaml.safe_load(f) or {}
+    new_args = argparse.Namespace(**vars(args))
+    for k, v in config.items():
+        if k not in _KEEP:
+            setattr(new_args, k, v)
+    return new_args
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name} requested but CUDA is not "
+                           "available (no fallback to the CPU)")
+    return device
+
+
+def _not_ported(args) -> None:
+    for flag, hit in (("--model_type glow", args.model_type != "ncsn"),
+                      ("--shard_sources", args.shard_sources),
+                      ("--inverse", args.inverse),
+                      (f"--dataset {args.dataset}",
+                       args.dataset != "melspec")):
+        if hit:
+            raise NotImplementedError(
+                f"{flag} is not yet ported to audiosourcesep_tpu_torch; "
+                "use the JAX run_basis_sep.py")
+
+
+def run(args: argparse.Namespace) -> None:
+    _not_ported(args)
+    device = resolve_device(args.device)
+    sigmas = get_sigmas(args.sigma1, args.sigmaL, int(args.num_classes),
+                        args.progression)
+    if args.song_dir is None:
+        raise ValueError("song_dir is None")
+    song_dir = os.path.abspath(args.song_dir)
+    data_shape = [args.height, args.width, 1]
+    if args.scale == "power":
+        minval, maxval = 1e-10, 100.0
+    elif args.scale == "dB":
+        minval, maxval = -100.0, 20.0
+    else:
+        raise ValueError("scale should be 'power' or 'dB'")
+    alpha = args.alpha or 1e-6
+    out_dir = args.output
+
+    # ---------------- data -------------------------------------------------
+    t0 = time.time()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    spec = dict(SPEC_PARAMS, use_dB=(args.scale == "dB"), n_mels=args.height)
+    duration = spec["length_sec"] * args.n_mixed
+    mel_spec, raw_audio, stft_mixture = get_song_extract(
+        os.path.join(song_dir, "mix.wav"),
+        os.path.join(song_dir, "piano.wav"),
+        os.path.join(song_dir, "violin.wav"), duration, **spec)
+    mixed = torch.as_tensor(mel_spec[0], device=device)
+    gt1, gt2 = mel_spec[1], mel_spec[2]
+    mixed = preprocess_mixture(mixed, minval, maxval, args.use_logit, alpha)
+    x_init = torch.rand((2, *mixed.shape), generator=gen, device=device)
+    for name, audio in zip(("mix.wav", "ground_truth1.wav",
+                            "ground_truth2.wav"), raw_audio):
+        write_wav(os.path.join(out_dir, name), audio, spec["sr"])
+    print(f"Data Loaded in {round(time.time() - t0, 3)} seconds")
+
+    # ---------------- models ----------------------------------------------
+    nn_mod.set_winograd(args.winograd)
+    compute_dtype = torch.bfloat16 if args.compute_dtype == "bf16" else None
+    models = []
+    for i, path in enumerate((args.RESTORE1, args.RESTORE2)):
+        model = get_score_model(args.version, data_shape, args.n_filters,
+                                int(args.num_classes), sigmas=sigmas,
+                                logit_transform=args.use_logit,
+                                compute_dtype=compute_dtype, device="meta")
+        sd = restore_ncsn_params(path, model.state_dict(), ema=args.ema)
+        model = model.to_empty(device=device)
+        model.load_state_dict(sd)
+        if model.sigmas is not None:   # v2: a buffer, not a checkpoint entry
+            model.sigmas.copy_(torch.as_tensor(sigmas))
+        models.append(model.eval().requires_grad_(False))
+        print(f"Model {i + 1} restored from {path}"
+              + (" (EMA weights)" if args.ema else ""))
+    print("Parameters \n\t " + "".join(f"{k} = {v} \n\t "
+                                       for k, v in vars(args).items()))
+
+    # ---------------- separation ------------------------------------------
+    cfg = BasisConfig(T=args.T, delta=args.step_lr, data_type="melspec",
+                      scale=args.scale, collect_trajectory=True,
+                      score_clip=args.score_clip)
+
+    def progress(level, x):
+        print(f"Sigma = {sigmas[level]} ({level + 1} / {len(sigmas)}) done")
+
+    t0 = time.time()
+    x_final, traj = basis_separate_per_level(
+        ncsn_score_fn(models), mixed, x_init, sigmas, gen, cfg,
+        callback=progress)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"Duration: {round(time.time() - t0, 3)} seconds")
+
+    # ---------------- save results ----------------------------------------
+    def post(x):
+        return postprocess(x, minval, maxval, args.use_logit, alpha,
+                           "melspec").cpu().numpy()
+
+    def squeeze_ch(a):
+        # drop only the trailing channel axis (a plain squeeze would also
+        # drop a singleton frame axis)
+        return a[..., 0] if a.shape[-1] == 1 else a
+
+    np.savez(os.path.join(out_dir, "results"),
+             x1=post(squeeze_ch(x_final[0])), x2=post(squeeze_ch(x_final[1])),
+             gt1=squeeze_ch(gt1), gt2=squeeze_ch(gt2),
+             mixed=post(squeeze_ch(mixed)), stft_mixture=stft_mixture)
+    np.savez(os.path.join(out_dir, "results_convergence"),
+             x1=post(traj[:, 0]), x2=post(traj[:, 1]))
+
+
+def main(argv=None) -> None:
+    """Parse ``argv`` (default ``sys.argv[1:]``) and run the separation.
+
+    Outputs go to ``--output``; unless ``--debug``, stdout is written to
+    ``out.log`` there for the duration of the call.
+    """
+    args = build_parser().parse_args(argv)
+    args.RESTORE1 = os.path.abspath(args.RESTORE1)
+    args.RESTORE2 = os.path.abspath(args.RESTORE2)
+    args = apply_config_override(args)
+    os.makedirs(args.output, exist_ok=True)
+    winograd_was = nn_mod.winograd_enabled()
+    with open(os.path.join(args.output, "out.log"), "w") as log_file:
+        redirect = (contextlib.nullcontext() if args.debug
+                    else contextlib.redirect_stdout(log_file))
+        try:
+            with redirect:
+                run(args)
+        finally:
+            nn_mod.set_winograd(winograd_was)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

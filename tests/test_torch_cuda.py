@@ -1,0 +1,100 @@
+"""The port's CUDA kernels on a card (marker ``cuda``; they skip without
+one). This file imports no JAX, so it also runs where only PyTorch is
+installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from audiosourcesep_tpu_torch import nn
+from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+from audiosourcesep_tpu_torch.ops import winograd as W
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain version, as max|err| / max|plain|: f32 differs only in
+# summation order, bf16 also by one rounding of the f32 sum (2^-7)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(shape, cout, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    k = torch.randn(3, 3, shape[-1], cout, device="cuda", generator=g) * 0.1
+    return x, k
+
+
+# ragged shapes: tiles not a multiple of 32, C_in of 8, C_out of 32
+@pytest.mark.parametrize("shape,cout", [((3, 12, 10, 5), 7),
+                                        ((2, 16, 8, 40), 33),
+                                        ((1, 2, 2, 1), 1),
+                                        ((2, 8, 6, 17), 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_version(cuda, shape, cout, dtype):
+    x, k = _inputs(shape, cout, dtype)
+    before = W.launch_count
+    got = W.winograd_conv2d(x, k)
+    assert W.launch_count == before + 1
+    assert got.dtype == dtype and got.shape == (*shape[:3], cout)
+    want = W.winograd_conv2d_reference(x, k).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= TOL[dtype] * want.abs().max().item(), err
+    conv = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                    k.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    assert (got.float() - conv).abs().max().item() \
+        <= 2 * TOL[dtype] * conv.abs().max().item()
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    x, k = _inputs((1, 4, 4, 3), 2, torch.float32)
+    u = W.transform_weights(k)
+    with pytest.raises(ValueError):
+        W._winograd_cuda(x[:, :3, :3].contiguous(), u)      # odd H, W
+    with pytest.raises(ValueError):
+        W._winograd_cuda(x.permute(0, 2, 1, 3), u)           # not contiguous
+    with pytest.raises(TypeError):
+        W._winograd_cuda(x.half(), u)
+    with pytest.raises(ValueError):
+        W._winograd_cuda(x, u[:, :2])                        # C_in mismatch
+
+
+def test_gradient_through_the_kernel(cuda):
+    x, k = _inputs((2, 6, 8, 4), 5, torch.float32)
+    xa, ka = x.clone().requires_grad_(), k.clone().requires_grad_()
+    (W.winograd_conv2d(xa, ka) ** 2).sum().backward()
+    xb = x.permute(0, 3, 1, 2).clone().requires_grad_()
+    kb = k.permute(3, 2, 0, 1).clone().requires_grad_()
+    (F.conv2d(xb, kb, padding=1) ** 2).sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad.permute(0, 2, 3, 1),
+                               atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(ka.grad, kb.grad.permute(2, 3, 1, 0),
+                               atol=1e-3, rtol=1e-3)
+
+
+def test_routed_forward_matches_cudnn(cuda):
+    m = get_score_model("v1", (32, 16, 1), 8, 3).reset_parameters(
+        torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.rand(2, 32, 16, 1, device=cuda)
+    idx = torch.tensor([0, 2], device=cuda)
+    with torch.no_grad():
+        off = m(x, idx)
+        try:
+            nn.set_winograd(True)
+            before = W.launch_count
+            on = m(x, idx)
+            assert W.launch_count - before == 64
+        finally:
+            nn.set_winograd(False)
+    torch.testing.assert_close(on, off, atol=2e-4, rtol=1e-4)

@@ -1,0 +1,110 @@
+"""NN primitives of the port (audiosourcesep_tpu_torch/nn.py) against
+audiosourcesep_tpu.nn, float32 on the CPU (atol 1e-5: same math, another
+summation order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import audiosourcesep_tpu.nn as jnn
+import audiosourcesep_tpu_torch.nn as tnn
+
+torch.set_num_threads(2)
+ATOL = 1e-5
+
+
+def _nhwc(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _to_torch(x):
+    """NHWC numpy -> NCHW torch in channels_last memory (the models'
+    layout)."""
+    return torch.from_numpy(x).permute(0, 3, 1, 2)
+
+
+def _to_nhwc(t):
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("ksize,dilation,bias", [(3, 1, True), (3, 2, False),
+                                                 (3, 4, True), (1, 1, True)])
+@pytest.mark.parametrize("winograd", [False, True])
+def test_conv2d_matches_jax(ksize, dilation, bias, winograd):
+    rng = np.random.default_rng(0)
+    x = _nhwc(1, (2, 8, 12, 5))
+    k = (rng.standard_normal((ksize, ksize, 5, 7)) * 0.2).astype(np.float32)
+    b = rng.standard_normal(7).astype(np.float32)
+    params = {"kernel": jnp.asarray(k)}
+    if bias:
+        params["bias"] = jnp.asarray(b)
+    want = np.asarray(jnn.conv2d(params, jnp.asarray(x), dilation=dilation))
+    try:
+        tnn.set_winograd(winograd)
+        got = tnn.conv2d(_to_torch(x), torch.from_numpy(k).permute(3, 2, 0, 1),
+                         torch.from_numpy(b) if bias else None, dilation)
+    finally:
+        tnn.set_winograd(False)
+    np.testing.assert_allclose(_to_nhwc(got), want, atol=ATOL)
+
+
+def test_conv2d_routes_only_eligible_convs(monkeypatch):
+    from audiosourcesep_tpu_torch.ops import winograd as twino
+    calls = []
+    real = twino.winograd_conv2d
+
+    def spy(x, kernel):
+        calls.append(tuple(x.shape))
+        return real(x, kernel)
+
+    monkeypatch.setattr(twino, "winograd_conv2d", spy)
+    x = _to_torch(_nhwc(2, (1, 4, 6, 3)))
+    k3 = torch.ones(4, 3, 3, 3) * 0.1
+    tnn.conv2d(x, k3)
+    assert calls == []                      # off by default
+    try:
+        tnn.set_winograd(True)
+        tnn.conv2d(x, k3)
+        assert calls == [(1, 4, 6, 3)]      # NHWC view of the input
+        tnn.conv2d(x, k3, dilation=2)       # dilated: F.conv2d
+        tnn.conv2d(x, torch.ones(4, 3, 1, 1))  # 1x1: F.conv2d
+        tnn.conv2d(_to_torch(_nhwc(3, (1, 5, 6, 3))), k3)  # odd H
+        assert len(calls) == 1
+    finally:
+        tnn.set_winograd(False)
+
+
+def test_avg_pool_same_matches_jax():
+    x = _nhwc(4, (2, 9, 12, 3))
+    want = np.asarray(jnn.avg_pool_same(jnp.asarray(x), 5))
+    np.testing.assert_allclose(_to_nhwc(tnn.avg_pool_same(_to_torch(x), 5)),
+                               want, atol=ATOL)
+
+
+def test_avg_pool2_matches_jax():
+    x = _nhwc(5, (2, 8, 12, 3))
+    want = np.asarray(jnn.avg_pool2(jnp.asarray(x)))
+    np.testing.assert_allclose(_to_nhwc(tnn.avg_pool2(_to_torch(x))), want,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("src,dst", [((48, 32), (96, 64)), ((5, 7), (10, 14)),
+                                     ((6, 4), (6, 4))])
+def test_resize_bilinear_matches_jax(src, dst):
+    x = _nhwc(6, (2, *src, 3))
+    want = np.asarray(jnn.resize_bilinear(jnp.asarray(x), dst))
+    got = tnn.resize_bilinear(_to_torch(x), dst)
+    np.testing.assert_allclose(_to_nhwc(got), want, atol=ATOL)
+
+
+def test_glorot_uniform_bounds_and_fans():
+    g = torch.Generator().manual_seed(0)
+    w = tnn.glorot_uniform((384, 192, 3, 3), g)
+    limit = np.sqrt(6.0 / (192 * 9 + 384 * 9))
+    assert w.shape == (384, 192, 3, 3)
+    assert float(w.abs().max()) <= limit
+    assert float(w.abs().max()) > 0.95 * limit
+    n = tnn.normal_init((10, 1000), 0.02, g)
+    assert abs(float(n.std()) - 0.02) < 1e-3

@@ -1,0 +1,115 @@
+"""Port of the Winograd conv (audiosourcesep_tpu_torch/ops/winograd.py)
+against the JAX package: the Pallas kernel in interpret mode, the JAX
+plain Winograd, and F.conv2d, in float32 on the CPU (atol 2e-4, as the
+JAX package's own Pallas test)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from audiosourcesep_tpu.ops import winograd as jwino
+from audiosourcesep_tpu_torch.ops import winograd as twino
+
+torch.set_num_threads(2)
+ATOL = 2e-4
+
+
+def _inputs(seed, shape, cout, scale=0.1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    k = (rng.standard_normal((3, 3, shape[-1], cout)) * scale
+         ).astype(np.float32)
+    return x, k
+
+
+def _torch_conv(x, k):
+    """NHWC x, HWIO k -> NHWC, through F.conv2d."""
+    y = F.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2),
+                 torch.from_numpy(k).permute(3, 2, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1).numpy()
+
+
+def test_plain_path_matches_pallas_interpret_reference_and_conv():
+    # the JAX package's Pallas test shape: >1 row block and >1 batch entry
+    x, k = _inputs(1, (2, 12, 8, 64), 64)
+    got = twino.winograd_conv2d(torch.from_numpy(x),
+                                torch.from_numpy(k)).numpy()
+    pallas = np.asarray(jwino.winograd_conv2d(jnp.asarray(x), jnp.asarray(k),
+                                              True))
+    jref = np.asarray(jwino.winograd_conv2d_reference(jnp.asarray(x),
+                                                      jnp.asarray(k)))
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+    np.testing.assert_allclose(got, jref, atol=ATOL)
+    np.testing.assert_allclose(got, _torch_conv(x, k), atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 8, 12, 5), 7),
+                                        ((1, 4, 4, 3), 2),
+                                        ((3, 10, 6, 4), 4),
+                                        ((2, 6, 4, 1), 3),
+                                        ((1, 4, 6, 8), 1)])
+def test_reference_matches_jax_reference_and_conv(shape, cout):
+    x, k = _inputs(2, shape, cout, 0.3)
+    got = twino.winograd_conv2d_reference(torch.from_numpy(x),
+                                          torch.from_numpy(k)).numpy()
+    jref = np.asarray(jwino.winograd_conv2d_reference(jnp.asarray(x),
+                                                      jnp.asarray(k)))
+    np.testing.assert_allclose(got, jref, atol=2e-5)
+    np.testing.assert_allclose(got, _torch_conv(x, k), atol=2e-5)
+
+
+def test_transform_weights_matches_jax():
+    _, k = _inputs(3, (1, 4, 4, 6), 5)
+    got = twino.transform_weights(torch.from_numpy(k)).numpy()
+    want = np.asarray(jwino.transform_weights(jnp.asarray(k)))
+    assert got.shape == (16, 6, 5) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_autograd_matches_conv_gradient():
+    x, k = _inputs(4, (1, 4, 6, 16), 8)
+    xt = torch.from_numpy(x).requires_grad_()
+    kt = torch.from_numpy(k).requires_grad_()
+    (twino.winograd_conv2d(xt, kt) ** 2).sum().backward()
+
+    xc = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    kc = torch.from_numpy(k).permute(3, 2, 0, 1).requires_grad_()
+    (F.conv2d(xc, kc, padding=1) ** 2).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(),
+                               xc.grad.permute(0, 2, 3, 1).numpy(), atol=1e-3)
+    np.testing.assert_allclose(kt.grad.numpy(),
+                               kc.grad.permute(2, 3, 1, 0).numpy(), atol=1e-3)
+
+    # and against the JAX package's custom VJP (Pallas forward, interpret)
+    gx, gk = jax.grad(lambda a, b: jnp.sum(jwino.winograd_conv2d(a, b, True)
+                                           ** 2), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(k))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), atol=1e-3)
+    np.testing.assert_allclose(kt.grad.numpy(), np.asarray(gk), atol=1e-3)
+
+
+def test_cpu_path_does_not_launch_and_counts_stay():
+    before = twino.launch_count
+    x, k = _inputs(5, (1, 4, 4, 2), 2)
+    twino.winograd_conv2d(torch.from_numpy(x), torch.from_numpy(k))
+    assert twino.launch_count == before
+
+
+def test_eligibility_follows_the_kernel_limits():
+    assert twino.winograd_eligible((30, 96, 64, 1), (3, 3, 1, 192))
+    assert twino.winograd_eligible((30, 48, 32, 384), (3, 3, 384, 384))
+    assert twino.winograd_eligible((1, 2, 2, 1), (3, 3, 1, 1))
+    assert not twino.winograd_eligible((2, 31, 32, 8), (3, 3, 8, 8))
+    assert not twino.winograd_eligible((2, 32, 32, 8), (1, 1, 8, 8))
+    assert not twino.winograd_eligible((2, 32, 32, 8), (3, 3, 8, 8),
+                                       dilation=2)
+
+
+def test_odd_spatial_dims_raise():
+    x = torch.zeros(1, 5, 4, 2)
+    with pytest.raises(ValueError):
+        twino.winograd_conv2d(x, torch.zeros(3, 3, 2, 2))
+
