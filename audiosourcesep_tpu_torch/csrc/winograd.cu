@@ -1,20 +1,23 @@
-// Fused Winograd F(2x2,3x3) convolution for Hopper (sm_90a), NHWC.
+// Fused Winograd F(2x2,3x3) convolution for Hopper (sm_90a), NHWC, float32
+// on the CUDA cores.
 //
 // Replaces: audiosourcesep_tpu/ops/winograd.py::_wino_kernel (launched by
-// _winograd_pallas, behind winograd_conv2d), the repository's only Pallas
-// TPU kernel. Same math: SAME 3x3 stride-1 conv computed per 2x2 output
-// tile as  Y = A^T [ sum_cin (G g G^T) . (B^T d B) ] A  with f32
-// accumulation. The bias is the caller's job.
+// _winograd_pallas, behind winograd_conv2d) for float32 inputs; bf16 inputs
+// go to the tensor-core kernel in winograd_mma.cu. Same math: SAME 3x3
+// stride-1 conv computed per 2x2 output tile as  Y = A^T [ sum_cin
+// (G g G^T) . (B^T d B) ] A  with f32 accumulation. The bias is the
+// caller's job.
 //
 // What bounds it on this card: operations, not bytes. The 16
 // transform-domain channel contractions (16 * tiles * Cin * Cout FMAs,
 // 2.25x fewer than the direct conv) run as f32 FMA on the CUDA cores
-// (67 TFLOP/s peak), not on the tensor cores; x, U and y are read or
-// written about once per Cout block and mostly hit L2. Within that, the
-// FMAs are fed from shared memory (two 8-byte loads per four FMAs) and
-// each thread holds 64 accumulators, so a block takes ~250 registers a
-// thread and only one block (8 warps) fits on an SM: latency, not the FMA
-// pipe, sets the rate (about 11 TFLOP/s measured on an H100 at 700 W).
+// (67 TFLOP/s peak): the tensor cores have no full-f32 product. x, U and y
+// are read or written about once per Cout block and mostly hit L2. Within
+// that, the FMAs are fed from shared memory (two 8-byte loads per four
+// FMAs) and each thread holds 64 accumulators, so a block takes ~250
+// registers a thread and only one block (8 warps) fits on an SM: latency,
+// not the FMA pipe, sets the rate (about 11 TFLOP/s measured on an H100 at
+// 700 W).
 //
 // What the design does about it: only x, U and y touch device memory.
 // Each block owns 32 output tiles x 32 output channels and walks Cin in
@@ -29,15 +32,13 @@
 // stride so they are conflict-free. The inverse transform A^T M A runs in
 // registers and the interleaved NHWC 2x2 output is written directly (no
 // phase split, no de-interleave, no channel padding: those existed only
-// for Mosaic/VMEM on the TPU). Tensor cores (mma.sync, then wgmma/TMA)
-// are left for later work.
+// for Mosaic/VMEM on the TPU).
 //
-// C interface (bound with ctypes): winograd_f23_fwd(x, u, y, B, H, W, Cin,
-// Cout, dtype, stream) with x [B,H,W,Cin] (dtype 0 = f32, 1 = bf16), U
-// [16,Cin,Cout] f32, y [B,H,W,Cout] of x's type; H and W even. It launches
-// on `stream`, allocates nothing, and returns cudaGetLastError().
+// C interface (bound with ctypes): winograd_f23_fwd_f32(x, u, y, B, H, W,
+// Cin, Cout, stream) with x [B,H,W,Cin], U [16,Cin,Cout] and y [B,H,W,Cout],
+// all float32; H and W even. It launches on `stream`, allocates nothing,
+// and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,24 +54,11 @@ static_assert((TP / 2) * (TC / 2) == NT, "2 tiles x 2 channels per thread");
 constexpr int UPT = CK * 16 * TC / NT;  // U values each thread stages
 static_assert(UPT * NT == CK * 16 * TC, "U chunk splits evenly");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(NT)
-    winograd_f23_kernel(const T* __restrict__ x, const float* __restrict__ u,
-                        T* __restrict__ y, int B, int H, int W, int Cin,
-                        int Cout) {
+    winograd_f23_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ u,
+                            float* __restrict__ y, int B, int H, int W,
+                            int Cin, int Cout) {
   __shared__ __align__(16) float Vs[CK * VSTRIDE];   // [k][uv][tile]
   __shared__ __align__(16) float Us[CK * 16 * TC];   // [k][uv][cout]
 
@@ -121,12 +109,12 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = lr0 + i;
-        const T* xrow = x + lbase + ((long long)r * W + lc0) * Cin + c;
+        const float* xrow = x + lbase + ((long long)r * W + lc0) * Cin + c;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int q = lc0 + j;
           d[i][j] = (cvalid && r >= 0 && r < H && q >= 0 && q < W)
-                        ? to_f32(xrow[j * Cin]) : 0.f;
+                        ? xrow[j * Cin] : 0.f;
         }
       }
 #pragma unroll
@@ -186,7 +174,7 @@ __global__ void __launch_bounds__(NT)
     const long long b = t / tiles_per_img;
     const int rem = (int)(t - b * tiles_per_img);
     const int r = 2 * (rem / tw), q = 2 * (rem % tw);
-    T* out = y + ((b * H + r) * (long long)W + q) * Cout;
+    float* out = y + ((b * H + r) * (long long)W + q) * Cout;
 #pragma unroll
     for (int ci = 0; ci < 2; ++ci) {
       const int o = co0 + cc + ci;
@@ -199,19 +187,19 @@ __global__ void __launch_bounds__(NT)
         r0[v] = m0 + m1 + m2;
         r1[v] = m1 - m2 - m3;
       }
-      out[o] = from_f32<T>(r0[0] + r0[1] + r0[2]);
-      out[Cout + o] = from_f32<T>(r0[1] - r0[2] - r0[3]);
-      out[(long long)W * Cout + o] = from_f32<T>(r1[0] + r1[1] + r1[2]);
-      out[(long long)W * Cout + Cout + o] = from_f32<T>(r1[1] - r1[2] - r1[3]);
+      out[o] = r0[0] + r0[1] + r0[2];
+      out[Cout + o] = r0[1] - r0[2] - r0[3];
+      out[(long long)W * Cout + o] = r1[0] + r1[1] + r1[2];
+      out[(long long)W * Cout + Cout + o] = r1[1] - r1[2] - r1[3];
     }
   }
 }
 
 }  // namespace
 
-extern "C" int winograd_f23_fwd(const void* x, const void* u, void* y, int B,
-                                int H, int W, int Cin, int Cout, int dtype,
-                                void* stream) {
+extern "C" int winograd_f23_fwd_f32(const void* x, const void* u, void* y,
+                                    int B, int H, int W, int Cin, int Cout,
+                                    void* stream) {
   if (B < 0 || H < 2 || W < 2 || (H % 2) || (W % 2) || Cin < 1 || Cout < 1)
     return (int)cudaErrorInvalidValue;
   const long long n_tiles = (long long)B * (H / 2) * (W / 2);
@@ -220,18 +208,8 @@ extern "C" int winograd_f23_fwd(const void* x, const void* u, void* y, int B,
   const int gy = (Cout + TC - 1) / TC;
   if (gx > 0x7fffffffLL || gy > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)gx, (unsigned)gy);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* uf = static_cast<const float*>(u);
-  if (dtype == 0) {
-    winograd_f23_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), uf, static_cast<float*>(y), B, H, W,
-        Cin, Cout);
-  } else if (dtype == 1) {
-    winograd_f23_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), uf,
-        static_cast<__nv_bfloat16*>(y), B, H, W, Cin, Cout);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  winograd_f23_f32_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(u),
+      static_cast<float*>(y), B, H, W, Cin, Cout);
   return (int)cudaGetLastError();
 }

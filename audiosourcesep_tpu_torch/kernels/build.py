@@ -1,10 +1,14 @@
 """Compile ``csrc/*.cu`` with nvcc into one shared library and load it.
 
 The sources expose a plain C interface, so they are compiled without
-PyTorch's headers (seconds, not minutes) and bound with ``ctypes``. The
-library is built at first use into ``kernels/_build/`` (listed in
-``.gitignore``) and cached by a hash of the sources and the flags; a
-second process finds the finished ``.so`` and only loads it.
+PyTorch's headers (seconds, not minutes) and bound with ``ctypes``. Each
+source is compiled by its own nvcc, all started together, and the
+objects are linked into one library. It is built at first use into
+``kernels/_build/`` (listed in ``.gitignore``) and cached by a hash of
+the sources and the flags; a second process finds the finished ``.so``
+and only loads it. nvcc's output (ptxas' registers, spills and shared
+memory per kernel) is kept beside the library as ``.log`` and read back
+into :data:`build_log` on a cached build.
 
 A missing ``nvcc`` or a failed build raises, with nvcc's output in the
 message. Nothing here runs at import time.
@@ -24,14 +28,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "kernels" / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every exported function: name -> (argtypes, restype).
 # Pointers and the stream are c_void_p; every int is c_int.
 SIGNATURES = {
-    # (x, u, y, B, H, W, Cin, Cout, dtype, stream) -> cudaError_t
-    "winograd_f23_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    # (x, u, y, B, H, W, Cin, Cout, stream) -> cudaError_t
+    "winograd_f23_fwd_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "winograd_f23_fwd_bf16": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # () -> dynamic shared memory bytes per block of the bf16 kernel
+    "winograd_f23_bf16_smem_bytes": ([], _I),
 }
 
 _lib = None
@@ -72,19 +79,39 @@ def build() -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     so = BUILD_DIR / f"libasrkernels_{_digest(_sources())}.so"
+    log = so.with_suffix(".log")
     if so.exists():
+        build_log = log.read_text() if log.exists() else ""
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{build_log}")
-    os.replace(tmp, so)      # atomic: a concurrent loader sees all or none
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(sources, objs)]
+    cmds.append([nvcc, "-shared", "-o", str(so.with_suffix(f".{tag}")),
+                 *map(str, objs)])
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        outs = [p.communicate()[0] for p in procs]
+        logs = [f"$ {' '.join(c)}\n{out}" for c, out in zip(cmds, outs)]
+        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            logs.append(f"$ {' '.join(cmds[-1])}\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed = [cmds[-1]]
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n"
+                               f"{build_log}")
+        log.write_text(build_log)
+        # atomic: a concurrent loader sees all or none
+        os.replace(so.with_suffix(f".{tag}"), so)
+    finally:
+        for path in (*objs, so.with_suffix(f".{tag}")):
+            path.unlink(missing_ok=True)
     return so
 
 

@@ -64,12 +64,14 @@ def normal_init(shape: Sequence[int], stddev: float = 0.02,
 
 def conv2d(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None,
-           dilation: int = 1) -> torch.Tensor:
+           dilation: int = 1, winograd_cache: Optional[dict] = None
+           ) -> torch.Tensor:
     """SAME stride-1 conv of NCHW ``x`` with an OIHW ``kernel`` (odd size).
 
     Weights are cast to ``x``'s dtype at use, as in the JAX package. With
     :func:`set_winograd` on, eligible convs run through the Winograd
-    kernel.
+    kernel; ``winograd_cache`` (a dict owned by the caller) then keeps the
+    transformed weights on the card until ``kernel`` changes.
     """
     kh, kw = kernel.shape[2:]
     if kh != kw or kh % 2 == 0:
@@ -83,7 +85,12 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor,
                              dilation=dilation):
             x_nhwc = x.contiguous(
                 memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            y = winograd_conv2d(x_nhwc, kernel.permute(2, 3, 1, 0))
+            hwio = kernel.permute(2, 3, 1, 0)
+            if winograd_cache is not None and x.is_cuda:
+                y = winograd_conv2d(x_nhwc, hwio, _winograd_weights(
+                    winograd_cache, kernel, hwio, x.dtype))
+            else:
+                y = winograd_conv2d(x_nhwc, hwio)
             y = y.permute(0, 3, 1, 2)          # NCHW view, channels_last
             if bias is not None:
                 y = y + bias.to(x.dtype)[:, None, None]
@@ -92,6 +99,21 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor,
     return F.conv2d(x, kernel.to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
                     padding=pad, dilation=dilation)
+
+
+def _winograd_weights(cache: dict, kernel: torch.Tensor, hwio: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """``transform_weights(hwio)`` in ``dtype``, recomputed only when
+    ``kernel`` is another tensor, was written in place (``_version``), moved
+    (``data_ptr``), or ``dtype`` changes. The cache holds ``kernel`` itself,
+    so its identity cannot pass to a new tensor."""
+    from .ops.winograd import transform_weights
+    key = (kernel._version, kernel.data_ptr(), dtype)
+    if cache.get("kernel") is not kernel or cache.get("key") != key:
+        with torch.no_grad():
+            cache["u"] = transform_weights(hwio).to(dtype)
+        cache["kernel"], cache["key"] = kernel, key
+    return cache["u"]
 
 
 class Conv2d(torch.nn.Module):
@@ -106,6 +128,7 @@ class Conv2d(torch.nn.Module):
             out_ch, in_ch, kernel_size, kernel_size, device=device))
         self.bias = (torch.nn.Parameter(torch.empty(out_ch, device=device))
                      if use_bias else None)
+        self._winograd_cache = {}      # U of the kernel, on the card
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -114,7 +137,8 @@ class Conv2d(torch.nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.kernel, self.bias, self.dilation)
+        return conv2d(x, self.kernel, self.bias, self.dilation,
+                      self._winograd_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Winograd F(2x2, 3x3) convolution: hand-written CUDA kernel for Hopper.
+"""Winograd F(2x2, 3x3) convolution: hand-written CUDA kernels for Hopper.
 
 Port of ``audiosourcesep_tpu/ops/winograd.py``. The SAME 3x3 stride-1
 conv is computed per 2x2 output tile as
@@ -7,10 +7,12 @@ conv is computed per 2x2 output tile as
 
 with the exact +-1 / +-0.5 transform matrices below: 16 channel
 contractions in the transform domain, 2.25x fewer multiply-adds than the
-direct conv. The Hopper kernel (``csrc/winograd.cu``) reads NHWC ``x``
-directly (SAME halo masked in the kernel), takes the pre-transformed
-weights ``U [16, C_in, C_out]`` in f32, and writes the interleaved NHWC
-output itself.
+direct conv. Two Hopper kernels compute it, one per dtype: bf16 on the
+tensor cores (``csrc/winograd_mma.cu``) and float32 on the CUDA cores
+(``csrc/winograd.cu``). Both read NHWC ``x`` directly (SAME halo
+zero-filled in the kernel), take the pre-transformed weights
+``U [16, C_in, C_out]`` in ``x``'s dtype (rounded as the JAX wrapper
+rounds them), and write the interleaved NHWC output themselves.
 
 Public layout is the JAX package's: NHWC activations, HWIO kernels.
 
@@ -20,17 +22,21 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
 * Gradients: a ``torch.autograd.Function`` whose backward is the plain
   conv VJP (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``), as the
   JAX custom VJP uses the XLA conv VJP; there is no backward kernel.
-* ``launch_count`` counts kernel launches (and nothing else).
+* ``launch_count`` counts kernel launches (and nothing else);
+  ``launch_counts`` splits it by kernel name.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["transform_weights", "winograd_conv2d",
-           "winograd_conv2d_reference", "winograd_eligible", "launch_count"]
+           "winograd_conv2d_reference", "winograd_eligible", "launch_count",
+           "launch_counts"]
 
 _BT = np.array([[1, 0, -1, 0],
                 [0, 1, 1, 0],
@@ -43,10 +49,13 @@ _G = np.array([[1, 0, 0],
 _AT = np.array([[1, 1, 1, 0],
                 [0, 1, -1, -1]], np.float32)
 
-# kernel launches since import (or since a caller reset it to 0)
-launch_count = 0
+# the C entry point of each dtype's kernel
+KERNELS = {torch.float32: "winograd_f23_fwd_f32",
+           torch.bfloat16: "winograd_f23_fwd_bf16"}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# kernel launches since import (or since a caller reset them to 0)
+launch_count = 0
+launch_counts = {name: 0 for name in KERNELS.values()}
 
 
 def _const(a: np.ndarray, device) -> torch.Tensor:
@@ -55,10 +64,15 @@ def _const(a: np.ndarray, device) -> torch.Tensor:
 
 def transform_weights(kernel: torch.Tensor) -> torch.Tensor:
     """HWIO ``[3, 3, C_in, C_out]`` -> ``U [16, C_in, C_out]`` =
-    flat(G g G^T), in float32."""
+    flat(G g G^T), in float32.
+
+    Two ``tensordot`` products with K = 3 sum in the order the JAX
+    package's einsum does: U is bit-identical to its ``transform_weights``
+    (tests/test_torch_winograd.py), at the cost of two small matmuls."""
     g = _const(_G, kernel.device)
-    u = torch.einsum("ui,ijcd,vj->uvcd", g, kernel.float(), g)
-    return u.reshape(16, *kernel.shape[2:]).contiguous()
+    t = torch.tensordot(g, kernel.float(), dims=([1], [0]))   # [4, 3, ci, co]
+    u = torch.tensordot(t, g, dims=([1], [1]))                # [4, ci, co, 4]
+    return u.permute(0, 3, 1, 2).reshape(16, *kernel.shape[2:]).contiguous()
 
 
 def winograd_conv2d_reference(x: torch.Tensor,
@@ -101,17 +115,18 @@ def winograd_eligible(x_shape, kernel_shape, dilation: int = 1) -> bool:
 
 
 def _winograd_cuda(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/winograd.cu`` on the current stream. NHWC ``x``
-    (f32 or bf16, contiguous, even H/W) and ``U [16, C_in, C_out]`` f32."""
+    """Launch the kernel of ``x``'s dtype on the current stream. NHWC
+    ``x`` (f32 or bf16, contiguous, even H/W) and ``U [16, C_in, C_out]``
+    of the same dtype."""
     global launch_count
     if not x.is_cuda or u.device != x.device:
         raise ValueError(f"winograd kernel needs x and U on one CUDA device, "
                          f"got {x.device} and {u.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in KERNELS:
         raise TypeError(f"winograd kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
-    if u.dtype != torch.float32:
-        raise TypeError(f"U must be float32, got {u.dtype}")
+    if u.dtype != x.dtype:
+        raise TypeError(f"U must be in x's dtype {x.dtype}, got {u.dtype}")
     if x.dim() != 4 or not x.is_contiguous() or not u.is_contiguous():
         raise ValueError("winograd kernel needs contiguous NHWC x and U")
     b, h, w, cin = x.shape
@@ -125,23 +140,27 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if y.numel() == 0:
         return y
     from ..kernels.build import load_library
-    lib = load_library()
+    name = KERNELS[x.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.winograd_f23_fwd(x.data_ptr(), u.data_ptr(), y.data_ptr(),
-                                   b, h, w, cin, cout, _DTYPE_CODE[x.dtype],
-                                   stream)
+        err = getattr(load_library(), name)(
+            x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
+            stream)
     if err != 0:
-        raise RuntimeError(f"winograd_f23_fwd launch failed: CUDA error "
-                           f"{err} (x {tuple(x.shape)} {x.dtype}, "
-                           f"C_out {cout})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)}, C_out {cout})")
     launch_count += 1
+    launch_counts[name] += 1
     return y
 
 
-def _forward(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def _forward(x: torch.Tensor, kernel: torch.Tensor,
+             u: Optional[torch.Tensor]) -> torch.Tensor:
     if x.is_cuda:
-        return _winograd_cuda(x, transform_weights(kernel))
+        # U rounded to x's dtype, as the JAX wrapper does (winograd.py:292)
+        if u is None:
+            u = transform_weights(kernel)
+        return _winograd_cuda(x, u.to(x.dtype))
     if x.device.type == "cpu":
         return winograd_conv2d_reference(x, kernel)
     raise ValueError(f"winograd_conv2d: no implementation for device "
@@ -153,9 +172,9 @@ class _WinogradConv2d(torch.autograd.Function):
     the plain conv VJP, as in the JAX package's custom VJP."""
 
     @staticmethod
-    def forward(ctx, x, kernel):
+    def forward(ctx, x, kernel, u):
         ctx.save_for_backward(x, kernel)
-        return _forward(x, kernel)
+        return _forward(x, kernel, u)
 
     @staticmethod
     def backward(ctx, gy):
@@ -170,14 +189,18 @@ class _WinogradConv2d(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             gk = torch.nn.grad.conv2d_weight(xn, w.shape, g, padding=1)
             gk = gk.permute(2, 3, 1, 0).to(kernel.dtype)
-        return gx, gk
+        return gx, gk, None
 
 
-def winograd_conv2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def winograd_conv2d(x: torch.Tensor, kernel: torch.Tensor,
+                    u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SAME 3x3 stride-1 conv via Winograd F(2x2,3x3).
 
     NHWC ``x``, HWIO ``kernel``; output NHWC in ``x``'s dtype. A CUDA
-    tensor goes through the Hopper kernel (or raises), a CPU tensor through
-    :func:`winograd_conv2d_reference`. Bias is the caller's job.
+    tensor goes through the Hopper kernel of its dtype (or raises), a CPU
+    tensor through :func:`winograd_conv2d_reference`. ``u``, if given, is
+    ``transform_weights(kernel)`` computed earlier (the CUDA path then
+    skips it; gradients still flow to ``kernel``). Bias is the caller's
+    job.
     """
-    return _WinogradConv2d.apply(x, kernel)
+    return _WinogradConv2d.apply(x, kernel, u)

@@ -15,9 +15,12 @@ from audiosourcesep_tpu_torch.ops import winograd as W
 
 pytestmark = pytest.mark.cuda
 
-# kernel vs plain version, as max|err| / max|plain|: f32 differs only in
-# summation order, bf16 also by one rounding of the f32 sum (2^-7)
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# kernel vs plain version: (max|err| / max|plain|, mean|err| / mean|plain|,
+# max|err| vs F.conv2d / max|plain|). f32 differs only in summation order.
+# The bf16 kernel rounds U and V to bf16 as the JAX Pallas kernel does, and
+# that kernel needs this much itself: test_torch_winograd.py's
+# test_bf16_pallas_kernel_within_card_tolerance pins it under (2e-2, 1e-2).
+TOL = {torch.float32: (1e-4, 1e-4, 2e-4), torch.bfloat16: (2e-2, 1e-2, 3e-2)}
 
 
 @pytest.fixture
@@ -36,25 +39,44 @@ def _inputs(shape, cout, dtype, seed=0):
     return x, k
 
 
-# ragged shapes: tiles not a multiple of 32, C_in of 8, C_out of 32
+# ragged shapes: tiles not a multiple of the block's 4 x 8 rectangle (W = 2,
+# 6), C_in not a multiple of 16 (1, 5, 17, 40), C_out not a multiple of 8
+# or of the 64-channel block (1, 7, 33, 200); then full channel widths
 @pytest.mark.parametrize("shape,cout", [((3, 12, 10, 5), 7),
                                         ((2, 16, 8, 40), 33),
                                         ((1, 2, 2, 1), 1),
-                                        ((2, 8, 6, 17), 64)])
+                                        ((2, 8, 6, 17), 64),
+                                        ((2, 10, 2, 24), 200),
+                                        ((2, 16, 12, 192), 192),
+                                        ((1, 8, 8, 384), 384),
+                                        ((2, 8, 8, 192), 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, cout, dtype):
     x, k = _inputs(shape, cout, dtype)
     before = W.launch_count
+    name = W.KERNELS[dtype]
+    before_mine = W.launch_counts[name]
     got = W.winograd_conv2d(x, k)
     assert W.launch_count == before + 1
+    assert W.launch_counts[name] == before_mine + 1
     assert got.dtype == dtype and got.shape == (*shape[:3], cout)
+    tol_max, tol_mean, tol_conv = TOL[dtype]
     want = W.winograd_conv2d_reference(x, k).float()
-    err = (got.float() - want).abs().max().item()
-    assert err <= TOL[dtype] * want.abs().max().item(), err
+    err = (got.float() - want).abs()
+    assert err.max().item() <= tol_max * want.abs().max().item()
+    assert err.mean().item() <= tol_mean * want.abs().mean().item()
     conv = F.conv2d(x.permute(0, 3, 1, 2).float(),
                     k.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
     assert (got.float() - conv).abs().max().item() \
-        <= 2 * TOL[dtype] * conv.abs().max().item()
+        <= tol_conv * conv.abs().max().item()
+
+
+def test_bf16_kernel_takes_bf16_weights_only(cuda):
+    x, k = _inputs((1, 4, 4, 8), 8, torch.bfloat16)
+    with pytest.raises(TypeError):
+        W._winograd_cuda(x, W.transform_weights(k))          # f32 U
+    y = W._winograd_cuda(x, W.transform_weights(k).bfloat16())
+    torch.testing.assert_close(y, W.winograd_conv2d(x, k), atol=0, rtol=0)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -98,3 +120,22 @@ def test_routed_forward_matches_cudnn(cuda):
         finally:
             nn.set_winograd(False)
     torch.testing.assert_close(on, off, atol=2e-4, rtol=1e-4)
+
+
+def test_routed_conv_follows_in_place_weight_updates(cuda):
+    conv = nn.Conv2d(16, 24).to(cuda)
+    conv.reset_parameters(torch.Generator().manual_seed(3))
+    x = torch.randn(2, 16, 8, 12, device=cuda).bfloat16()
+    try:
+        nn.set_winograd(True)
+        with torch.no_grad():
+            before = W.launch_count
+            first = conv(x)
+            conv.kernel.mul_(-1.0)                   # U must be rebuilt
+            second = conv(x)
+        assert W.launch_count == before + 2
+    finally:
+        nn.set_winograd(False)
+    torch.testing.assert_close(second - conv.bias.bfloat16()[:, None, None],
+                               -(first - conv.bias.bfloat16()[:, None, None]),
+                               atol=2e-2, rtol=2e-2)

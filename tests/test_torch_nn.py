@@ -108,3 +108,24 @@ def test_glorot_uniform_bounds_and_fans():
     assert float(w.abs().max()) > 0.95 * limit
     n = tnn.normal_init((10, 1000), 0.02, g)
     assert abs(float(n.std()) - 0.02) < 1e-3
+
+
+def test_winograd_weight_cache_follows_the_kernel():
+    from audiosourcesep_tpu_torch.ops import winograd as twino
+    kernel = torch.randn(5, 4, 3, 3)                 # OIHW
+    cache = {}
+
+    def u_of(k, dtype=torch.float32):
+        return tnn._winograd_weights(cache, k, k.permute(2, 3, 1, 0), dtype)
+
+    first = u_of(kernel)
+    torch.testing.assert_close(
+        first, twino.transform_weights(kernel.permute(2, 3, 1, 0)))
+    assert u_of(kernel) is first                     # unchanged: reused
+    with torch.no_grad():
+        kernel.mul_(2.0)                             # in place: recomputed
+    torch.testing.assert_close(u_of(kernel), 2.0 * first)
+    doubled = u_of(kernel)
+    other = kernel.clone()                           # another tensor
+    assert u_of(other) is not doubled and cache["kernel"] is other
+    assert u_of(other, torch.bfloat16).dtype == torch.bfloat16

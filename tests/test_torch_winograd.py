@@ -113,3 +113,38 @@ def test_odd_spatial_dims_raise():
     with pytest.raises(ValueError):
         twino.winograd_conv2d(x, torch.zeros(3, 3, 2, 2))
 
+
+
+# The bf16 numerics the card's kernel is held to: the JAX Pallas kernel
+# itself (U rounded to bf16 by its wrapper, V formed in bf16) differs from
+# the plain f32-accumulated version by this much. tests/test_torch_cuda.py
+# and chip_smoke.py hold the Hopper bf16 kernel to the same pair.
+BF16_MAX_REL, BF16_MEAN_REL = 2e-2, 1e-2
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 8, 8, 64), 128),
+                                        ((2, 16, 12, 40), 33)])
+def test_bf16_pallas_kernel_within_card_tolerance(shape, cout):
+    x, k = _inputs(6, shape, cout, (1.0 / (9 * shape[-1])) ** 0.5)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    pallas = np.asarray(jwino.winograd_conv2d(xb, jnp.asarray(k), True)
+                        .astype(jnp.float32))
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16()
+    plain = twino.winograd_conv2d_reference(xt, torch.from_numpy(k))
+    assert plain.dtype == torch.bfloat16
+    plain = plain.float().numpy()
+    err = np.abs(pallas - plain)
+    assert err.max() <= BF16_MAX_REL * np.abs(plain).max()
+    assert err.mean() <= BF16_MEAN_REL * np.abs(plain).mean()
+
+
+@pytest.mark.parametrize("cin,cout", [(6, 5), (64, 128), (1, 192)])
+def test_transform_weights_in_bf16_match_jax_exactly(cin, cout):
+    # the U operand the bf16 kernel takes, and the f32 U before rounding
+    _, k = _inputs(7, (1, 4, 4, cin), cout, 0.3)
+    got = twino.transform_weights(torch.from_numpy(k))
+    want = jwino.transform_weights(jnp.asarray(k))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.to(torch.bfloat16).float().numpy(),
+        np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32)))
