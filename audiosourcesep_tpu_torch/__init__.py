@@ -2,17 +2,21 @@
 
 The JAX package ``audiosourcesep_tpu`` stays the reference; this package
 mirrors its module layout (``nn``, ``ops``, ``models.ncsn``,
-``separation``, ``training.checkpoint``, ``data``) so each ported function
-sits at the same path as its counterpart. It imports ``torch`` and never
-``jax``.
+``separation``, ``training.checkpoint``, ``data``, ``evaluation``) so each
+ported function sits at the same path as its counterpart. It imports
+``torch`` and never ``jax``.
 
 The one TPU kernel of the reference, the fused Winograd F(2x2,3x3) conv
-(``audiosourcesep_tpu/ops/winograd.py``), is a hand-written CUDA kernel
-for Hopper here (``csrc/winograd.cu``), built with ``nvcc`` at first use
-(``kernels/build.py``) and bound with ``ctypes``.
+(``audiosourcesep_tpu/ops/winograd.py``), is two hand-written CUDA kernels
+for Hopper here (``csrc/winograd_mma.cu`` for bf16, ``csrc/winograd.cu``
+for float32), built with ``nvcc`` at first use (``kernels/build.py``) and
+bound with ``ctypes``.
 
-Ported so far: the NCSN BASIS separation path, from wavs to
-``results.npz`` (``python -m audiosourcesep_tpu_torch.run_basis_sep``).
+Ported so far: the NCSN BASIS main path, from wavs to ``results.npz``
+(``python -m audiosourcesep_tpu_torch.run_basis_sep``), back to audio
+(its ``--inverse``, and
+``python -m audiosourcesep_tpu_torch.melspec_inversion_basis``) and its
+BSS-Eval score (``evaluation``).
 """
 
 __version__ = "0.1.0"

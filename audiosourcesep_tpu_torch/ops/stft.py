@@ -1,4 +1,5 @@
-"""Batched STFT with librosa conventions (port of ``stft`` in ``audiosourcesep_tpu/ops/stft.py``).
+"""Batched STFT and iSTFT with librosa conventions (port of ``stft`` and
+``istft`` in ``audiosourcesep_tpu/ops/stft.py``).
 
 * window: periodic Hann of length ``win_length`` (default ``n_fft``),
   zero-padded centred to ``n_fft``;
@@ -12,6 +13,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def hann_window_np(win_length: int, periodic: bool = True) -> np.ndarray:
@@ -43,3 +45,41 @@ def stft(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
                       n_fft, window, center=center, pad_mode="reflect",
                       normalized=False, onesided=True, return_complex=True)
     return spec.reshape(*batch, *spec.shape[-2:])
+
+
+def istft(spec: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
+          win_length: Optional[int] = None, center: bool = True,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse STFT with NOLA-normalised overlap-add (librosa.istft).
+
+    Complex ``[..., n_fft//2 + 1, n_frames]`` -> real ``[..., T]``. The
+    windowed frames are overlap-added with ``F.fold`` and divided by the
+    summed squared window, floored at 1e-11 as the JAX package does (where
+    ``torch.istft`` would raise instead). ``center`` trims ``n_fft // 2``
+    at both ends; ``length`` then trims or zero-pads the end.
+    """
+    win_length = win_length or n_fft
+    w_np = _pad_center_np(hann_window_np(win_length), n_fft)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
+    frames = frames * torch.as_tensor(w_np, dtype=frames.dtype,
+                                      device=frames.device)
+    batch, n_frames = frames.shape[:-2], frames.shape[-2]
+    out_len = n_fft + hop_length * (n_frames - 1)
+    # fold sums each frame's n_fft samples into its hop-spaced slot
+    y = F.fold(frames.reshape(-1, n_frames, n_fft).transpose(1, 2),
+               output_size=(1, out_len), kernel_size=(1, n_fft),
+               stride=(1, hop_length)).reshape(*batch, out_len)
+
+    wsq = np.zeros(out_len, np.float64)
+    for s in range(0, hop_length * n_frames, hop_length):
+        wsq[s:s + n_fft] += w_np ** 2
+    y = y / torch.as_tensor(np.maximum(wsq, 1e-11), dtype=y.dtype,
+                            device=y.device)
+
+    if center:
+        y = y[..., n_fft // 2: out_len - n_fft // 2]
+    if length is not None:
+        y = y[..., :length]
+        if y.shape[-1] < length:
+            y = F.pad(y, (0, length - y.shape[-1]))
+    return y

@@ -24,6 +24,9 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
   JAX custom VJP uses the XLA conv VJP; there is no backward kernel.
 * ``launch_count`` counts kernel launches (and nothing else);
   ``launch_counts`` splits it by kernel name.
+* A dilated 3x3 conv runs the same kernels on its d*d phase grids
+  (``dilated_winograd_conv2d``), one launch per conv, counted as above.
+  ``nn.conv2d`` does not route dilated convs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["transform_weights", "winograd_conv2d",
-           "winograd_conv2d_reference", "winograd_eligible", "launch_count",
+           "winograd_conv2d_reference", "winograd_eligible",
+           "dilated_eligible", "dilated_winograd_conv2d",
+           "dilated_winograd_conv2d_reference", "launch_count",
            "launch_counts"]
 
 _BT = np.array([[1, 0, -1, 0],
@@ -204,3 +209,66 @@ def winograd_conv2d(x: torch.Tensor, kernel: torch.Tensor,
     job.
     """
     return _WinogradConv2d.apply(x, kernel, u)
+
+
+# ---------------------------------------------------------------------------
+# dilated convs via phase decomposition
+# ---------------------------------------------------------------------------
+
+def dilated_eligible(x_shape, kernel_shape, stride: int = 1,
+                     dilation: int = 1) -> bool:
+    """True when this dilation-d 3x3 SAME conv (NHWC ``x_shape``, HWIO
+    ``kernel_shape``, d >= 2) splits exactly into d*d stride-1 convs on
+    the d-subsampled phase grids, and the kernel computes those: H and W
+    divisible by 2d. The cascade of the v1 score network has ten such
+    convs, at d = 2 and 4."""
+    if dilation < 2 or stride != 1:
+        return False
+    b, h, w, cin = x_shape
+    d = dilation
+    if h % (2 * d) or w % (2 * d):
+        return False
+    return winograd_eligible((b * d * d, h // d, w // d, cin), kernel_shape)
+
+
+def _to_phases(x: torch.Tensor, d: int) -> torch.Tensor:
+    """NHWC ``[B, H, W, C]`` -> the d*d phase grids as batch,
+    ``[B*d*d, H/d, W/d, C]`` (contiguous)."""
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // d, d, w // d, d, c).permute(0, 2, 4, 1, 3, 5)
+            .reshape(b * d * d, h // d, w // d, c))
+
+
+def _from_phases(y: torch.Tensor, b: int, d: int) -> torch.Tensor:
+    """Inverse of :func:`_to_phases`: interleave the phase outputs back."""
+    _, hd, wd, c = y.shape
+    return (y.reshape(b, d, d, hd, wd, c).permute(0, 3, 1, 4, 2, 5)
+            .reshape(b, hd * d, wd * d, c))
+
+
+def dilated_winograd_conv2d(x: torch.Tensor, kernel: torch.Tensor,
+                            dilation: int,
+                            u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dilation-d 3x3 SAME conv = Winograd conv on the d*d phase grids.
+
+    ``y[d a + p, d b + q]`` reads only ``x[d (a+i) + p, d (b+j) + q]``, so
+    each phase (p, q) is an independent stride-1 SAME conv on its
+    subsampled grid. The phases move to the batch axis, go through
+    :func:`winograd_conv2d` (the kernel on a CUDA tensor, the plain
+    version on a CPU tensor) and interleave back. NHWC ``x``, HWIO
+    ``kernel``, ``u`` as for :func:`winograd_conv2d`.
+    """
+    if not dilated_eligible(x.shape, kernel.shape, dilation=dilation):
+        raise ValueError(f"dilated winograd needs a 3x3 kernel, d >= 2 and "
+                         f"H, W divisible by 2d; got x {tuple(x.shape)}, "
+                         f"kernel {tuple(kernel.shape)}, d={dilation}")
+    y = winograd_conv2d(_to_phases(x, dilation), kernel, u)
+    return _from_phases(y, x.shape[0], dilation)
+
+
+def dilated_winograd_conv2d_reference(x: torch.Tensor, kernel: torch.Tensor,
+                                      dilation: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dilated_winograd_conv2d` on any
+    device: the phase split around :func:`winograd_conv2d_reference`."""
+    y = winograd_conv2d_reference(_to_phases(x, dilation), kernel)
+    return _from_phases(y, x.shape[0], dilation)

@@ -5,14 +5,16 @@ same positional ``RESTORE1 RESTORE2`` (JAX-format flat-npz checkpoints or
 directories of them), the same flags, and the same outputs in ``--output``:
 ``results.npz`` (``x1 x2 gt1 gt2 mixed stft_mixture``),
 ``results_convergence.npz`` (the L+1 per-level states), ``out.log`` and the
-``mix.wav`` / ``ground_truth{1,2}.wav`` extracts.
+``mix.wav`` / ``ground_truth{1,2}.wav`` extracts. ``--inverse`` also
+inverts the two separated sources, frames concatenated, to ``sep1.wav`` and
+``sep2.wav`` (NNLS + Griffin-Lim on the run's device).
 
     python -m audiosourcesep_tpu_torch.run_basis_sep CKPT1 CKPT2 \\
         --song_dir SONG --device cuda --compute_dtype bf16 --winograd
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
-``--model_type glow``, ``--shard_sources`` and ``--inverse`` are not
-ported yet and raise.
+``--model_type glow``, ``--shard_sources`` and ``--dataset mnist|cifar10``
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import torch
 from . import nn as nn_mod
 from .data import get_song_extract, write_wav
 from .models.ncsn import get_score_model, get_sigmas
+from .ops.inversion import mel_to_audio
+from .ops.mel import db_to_power
 from .separation import (BasisConfig, basis_separate_per_level,
                          ncsn_score_fn, postprocess, preprocess_mixture)
 from .training.checkpoint import restore_ncsn_params
@@ -56,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--song_dir", type=str, default=None,
                         help="dir with mix.wav, piano.wav, violin.wav")
     parser.add_argument("--inverse", action="store_true",
-                        help="not ported yet: raises")
+                        help="invert the separated sources to sep1.wav and "
+                             "sep2.wav (NNLS + Griffin-Lim)")
     parser.add_argument("--model_type", type=str, default="ncsn",
                         help="ncsn (glow not ported yet)")
     parser.add_argument("--version", type=str, default="v1")
@@ -137,7 +142,6 @@ def resolve_device(name: str) -> torch.device:
 def _not_ported(args) -> None:
     for flag, hit in (("--model_type glow", args.model_type != "ncsn"),
                       ("--shard_sources", args.shard_sources),
-                      ("--inverse", args.inverse),
                       (f"--dataset {args.dataset}",
                        args.dataset != "melspec")):
         if hit:
@@ -228,12 +232,29 @@ def run(args: argparse.Namespace) -> None:
         # drop a singleton frame axis)
         return a[..., 0] if a.shape[-1] == 1 else a
 
-    np.savez(os.path.join(out_dir, "results"),
-             x1=post(squeeze_ch(x_final[0])), x2=post(squeeze_ch(x_final[1])),
+    x1_out = post(squeeze_ch(x_final[0]))
+    x2_out = post(squeeze_ch(x_final[1]))
+    np.savez(os.path.join(out_dir, "results"), x1=x1_out, x2=x2_out,
              gt1=squeeze_ch(gt1), gt2=squeeze_ch(gt2),
              mixed=post(squeeze_ch(mixed)), stft_mixture=stft_mixture)
     np.savez(os.path.join(out_dir, "results_convergence"),
              x1=post(traj[:, 0]), x2=post(traj[:, 1]))
+
+    if args.inverse:
+        t0 = time.time()
+        # the separated frames concatenated along time, as one spectrogram
+        mels = torch.as_tensor(np.stack([np.concatenate(list(x), axis=-1)
+                                         for x in (x1_out, x2_out)]),
+                               device=device)
+        if args.scale == "dB":
+            mels = db_to_power(mels)
+        audio = mel_to_audio(
+            mels, gen, sr=spec["sr"], n_fft=spec["n_fft"],
+            hop_length=spec["hop_length"], fmin=spec["fmin"],
+            fmax=spec["fmax"]).cpu().numpy()
+        print(f"Inversion duration: {round(time.time() - t0, 3)} seconds")
+        write_wav(os.path.join(out_dir, "sep1.wav"), audio[0], spec["sr"])
+        write_wav(os.path.join(out_dir, "sep2.wav"), audio[1], spec["sr"])
 
 
 def main(argv=None) -> None:

@@ -1,8 +1,9 @@
 """BASIS separation with score priors."""
 
-from .basis import (BasisConfig, basis_separate_per_level, ncsn_score_fn,
-                    postprocess, preprocess_mixture)
+from .basis import (BasisConfig, basis_separate, basis_separate_per_level,
+                    ncsn_score_fn, postprocess, preprocess_mixture)
 from .mixing import mixing_process
 
-__all__ = ["BasisConfig", "basis_separate_per_level", "ncsn_score_fn",
-           "postprocess", "preprocess_mixture", "mixing_process"]
+__all__ = ["BasisConfig", "basis_separate", "basis_separate_per_level",
+           "ncsn_score_fn", "postprocess", "preprocess_mixture",
+           "mixing_process"]

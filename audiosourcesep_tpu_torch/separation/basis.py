@@ -1,4 +1,6 @@
-"""BASIS: Bayesian Annealed SIgnal Separation (port of the per-level path of ``audiosourcesep_tpu/separation/basis.py``).
+"""BASIS: Bayesian Annealed SIgnal Separation (port of
+``basis_separate`` and ``basis_separate_per_level`` in
+``audiosourcesep_tpu/separation/basis.py``).
 
 Per noise level ``sigma`` the sources take ``T`` Langevin steps held to
 the mixture:
@@ -8,7 +10,8 @@ the mixture:
 
 with ``eta = delta * (sigma / sigma_L)^2`` and ``lambda = 1 / sigma^2``.
 PyTorch runs eagerly, so the JAX package's jitted per-level scan becomes a
-Python loop over steps.
+Python loop over steps, and its single L*T program (``basis_separate``)
+the same loop over all levels in one call.
 """
 
 from __future__ import annotations
@@ -105,6 +108,12 @@ def basis_separate_per_level(score_fn: Callable, mixed: torch.Tensor,
         if config.collect_trajectory:
             traj.append(x.clone())
     return x, (torch.stack(traj) if config.collect_trajectory else None)
+
+
+# The full annealed separation in one call (all L levels x T steps): in
+# eager PyTorch the same loop as basis_separate_per_level, with the same
+# arguments and results.
+basis_separate = basis_separate_per_level
 
 
 def preprocess_mixture(mixed: torch.Tensor, minval: float, maxval: float,

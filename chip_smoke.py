@@ -14,21 +14,34 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
 3. both Winograd kernels (bf16 on the tensor cores, f32 on the CUDA
    cores) against their plain PyTorch version and F.conv2d at every conv
    class the NCSN v1 forward routes to them (batch 30), with errors, times
-   and each class's bound (the least time the card could take);
+   and each class's bound (the least time the card could take); then the
+   dilated route (the kernels on the d*d phase grids) at the cascade's
+   dilated convs, 48x32 384->384 at d = 2 and 4, against its plain version
+   and the dilated F.conv2d;
 4. the full-width v1 score network (192 filters, ``[30, 96, 64, 1]``,
    bf16, random weights) with Winograd routing on and off;
 5. the separation CLI in-process (``run_basis_sep.main``) on ~70 s of
    synthetic piano/violin wavs with two random-init priors written as
    JAX-format checkpoints: 30 frames, 10 noise levels, ``--winograd``,
-   T=2 in bf16 and T=1 in f32; each run must launch its dtype's kernel
-   2 models x 10 levels x T x routed convs per forward times, and the
-   other kernel never.
+   T=2 in bf16 with ``--inverse`` (sep1/sep2.wav) and T=1 in f32; each run
+   must launch its dtype's kernel exactly 2 models x 10 levels x T x routed
+   convs per forward times and the other kernel never (so ``nn.conv2d``
+   routed no dilated conv);
+6. the inversion CLI (``melspec_inversion_basis.main``) on the card on the
+   bf16 run's ``results.npz`` in three modes (reuse_phase with the Wiener
+   filter, reuse_phase over the whole track, griffin), launching no
+   kernel; ``mel_to_stft`` on the card, with TF32 switched on around it,
+   against a float64 run on the CPU (and, as a control, the same solve in
+   TF32); and the ground-truth Wiener inversion scored with the port's
+   ``bss_eval`` against the raw stems, held to the JAX package's numbers
+   on the same song (``benchmarks/jax_ground_truth_sdr.py``).
 
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository around this file, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -47,6 +60,10 @@ CONV_CLASSES = {
     (48, 32, 192, 192): 9,
 }
 ROUTED_PER_FORWARD = sum(CONV_CLASSES.values())          # 64 of 75 convs
+# the cascade's dilated 3x3 convs of one forward, all 48x32 384->384:
+# dilation -> convs per forward (not routed; the dilated route's class)
+DILATED_CLASS = (48, 32, 384, 384)
+DILATED = {2: 5, 4: 5}
 BATCH = 30
 # kernel vs plain version: (max|err| / max|plain|, mean|err| / mean|plain|,
 # max|err| vs F.conv2d / max|plain|). f32 differs only in summation order.
@@ -61,6 +78,20 @@ PEAK = {"bfloat16": 989e12, "float32": 67e12}
 HBM = 3.35e12      # bytes/s
 SOURCES = {"bfloat16": "audiosourcesep_tpu_torch/csrc/winograd_mma.cu",
            "float32": "audiosourcesep_tpu_torch/csrc/winograd.cu"}
+# mel_to_stft on the card (f32) against float64 on the CPU: max|err| /
+# max|ref| and mean|err| / mean|ref| of the NNLS power. f32 on the CPU
+# lands 3.4e-4 / 2.3e-4 from float64 on this song's ground truths.
+NNLS_TOL = (1e-3, 1e-3)
+# ground-truth Wiener inversion of this script's song, per source: SDR and
+# SIR (dB) of the JAX package on the CPU (benchmarks/jax_ground_truth_sdr.py;
+# the port on the CPU gives the same to 1e-3 dB). The card must come within
+# GT_TOL dB of each, above or below.
+JAX_SDR = (6.0076, 6.0152)
+JAX_SIR = (52.2431, 49.9401)
+GT_TOL = {"SDR": 0.1, "SIR": 1.0}
+N_FFT, HOP = 2048, 512
+# a raw ground-truth window and its inversion (HOP * 63), in samples
+W_RAW, W_INV = 32640, HOP * 63
 
 
 def fail(msg: str, code: int = 2):
@@ -115,7 +146,9 @@ def phase_build():
 def conv_bound(h, w, cin, cout, dname):
     """Least time (ms) of one routed conv at batch BATCH, and what sets it:
     the transform-domain work (16 * tiles * C_in * C_out multiply-adds) at
-    the dtype's peak, or x, y and U moved once at the HBM rate."""
+    the dtype's peak, or x, y and U moved once at the HBM rate. A dilated
+    conv of the same shape has the same tiles (on its phase grids), so the
+    same bound."""
     item = 2 if dname == "bfloat16" else 4
     flops = 2 * 16 * BATCH * (h // 2) * (w // 2) * cin * cout
     nbytes = item * (BATCH * h * w * (cin + cout) + 16 * cin * cout)
@@ -124,64 +157,99 @@ def conv_bound(h, w, cin, cout, dname):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _new_result():
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "max_abs_err": 0.0, "by": {"operations": 0.0, "bytes": 0.0}}
+
+
+def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv):
+    """Run one conv class through the kernel, its plain version and
+    F.conv2d on the same inputs; check the kernel's agreement, time all
+    three, and add ``n`` times each to the route's result ``r``."""
+    import torch
+    tol_max, tol_mean, tol_conv = TOL[dname]
+    y, ref, conv = run_kernel().float(), run_plain().float(), run_conv()
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"non-finite kernel output {label} {dname}")
+    scale = ref.abs().max().item()
+    e_plain = (y - ref).abs().max().item()
+    e_mean = ((y - ref).abs().mean() / ref.abs().mean()).item()
+    e_conv = (y - conv.float()).abs().max().item()
+    r["max_abs_err"] = max(r["max_abs_err"], e_plain)
+    ms_k = cuda_ms(run_kernel, 20, 2)
+    ms_p = cuda_ms(run_plain, 3)
+    ms_c = cuda_ms(run_conv, 20, 2)
+    bound, by = conv_bound(*shape, dname)
+    r["ms"] += n * ms_k
+    r["plain_ms"] += n * ms_p
+    r["library_ms"] += n * ms_c
+    r["bound_ms"] += n * bound
+    r["by"][by] += n * bound
+    print(f"[3] {dname:8s} {label} x{n:2d}/fwd: rel err vs plain max "
+          f"{e_plain / scale:.2e} (tol {tol_max:g}) mean {e_mean:.2e} (tol "
+          f"{tol_mean:g}), vs F.conv2d max {e_conv / scale:.2e} (tol "
+          f"{tol_conv:g}); ms kernel {ms_k:.4f} plain {ms_p:.4f} F.conv2d "
+          f"{ms_c:.4f} bound {bound:.4f} ({by}), kernel at "
+          f"{100 * bound / ms_k:.1f}% of bound")
+    if e_plain > tol_max * scale or e_mean > tol_mean \
+            or e_conv > tol_conv * scale:
+        raise AssertionError(f"kernel disagrees at {label} {dname}")
+
+
+def _summary(r, what, dname):
+    print(f"[3] {dname}: {what} (batch {BATCH}): kernel {r['ms']:.3f} ms, "
+          f"plain {r['plain_ms']:.3f} ms, F.conv2d {r['library_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.1f}%"
+          f" of it reached)")
+
+
 def phase_kernel():
+    """Both kernels at the routed classes, then the dilated route; returns
+    the results of each route by dtype name (``bfloat16``, ``float32``,
+    ``bfloat16_dilated``, ``float32_dilated``)."""
     import torch
     import torch.nn.functional as F
     from audiosourcesep_tpu_torch.ops import winograd as W
     g = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(h, w, cin, cout, dtype):
+        x = torch.randn(BATCH, h, w, cin, device="cuda",
+                        generator=g).to(dtype)
+        k = torch.randn(3, 3, cin, cout, device="cuda", generator=g) \
+            * (1.0 / (9 * cin)) ** 0.5
+        return x, k, W.transform_weights(k).to(dtype), \
+            x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).to(dtype)
+
+    def nhwc(y):
+        return y.permute(0, 2, 3, 1)
+
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        tol_max, tol_mean, tol_conv = TOL[dname]
-        r = res[dname] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                          "bound_ms": 0.0, "max_abs_err": 0.0,
-                          "by": {"operations": 0.0, "bytes": 0.0}}
+        r = res[dname] = _new_result()
         for (h, w, cin, cout), n in CONV_CLASSES.items():
-            x = torch.randn(BATCH, h, w, cin, device="cuda",
-                            generator=g).to(dtype)
-            k = torch.randn(3, 3, cin, cout, device="cuda", generator=g) \
-                * (1.0 / (9 * cin)) ** 0.5
-            u = W.transform_weights(k).to(dtype)
-            y = W._winograd_cuda(x, u).float()
-            ref = W.winograd_conv2d_reference(x, k).float()
-            xc = x.permute(0, 3, 1, 2)
-            kc = k.permute(3, 2, 0, 1).to(dtype)
-            conv = F.conv2d(xc, kc, padding=1).permute(0, 2, 3, 1).float()
-            torch.cuda.synchronize()
-            if not torch.isfinite(y).all():
-                raise AssertionError(f"non-finite kernel output {h}x{w} "
-                                     f"{cin}->{cout} {dname}")
-            scale = ref.abs().max().item()
-            e_plain = (y - ref).abs().max().item()
-            e_mean = ((y - ref).abs().mean() / ref.abs().mean()).item()
-            e_conv = (y - conv).abs().max().item()
-            r["max_abs_err"] = max(r["max_abs_err"], e_plain)
-            ms_k = cuda_ms(lambda: W._winograd_cuda(x, u), 20, 2)
-            ms_p = cuda_ms(lambda: W.winograd_conv2d_reference(x, k), 3)
-            ms_c = cuda_ms(lambda: F.conv2d(xc, kc, padding=1), 20, 2)
-            bound, by = conv_bound(h, w, cin, cout, dname)
-            r["ms"] += n * ms_k
-            r["plain_ms"] += n * ms_p
-            r["library_ms"] += n * ms_c
-            r["bound_ms"] += n * bound
-            r["by"][by] += n * bound
-            print(f"[3] {dname:8s} {h}x{w} {cin:3d}->{cout:3d} x{n:2d}/fwd: "
-                  f"rel err vs plain max {e_plain / scale:.2e} (tol "
-                  f"{tol_max:g}) mean {e_mean:.2e} (tol {tol_mean:g}), vs "
-                  f"F.conv2d max {e_conv / scale:.2e} (tol {tol_conv:g}); "
-                  f"ms kernel {ms_k:.4f} plain {ms_p:.4f} F.conv2d "
-                  f"{ms_c:.4f} bound {bound:.4f} ({by}), kernel at "
-                  f"{100 * bound / ms_k:.1f}% of bound")
-            if e_plain > tol_max * scale or e_mean > tol_mean \
-                    or e_conv > tol_conv * scale:
-                raise AssertionError(f"kernel disagrees at {h}x{w} "
-                                     f"{cin}->{cout} {dname}")
-            del x, y, ref, conv, u
-        print(f"[3] {dname}: routed convs of one forward (batch {BATCH}): "
-              f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"F.conv2d {r['library_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.1f}% "
-              f"of it reached)")
+            x, k, u, xc, kc = inputs(h, w, cin, cout, dtype)
+            _hold(r, f"{h}x{w} {cin:3d}->{cout:3d}", dname, n,
+                  (h, w, cin, cout),
+                  lambda: W._winograd_cuda(x, u),
+                  lambda: W.winograd_conv2d_reference(x, k),
+                  lambda: nhwc(F.conv2d(xc, kc, padding=1)))
+            del x, k, u, xc, kc
+        _summary(r, "routed convs of one forward", dname)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        r = res[f"{dname}_dilated"] = _new_result()
+        h, w, cin, cout = DILATED_CLASS
+        for d, n in DILATED.items():
+            x, k, u, xc, kc = inputs(h, w, cin, cout, dtype)
+            _hold(r, f"{h}x{w} {cin:3d}->{cout:3d} d={d}", dname, n,
+                  DILATED_CLASS,
+                  lambda: W.dilated_winograd_conv2d(x, k, d, u),
+                  lambda: W.dilated_winograd_conv2d_reference(x, k, d),
+                  lambda: nhwc(F.conv2d(xc, kc, padding=d, dilation=d)))
+            del x, k, u, xc, kc
+        _summary(r, "dilated route over the cascade's dilated convs", dname)
     return res
 
 
@@ -231,6 +299,9 @@ def phase_model():
 
 
 def _write_song(song_dir: str, seconds: float = 70.0, sr: int = 16000):
+    """Piano and violin tones and their noisy mix. JAX_SDR and JAX_SIR
+    hold for this song only: benchmarks/jax_ground_truth_sdr.py scores the
+    JAX package on it."""
     import numpy as np
     from audiosourcesep_tpu_torch.data import write_wav
     t = np.arange(int(sr * seconds)) / sr
@@ -256,12 +327,20 @@ def _write_prior(path: str, seed: int):
         {"params": params_to_jax(m.state_dict())}, 1)
 
 
-def phase_cli(work: str, T: int, dtype: str = "bf16"):
+def _reset_counts():
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    W.launch_count = 0
+    for name in W.launch_counts:
+        W.launch_counts[name] = 0
+
+
+def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
     """One separation through the CLI; returns the launches of each
-    kernel during it and the wall-clock."""
+    kernel during it, the wall-clock and the output directory."""
     import numpy as np
     import torch
     from audiosourcesep_tpu_torch import run_basis_sep
+    from audiosourcesep_tpu_torch.data import read_wav
     from audiosourcesep_tpu_torch.ops import winograd as W
     song, p1, p2 = (os.path.join(work, n) for n in ("song", "p1", "p2"))
     out = os.path.join(work, f"sep_T{T}_{dtype}")
@@ -275,16 +354,15 @@ def phase_cli(work: str, T: int, dtype: str = "bf16"):
         print(f"[5] wrote 70 s of wavs and two JAX-format priors in "
               f"{time.time() - t0:.1f} s")
     L = 10
-    W.launch_count = 0
-    for name in W.launch_counts:
-        W.launch_counts[name] = 0
+    _reset_counts()
     t0 = time.time()
     run_basis_sep.main([p1, p2, "--output", out, "--song_dir", song,
                         "--model_type", "ncsn", "--version", "v1",
                         "--n_filters", "192", "--num_classes", str(L),
                         "--scale", "dB", "--n_mixed", str(BATCH),
                         "--T", str(T), "--compute_dtype", dtype,
-                        "--winograd", "--device", "cuda"])
+                        "--winograd", "--device", "cuda"]
+                       + (["--inverse"] if inverse else []))
     wall = time.time() - t0
     launches = dict(W.launch_counts)
     expected = 2 * L * T * ROUTED_PER_FORWARD
@@ -292,10 +370,14 @@ def phase_cli(work: str, T: int, dtype: str = "bf16"):
     res = np.load(os.path.join(out, "results.npz"))
     conv = np.load(os.path.join(out, "results_convergence.npz"))
     with open(os.path.join(out, "out.log")) as f:
-        duration = [ln for ln in f.read().splitlines()
-                    if ln.startswith("Duration")]
-    print(f"[5] CLI T={T} {dtype}: wall-clock {wall:.2f} s (main(), data "
-          f"and model load included); out.log: {duration}")
+        log = [ln for ln in f.read().splitlines()
+               if ln.startswith(("Data Loaded", "Duration",
+                                 "Inversion duration"))]
+    inv_s = sum(float(ln.split()[2]) for ln in log
+                if ln.startswith("Inversion duration"))
+    print(f"[5] CLI T={T} {dtype}{' --inverse' if inverse else ''}: "
+          f"wall-clock {wall:.2f} s (main(), data and model load included), "
+          f"{wall - inv_s:.2f} s without the inversion; out.log: {log}")
     print(f"[5] kernel launches {launches}, expected {mine}: 2 models x {L} "
           f"levels x T={T} x {ROUTED_PER_FORWARD} = {expected}")
     if launches != {name: expected if name == mine else 0
@@ -320,7 +402,136 @@ def phase_cli(work: str, T: int, dtype: str = "bf16"):
     print(f"[5] results.npz keys {sorted(res.files)}, x1 {res['x1'].shape}, "
           f"convergence {conv['x1'].shape}; mean|x1 final - init| "
           f"{moved:.3f} dB; all finite")
-    return launches, wall
+    if inverse:
+        # the 30 frames of each source inverted as one spectrogram
+        for name in ("sep1.wav", "sep2.wav"):
+            audio, sr = read_wav(os.path.join(out, name))
+            if audio.shape != (HOP * (BATCH * 64 - 1),) or sr != 16000 \
+                    or not np.isfinite(audio).all() or not audio.any():
+                raise AssertionError(f"{name}: {audio.shape} at {sr} Hz")
+        print(f"[5] sep1.wav, sep2.wav: {HOP * (BATCH * 64 - 1)} samples "
+              f"each, finite")
+    return launches, wall, out
+
+
+def _aligned_stems(basis_dir: str, inv_dir: str):
+    """Raw ground-truth stems and their inversions, window by window (each
+    raw window of W_RAW samples cut to its inversion's W_INV)."""
+    import numpy as np
+    from audiosourcesep_tpu_torch.data import read_wav
+    refs, ests = [], []
+    for i in (1, 2):
+        raw, _ = read_wav(os.path.join(basis_dir, f"ground_truth{i}.wav"))
+        est, _ = read_wav(os.path.join(inv_dir, f"gt{i}.wav"))
+        refs.append(np.concatenate([raw[k * W_RAW:k * W_RAW + W_INV]
+                                    for k in range(BATCH)]))
+        ests.append(est[:BATCH * W_INV])
+    return np.stack(refs)[:, :, None], np.stack(ests)[:, :, None]
+
+
+def phase_inversion(basis_dir: str):
+    """The inversion CLI on the card in three modes, mel_to_stft against
+    float64 on the CPU, and the ground-truth SDR/SIR with the port's
+    bss_eval. Returns the launches of the kernels during the CLI runs."""
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch import melspec_inversion_basis
+    from audiosourcesep_tpu_torch.evaluation import bss_eval
+    from audiosourcesep_tpu_torch.ops import inversion
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.ops.mel import db_to_power
+    mel_to_stft = inversion.mel_to_stft
+    n_frame, n_whole = BATCH * W_INV, HOP * (BATCH * 64 - 1)
+    runs = ((["--algorithm", "reuse_phase", "--wiener_filter"],
+             "inverse_reuse_phase_frame_wiener_filter", n_frame),
+            (["--algorithm", "reuse_phase", "--method", "whole"],
+             "inverse_reuse_phase_whole", n_whole),
+            (["--algorithm", "griffin"], "inverse_griffin_frame", n_frame))
+    _reset_counts()
+    for flags, sub, n in runs:
+        t0 = time.time()
+        melspec_inversion_basis.main([basis_dir, "--device", "cuda",
+                                      *flags])
+        wall = time.time() - t0
+        out = os.path.join(basis_dir, sub)
+        with open(os.path.join(out, "out.log")) as f:
+            log = [ln for ln in f.read().splitlines()
+                   if ln.startswith("Inversion duration")]
+        inv = np.load(os.path.join(out, "inverse_spectrograms.npz"))
+        for key in ("x1", "x2", "gt1", "gt2", "mix"):
+            a = inv[f"{key}_audio"]
+            if a.shape != (n,) or not np.isfinite(a).all() or not a.any():
+                raise AssertionError(f"{sub} {key}_audio {a.shape}")
+        for name in ("sep1", "sep2", "gt1", "gt2", "mix"):
+            if not os.path.isfile(os.path.join(out, f"{name}.wav")):
+                raise AssertionError(f"{sub}/{name}.wav missing")
+        print(f"[6] inversion CLI {' '.join(flags)}: {log}, wall-clock "
+              f"{wall:.2f} s; 5 tracks of {n} samples, finite")
+    launches = dict(W.launch_counts)
+    print(f"[6] kernel launches during the inversion CLI: {launches}")
+    if any(launches.values()):
+        raise AssertionError("the inversion path launched a conv kernel")
+
+    # mel_to_stft on the card against float64 on the CPU, same input: the
+    # ground-truth pair of the Wiener inversion, [2, 30, 96, 64] power. TF32
+    # is on around the card's run: mel_to_stft must keep its matmuls in f32.
+    res = np.load(os.path.join(basis_dir, "results.npz"))
+    mels = db_to_power(torch.as_tensor(np.stack([res["gt1"], res["gt2"]]),
+                                       dtype=torch.float64))
+    t0 = time.time()
+    ref = mel_to_stft(mels, power=1.0)
+    cpu_s = time.time() - t0
+    mels_dev = mels.float().cuda()
+
+    def rel_err(got):
+        err = (got.double().cpu() - ref).abs()
+        return ((err.max() / ref.abs().max()).item(),
+                (err.mean() / ref.abs().mean()).item())
+
+    full_f32 = inversion._full_f32_matmul
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        max_rel, mean_rel = rel_err(mel_to_stft(mels_dev, power=1.0))
+        if not torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("mel_to_stft did not restore TF32")
+        ms = cuda_ms(lambda: mel_to_stft(mels_dev, power=1.0), 3)
+        # control: the same solve with the f32 scope taken away (TF32)
+        inversion._full_f32_matmul = contextlib.nullcontext
+        tf32_max, tf32_mean = rel_err(mel_to_stft(mels_dev, power=1.0))
+        tf32_ms = cuda_ms(lambda: mel_to_stft(mels_dev, power=1.0), 3)
+    finally:
+        inversion._full_f32_matmul = full_f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cols = mels.numel() // 96                       # 2 x 30 x 64 frames
+    flops = 300 * 2 * 1025 * 1025 * cols + 2 * 96 * 1025 * (1025 + cols)
+    bound = 1e3 * flops / PEAK["float32"]
+    print(f"[6] mel_to_stft [2,{BATCH},96,64] f32 on the card vs float64 on "
+          f"the CPU: max-rel {max_rel:.2e} (tol {NNLS_TOL[0]:g}), mean-rel "
+          f"{mean_rel:.2e} (tol {NNLS_TOL[1]:g}); {ms:.2f} ms on the card "
+          f"(bound {bound:.2f} ms: {flops / 1e12:.3f} TFLOP at the f32 "
+          f"peak), float64 CPU {cpu_s:.2f} s")
+    print(f"[6] control, the same solve in TF32: max-rel {tf32_max:.2e}, "
+          f"mean-rel {tf32_mean:.2e}; {tf32_ms:.2f} ms on the card")
+    if not (max_rel <= NNLS_TOL[0] and mean_rel <= NNLS_TOL[1]):
+        raise AssertionError("mel_to_stft on the card disagrees")
+
+    refs, ests = _aligned_stems(
+        basis_dir, os.path.join(basis_dir, runs[0][1]))
+    t0 = time.time()
+    sdr, _, sir, _, _ = bss_eval(refs, ests, window=np.inf, hop=np.inf,
+                                 compute_permutation=False)
+    bss_s = time.time() - t0
+    for i in range(2):
+        s_sdr, s_sir = float(np.nanmean(sdr[i])), float(np.nanmean(sir[i]))
+        print(f"[6] ground truth {i + 1} (Wiener, frame): SDR {s_sdr:.4f} dB "
+              f"(JAX {JAX_SDR[i]:.4f} +- {GT_TOL['SDR']}), SIR {s_sir:.4f} dB "
+              f"(JAX {JAX_SIR[i]:.4f} +- {GT_TOL['SIR']})")
+        if not (abs(s_sdr - JAX_SDR[i]) <= GT_TOL["SDR"]
+                and abs(s_sir - JAX_SIR[i]) <= GT_TOL["SIR"]):
+            raise AssertionError(f"ground-truth inversion {i + 1} off the "
+                                 f"JAX package's SDR/SIR")
+    print(f"[6] bss_eval of 2 x {refs.shape[1]} samples: {bss_s:.2f} s on "
+          f"the host")
 
 
 def main(argv):
@@ -341,31 +552,37 @@ def main(argv):
     phase_model()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = {"bfloat16": phase_cli(work, 2, "bf16")[0],
-                    "float32": phase_cli(work, 1, "f32")[0]}
+        bf16_launches, _, bf16_out = phase_cli(work, 2, "bf16", inverse=True)
+        f32_launches, _, _ = phase_cli(work, 1, "f32")
+        launches = {"bfloat16": bf16_launches, "float32": f32_launches}
+        phase_inversion(bf16_out)
         if full:
             phase_cli(work, 100, "bf16")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     from audiosourcesep_tpu_torch.ops.winograd import KERNELS
+    def numbers(r):
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": max(r["by"], key=r["by"].get),
+                "library_ms": r["library_ms"]}      # cuDNN F.conv2d
+
     kernels = []
     for dtype, name in KERNELS.items():
         dname = str(dtype).split(".")[1]
-        r = res[dname]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[dname],
             "replaces": "audiosourcesep_tpu/ops/winograd.py:136",
             # the CLI run of this dtype (phase 5)
             "launches": launches[dname][name],
-            "max_abs_err": r["max_abs_err"],
-            # batch 30, summed over the 64 routed convs of one v1 forward
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": max(r["by"], key=r["by"].get),
-            "library_ms": r["library_ms"],      # cuDNN F.conv2d
+            # batch 30, summed over one v1 forward's 64 routed convs
+            **numbers(res[dname]),
+            # the same kernel on the d*d phase grids, summed over the
+            # cascade's 10 dilated convs (not routed by nn.conv2d)
+            "dilated_route": numbers(res[dname + "_dilated"]),
         })
-    print(f"[6] card: {smi}")
+    print(f"[7] card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

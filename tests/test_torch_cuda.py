@@ -5,13 +5,17 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import contextlib
+
 import pytest
 import torch
 import torch.nn.functional as F
 
 from audiosourcesep_tpu_torch import nn
 from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+from audiosourcesep_tpu_torch.ops import inversion
 from audiosourcesep_tpu_torch.ops import winograd as W
+from audiosourcesep_tpu_torch.ops.stft import istft, stft
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +143,56 @@ def test_routed_conv_follows_in_place_weight_updates(cuda):
     torch.testing.assert_close(second - conv.bias.bfloat16()[:, None, None],
                                -(first - conv.bias.bfloat16()[:, None, None]),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dilated_route_matches_plain_version(cuda, d, dtype):
+    x, k = _inputs((2, 16, 24, 40), 33, dtype, seed=d)
+    name = W.KERNELS[dtype]
+    before = W.launch_counts[name]
+    got = W.dilated_winograd_conv2d(x, k, d)
+    assert W.launch_counts[name] == before + 1       # all d*d phases at once
+    tol_max, tol_mean, tol_conv = TOL[dtype]
+    want = W.dilated_winograd_conv2d_reference(x, k, d).float()
+    err = (got.float() - want).abs()
+    assert err.max().item() <= tol_max * want.abs().max().item()
+    assert err.mean().item() <= tol_mean * want.abs().mean().item()
+    conv = F.conv2d(x.permute(0, 3, 1, 2).float(), k.permute(3, 2, 0, 1),
+                    padding=d, dilation=d).permute(0, 2, 3, 1)
+    assert (got.float() - conv).abs().max().item() \
+        <= tol_conv * conv.abs().max().item()
+
+
+def test_inversion_ops_on_the_card_match_the_cpu(cuda, monkeypatch):
+    g = torch.Generator().manual_seed(5)
+    mel = 10.0 ** (7.3 * torch.rand(2, 3, 96, 16, generator=g) - 6.0)
+    ref = inversion.mel_to_stft(mel.double(), power=1.0)
+
+    def max_rel(got):
+        return ((got - ref).abs().max() / ref.abs().max()).item()
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = inversion.mel_to_stft(mel.to(cuda), power=1.0).cpu()
+        assert torch.backends.cuda.matmul.allow_tf32
+        # the same solve with the f32 scope taken away runs in TF32
+        with monkeypatch.context() as mp:
+            mp.setattr(inversion, "_full_f32_matmul", contextlib.nullcontext)
+            tf32 = inversion.mel_to_stft(mel.to(cuda), power=1.0).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # full f32 passes the tolerance, TF32 does not: it shows the scoping
+    assert max_rel(got) < 1e-3 < max_rel(tf32), (max_rel(got), max_rel(tf32))
+    x = torch.randn(3, 512 * 40, generator=g)
+    spec = stft(x)
+    y = istft(spec.to(cuda), length=x.shape[-1]).cpu()
+    torch.testing.assert_close(y, istft(spec, length=x.shape[-1]),
+                               atol=1e-5, rtol=1e-5)
+    angles = torch.rand(spec.shape, generator=g)
+    mag = spec.abs()
+    torch.testing.assert_close(
+        inversion.griffin_lim(mag.to(cuda), n_iter=4,
+                              angles=angles.to(cuda)).cpu(),
+        inversion.griffin_lim(mag, n_iter=4, angles=angles),
+        atol=1e-4 * mag.max().item(), rtol=1e-3)

@@ -148,3 +148,40 @@ def test_transform_weights_in_bf16_match_jax_exactly(cin, cout):
     np.testing.assert_array_equal(
         got.to(torch.bfloat16).float().numpy(),
         np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_dilated_matches_pallas_interpret_and_conv(d):
+    """The phase split around the plain version (the CPU path) against the
+    JAX package's phase split around the Pallas kernel, and F.conv2d."""
+    x, k = _inputs(7 + d, (2, 16, 8, 8), 16)
+    before = dict(twino.launch_counts)
+    got = twino.dilated_winograd_conv2d(torch.from_numpy(x),
+                                        torch.from_numpy(k), d).numpy()
+    assert twino.launch_counts == before     # CPU: no launch
+    pallas = np.asarray(jwino.dilated_winograd_conv2d(
+        jnp.asarray(x), jnp.asarray(k), d, interpret=True))
+    conv = F.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2),
+                    torch.from_numpy(k).permute(3, 2, 0, 1), padding=d,
+                    dilation=d).permute(0, 2, 3, 1).numpy()
+    assert got.shape == (2, 16, 8, 16)
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+    np.testing.assert_allclose(got, conv, atol=ATOL)
+    ref = twino.dilated_winograd_conv2d_reference(torch.from_numpy(x),
+                                                  torch.from_numpy(k), d)
+    np.testing.assert_array_equal(ref.numpy(), got)
+
+
+def test_dilated_eligibility_and_refusal():
+    assert twino.dilated_eligible((30, 48, 32, 384), (3, 3, 384, 384),
+                                  dilation=2)
+    assert twino.dilated_eligible((30, 48, 32, 384), (3, 3, 384, 384),
+                                  dilation=4)
+    assert not twino.dilated_eligible((30, 48, 32, 8), (3, 3, 8, 8))
+    assert not twino.dilated_eligible((2, 12, 8, 8), (3, 3, 8, 8),
+                                      dilation=4)
+    assert not twino.dilated_eligible((2, 16, 16, 8), (3, 3, 8, 8),
+                                      stride=2, dilation=2)
+    with pytest.raises(ValueError):
+        twino.dilated_winograd_conv2d(torch.zeros(1, 12, 8, 2),
+                                      torch.zeros(3, 3, 2, 2), 4)
