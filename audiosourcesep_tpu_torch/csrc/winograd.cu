@@ -1,215 +1,484 @@
 // Fused Winograd F(2x2,3x3) convolution for Hopper (sm_90a), NHWC, float32
-// on the CUDA cores.
+// on the CUDA cores, for dilation 1 and for the phase grids of a dilated
+// conv.
 //
 // Replaces: audiosourcesep_tpu/ops/winograd.py::_wino_kernel (launched by
-// _winograd_pallas, behind winograd_conv2d) for float32 inputs; bf16 inputs
-// go to the tensor-core kernel in winograd_mma.cu. Same math: SAME 3x3
-// stride-1 conv computed per 2x2 output tile as  Y = A^T [ sum_cin
-// (G g G^T) . (B^T d B) ] A  with f32 accumulation. The bias is the
-// caller's job.
+// _winograd_pallas, behind winograd_conv2d and dilated_winograd_conv2d) for
+// float32 inputs; bf16 inputs go to the tensor-core kernel in
+// winograd_mma.cu. Same math: a 3x3 stride-1 SAME conv computed per 2x2
+// output tile as  Y = A^T [ sum_cin (G g G^T) . (B^T d B) ] A  with f32
+// accumulation, exact f32 (FMA, no TF32). The bias is the caller's job.
 //
-// What bounds it on this card: operations, not bytes. The 16
-// transform-domain channel contractions (16 * tiles * Cin * Cout FMAs,
-// 2.25x fewer than the direct conv) run as f32 FMA on the CUDA cores
-// (67 TFLOP/s peak): the tensor cores have no full-f32 product. x, U and y
-// are read or written about once per Cout block and mostly hit L2. Within
-// that, the FMAs are fed from shared memory (two 8-byte loads per four
-// FMAs) and each thread holds 64 accumulators, so a block takes ~250
-// registers a thread and only one block (8 warps) fits on an SM: latency,
-// not the FMA pipe, sets the rate (about 11 TFLOP/s measured on an H100 at
-// 700 W).
+// Dilation d: output pixel (d (2a + r) + p, d (2c + s) + q) of phase (p, q)
+// reads only x[d (2a + i - 1) + p, d (2c + j - 1) + q], so each phase is a
+// stride-1 SAME conv on its (H/d) x (W/d) grid. A block owns tiles of one
+// phase and reads and writes them in place in the undilated NHWC tensors,
+// with the SAME halo zero-filled per phase grid: no phase copy. d = 1 is
+// the dense conv.
 //
-// What the design does about it: only x, U and y touch device memory.
-// Each block owns 32 output tiles x 32 output channels and walks Cin in
-// chunks of 8: per chunk every thread builds one (tile, channel) V = B^T d B
-// from an NHWC 4x4 patch (the SAME halo is masked to zero, no padded
-// copy), the block stages V and the U chunk in shared memory, and each
-// thread accumulates all 16 transform points for 2 tiles x 2 channels in
-// registers (16*2*2 f32). The next chunk's global loads are issued before
-// the current chunk's FMAs (a register-staged software pipeline), which
-// hides their latency (1.44x over loading after the FMAs). Shared reads
-// are broadcast (V) or one 128-byte wavefront (U); V stores use a padded
-// stride so they are conflict-free. The inverse transform A^T M A runs in
-// registers and the interleaved NHWC 2x2 output is written directly (no
-// phase split, no de-interleave, no channel padding: those existed only
-// for Mosaic/VMEM on the TPU).
+// What bounds it on this card: operations. The 16 transform-domain
+// channel contractions are 16 * tiles * C_in * C_out FMAs (2.25x fewer than
+// the direct conv) on the CUDA cores, 67 TFLOP/s at the published peak: the
+// tensor cores have no full-f32 product. At 96x64 192->192, batch 30, that
+// is 0.81 ms against 0.085 ms for x, y and U moved once at 3.35 TB/s.
+//
+// What the design does about it:
+// - The 16 points are split across the 8 warps, two points a warp, and
+//   each thread owns an 8-tile x 8-channel outer product per point (128
+//   f32 accumulators). Per point and input channel it reads four 16-byte
+//   values from shared memory for 64 FMAs. Its 8 tiles are tg*4.. and
+//   16 + tg*4.., its 8 channels cg*4.. and 32 + cg*4.., so each 16-byte
+//   read of a warp covers one contiguous run of shared memory (no bank
+//   conflicts).
+// - A block owns a rectangle of 32 tiles of one phase grid, 4 x 8 (8 x 4
+//   for grids 4 tiles wide, which the wrapper picks: the cascade's d = 4
+//   grid of 6 x 4 tiles then fills 75% of a block instead of 37.5%), and
+//   64 output channels, and walks C_in in chunks of 8. Per chunk it copies
+//   the 10 x 18-pixel (or 18 x 10) x slab and the U chunk [16][8][64] with
+//   16-byte cp.async through a 3-stage ring; the SAME halo, the ragged grid
+//   edge and channels past C_in or C_out are zero-filled by the copy's
+//   source size, with no padded copy in HBM. V = B^T d B is formed once
+//   per (tile, channel) and C_out block, one a thread, into a
+//   double-buffered V.
+// - One barrier per chunk, and nothing else between the FMAs: the loads,
+//   adds and stores of the next chunk's transform and the issue of the
+//   copies two chunks ahead are spread over the 16 FMA steps of a chunk
+//   (run on their own, they took a quarter of each chunk's cycles).
+// - Epilogue: each warp folds its two points into its row's share of
+//   r_u = M[u,:] A, the 16 shares meet in 128 KB of shared memory (the
+//   ring's), and Y = A^T r is written straight into the interleaved NHWC
+//   output, 4 channels (16 bytes) a store.
+// C_in or C_out that is not a multiple of 4 (begin_conv, end_conv) takes
+// the same kernel with plain loads and stores in place of 16-byte ones.
+//
+// What still holds it back: 128 accumulators cap the block at 32 tiles x
+// 64 channels (240-255 registers a thread), so one block of 8 warps runs
+// per SM, and the FMAs issue in about two thirds of the loop's cycles
+// (benchmarks/torch_winograd_probe.py, PERF.md). 16 warps of 64
+// accumulators each fit only in 128 registers, and ran slower.
 //
 // C interface (bound with ctypes): winograd_f23_fwd_f32(x, u, y, B, H, W,
-// Cin, Cout, stream) with x [B,H,W,Cin], U [16,Cin,Cout] and y [B,H,W,Cout],
-// all float32; H and W even. It launches on `stream`, allocates nothing,
-// and returns cudaGetLastError().
+// Cin, Cout, d, block_rows, stream) with x [B,H,W,Cin], U [16,Cin,Cout] and
+// y [B,H,W,Cout], all float32, and dilation d; H and W divisible by 2d;
+// block_rows 4 or 8 (the tile rows of a block). It launches on `stream`,
+// allocates nothing, and returns cudaGetLastError().
+// winograd_f23_f32_smem_bytes() returns the dynamic shared memory a block
+// takes.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifdef WINOGRAD_PROBE
+// Built only by benchmarks/torch_winograd_probe.py: clock64 cycles that each
+// warp spends in each phase (the FMAs with the next chunk's transform and
+// the copies between them, copy wait, barrier, epilogue), summed over
+// blocks.
+__device__ unsigned long long g_probe_f32[8][4];
+#define PROBE(i)                               \
+  do {                                         \
+    const long long t_ = clock64();            \
+    probe[i] += t_ - probe_t;                  \
+    probe_t = t_;                              \
+  } while (0)
+#else
+#define PROBE(i) \
+  do {           \
+  } while (0)
+#endif
 
 namespace {
 
-constexpr int TP = 32;               // output tiles per block
-constexpr int TC = 32;               // output channels per block
-constexpr int CK = 8;                // input channels per chunk
-constexpr int NT = 256;              // threads per block
-constexpr int VSTRIDE = 16 * TP + 4; // per-channel stride of Vs: 516 = 4 mod 32
+constexpr int NTILE = 32;              // tiles per block
+constexpr int NB = 64;                 // output channels per block
+constexpr int KC = 8;                  // input channels per chunk
+constexpr int NT = 256;                // 8 warps
+constexpr int DEPTH = 3;               // x and U stages of the ring
+constexpr int PIX = 48;                // bytes per slab pixel: 8 f32 + pad
+constexpr int SLAB = 180;              // slab pixels: 10 x 18 or 18 x 10
+constexpr int X_PIECES = SLAB * 2;     // 16-byte pieces per slab
+constexpr int VROW = NTILE + 4;        // floats per (point, channel) of V
+constexpr int V_BYTES = 16 * KC * VROW * 4;    // one V stage
+constexpr int U_BYTES = 16 * KC * NB * 4;      // one U stage
+constexpr int X_BYTES = SLAB * PIX;            // one x stage
+constexpr int R_BYTES = 8 * 2 * NTILE * NB * 4;  // epilogue shares
+constexpr int RING_BYTES = 2 * V_BYTES + DEPTH * (U_BYTES + X_BYTES);
+constexpr int SMEM_BYTES = RING_BYTES > R_BYTES ? RING_BYTES : R_BYTES;
 
-static_assert(TP * CK == NT, "one (tile, channel) V per thread per chunk");
-static_assert((TP / 2) * (TC / 2) == NT, "2 tiles x 2 channels per thread");
-constexpr int UPT = CK * 16 * TC / NT;  // U values each thread stages
-static_assert(UPT * NT == CK * 16 * TC, "U chunk splits evenly");
+static_assert(NTILE * KC == NT, "one (tile, channel) V a thread per chunk");
+static_assert(16 * KC * (NB / 4) == 8 * NT, "eight U pieces a thread");
+static_assert(X_PIECES <= 2 * NT, "at most two x pieces a thread");
+static_assert((2 * 4 + 2) * (2 * 8 + 2) == SLAB, "slab of a 4 x 8 block");
 
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_size 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// 4 floats from global memory, the first n of them real, the rest zero
+__device__ __forceinline__ float4 load4(const float* src, int n) {
+  return make_float4(n > 0 ? src[0] : 0.f, n > 1 ? src[1] : 0.f,
+                     n > 2 ? src[2] : 0.f, n > 3 ? src[3] : 0.f);
+}
+
+// TR: tile rows of the block (4 or 8; 32 / TR tile columns)
+// XV: C_in % 4 == 0 and x 16-byte aligned (x by cp.async, else plain loads)
+// CV: C_out % 4 == 0 and U, y 16-byte aligned (U by cp.async, 16-byte
+//     stores of y, else plain loads and stores)
+template <int TR, bool XV, bool CV>
+__global__ void __launch_bounds__(NT, 1)
     winograd_f23_f32_kernel(const float* __restrict__ x,
                             const float* __restrict__ u,
-                            float* __restrict__ y, int B, int H, int W,
-                            int Cin, int Cout) {
-  __shared__ __align__(16) float Vs[CK * VSTRIDE];   // [k][uv][tile]
-  __shared__ __align__(16) float Us[CK * 16 * TC];   // [k][uv][cout]
+                            float* __restrict__ y, int H, int W, int Cin,
+                            int Cout, int d, int n_trb, int n_tcb, int n_cb) {
+  constexpr int TCOL = NTILE / TR;
+  constexpr int SC = 2 * TCOL + 2;     // slab columns
+  static_assert((2 * TR + 2) * SC == SLAB, "slab size");
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* const Vs = smem;                  // [2][16][KC][VROW] f32
+  unsigned char* const Us = Vs + 2 * V_BYTES;      // [DEPTH][16][KC][NB] f32
+  unsigned char* const Xs = Us + DEPTH * U_BYTES;  // [DEPTH][SLAB][PIX B]
 
-  const int tid = threadIdx.x;
-  const int th = H / 2, tw = W / 2;
-  const long long tiles_per_img = (long long)th * tw;
-  const long long n_tiles = (long long)B * tiles_per_img;
-  const long long tile0 = (long long)blockIdx.x * TP;
-  const int co0 = blockIdx.y * TC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int bid = blockIdx.x;                // C_out block fastest: x from L2
+  const int cb = bid % n_cb;
+  bid /= n_cb;
+  const int tcb = bid % n_tcb;
+  bid /= n_tcb;
+  const int trb = bid % n_trb;
+  bid /= n_trb;
+  const int phase = bid % (d * d), b = bid / (d * d);
+  const int pr = phase / d, pc = phase % d;        // phase (row, column)
+  const int gh = H / d, gw = W / d;                // phase grid, pixels
+  const int th = gh >> 1, tw = gw >> 1;            // phase grid, tiles
+  const int co0 = cb * NB, tr0 = trb * TR, tc0 = tcb * TCOL;
+  const int n_chunks = (Cin + KC - 1) / KC;
+  // pixel (r, c) of the phase grid is x[b, d r + pr, d c + pc]
+  const float* const xb =
+      x + (((long long)b * H + pr) * W + pc) * Cin;
 
-  // load role: tile lp, channel c0 + lk of each chunk
-  const int lk = tid % CK;
-  const int lp = tid / CK;
-  const long long lt = tile0 + lp;
-  const bool l_valid = lt < n_tiles;
-  long long lbase = 0;   // offset of image lb
-  int lr0 = 0, lc0 = 0;  // top-left input pixel of the 4x4 patch (may be -1)
-  if (l_valid) {
-    const long long lb = lt / tiles_per_img;
-    const int rem = (int)(lt - lb * tiles_per_img);
-    lbase = lb * H * W * (long long)Cin;
-    lr0 = 2 * (rem / tw) - 1;
-    lc0 = 2 * (rem % tw) - 1;
+  // ---- copy roles -------------------------------------------------------
+  // x: pieces e = tid, tid + NT of the slab's (pixel, 4-channel half)
+  const float* xsrc[2];
+  uint32_t xdst[2];
+  int xn[2];                           // real channels from the piece on
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = tid + r * NT;
+    const int pix = e >> 1, sr = pix / SC, sc = pix % SC;
+    const int gr = 2 * tr0 - 1 + sr, gc = 2 * tc0 - 1 + sc;
+    const bool in = e < X_PIECES && gr >= 0 && gr < gh && gc >= 0 && gc < gw;
+    xsrc[r] = in ? xb + ((long long)d * gr * W + (long long)d * gc) * Cin +
+                       4 * (e & 1)
+                 : x;
+    xdst[r] = smem_u32(Xs) + pix * PIX + 16 * (e & 1);
+    xn[r] = in ? Cin - 4 * (e & 1) : 0;   // outside the grid: zeros
   }
+  // U: row k, 16-byte column c, points up0 + 2r (r < 8)
+  const int uk = (tid >> 4) & (KC - 1), uc = tid & 15, up0 = tid >> 7;
+  const int uco = co0 + 4 * uc;
+  const int un = uco < Cout ? Cout - uco : 0;   // real channels of the piece
+  const long long ustep = 2LL * Cin * Cout;
+  const float* const usrc =
+      un > 0 ? u + ((long long)up0 * Cin + uk) * Cout + uco : u;
+  const uint32_t udst = smem_u32(Us) + (up0 * KC + uk) * (NB * 4) + 16 * uc;
 
-  // compute role: tiles cp, cp+1 x channels cc, cc+1, all 16 points
-  const int cc = (tid % (TC / 2)) * 2;
-  const int cp = (tid / (TC / 2)) * 2;
+  // piece r of chunk j's x -> x stage j % DEPTH; zeros past the last chunk
+  auto copy_x = [&](int j, int r) {
+    if (tid + r * NT >= X_PIECES) return;
+    const int n = j < n_chunks ? xn[r] - j * KC : 0;  // real channels
+    const uint32_t dst = xdst[r] + (j % DEPTH) * X_BYTES;
+    if constexpr (XV) {
+      cp_async16(dst, n > 0 ? xsrc[r] + j * KC : x, n > 0);
+    } else {
+      const float4 v = load4(xsrc[r] + j * KC, n);
+      asm volatile("st.shared.v4.f32 [%0], {%1,%2,%3,%4};\n"
+                   :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+                   : "memory");
+    }
+  };
+  // points up0 + 2r of chunk j's U -> U stage j % DEPTH; zeros past the
+  // last chunk
+  auto copy_u = [&](int j, int r) {
+    const bool ok = un > 0 && j < n_chunks && j * KC + uk < Cin;
+    const float* src = usrc + (long long)j * KC * Cout + r * ustep;
+    const uint32_t dst = udst + (j % DEPTH) * U_BYTES + r * 2 * KC * NB * 4;
+    if constexpr (CV) {
+      cp_async16(dst, ok ? src : u, ok);
+    } else {
+      const float4 v = load4(src, ok ? un : 0);
+      asm volatile("st.shared.v4.f32 [%0], {%1,%2,%3,%4};\n"
+                   :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+                   : "memory");
+    }
+  };
 
-  float acc[16][2][2];
+  // ---- transform role: tile t_tile, channel t_c ---------------------------
+  const int t_tile = tid >> 3, t_c = tid & 7;
+  const int t_src = ((2 * (t_tile / TCOL)) * SC + 2 * (t_tile % TCOL)) * PIX +
+                    4 * t_c;
+  const int t_dst = (t_c * VROW + t_tile) * 4;
+  // in three parts, which the main loop spreads over its FMA steps:
+  // row i of the 4x4 patch from x stage j % DEPTH, then B^T d, then row a
+  // of (B^T d) B (points 4a .. 4a + 3) into V stage j & 1
+  float dd[4][4], tt[4][4];
+  auto t_load = [&](int j, int i) {
+    const unsigned char* xs = Xs + (j % DEPTH) * X_BYTES + t_src;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    acc[i][0][0] = 0.f; acc[i][0][1] = 0.f;
-    acc[i][1][0] = 0.f; acc[i][1][1] = 0.f;
+    for (int c = 0; c < 4; ++c)
+      dd[i][c] = *reinterpret_cast<const float*>(xs + (i * SC + c) * PIX);
+  };
+  auto t_bt = [&]() {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      tt[0][c] = dd[0][c] - dd[2][c];
+      tt[1][c] = dd[1][c] + dd[2][c];
+      tt[2][c] = dd[2][c] - dd[1][c];
+      tt[3][c] = dd[1][c] - dd[3][c];
+    }
+  };
+  auto t_store = [&](int j, int a) {
+    float* vs = reinterpret_cast<float*>(Vs + (j & 1) * V_BYTES + t_dst);
+    constexpr int PT = KC * VROW;      // floats per point of V
+    vs[(4 * a + 0) * PT] = tt[a][0] - tt[a][2];
+    vs[(4 * a + 1) * PT] = tt[a][1] + tt[a][2];
+    vs[(4 * a + 2) * PT] = tt[a][2] - tt[a][1];
+    vs[(4 * a + 3) * PT] = tt[a][1] - tt[a][3];
+  };
+
+  // ---- FMA role: points 2 warp, 2 warp + 1; tiles tg*4.., 16 + tg*4..;
+  //      channels cg*4.., 32 + cg*4.. -------------------------------------
+  const int tg = lane >> 3, cg = lane & 7;
+  const int a_off = (2 * warp * KC * VROW + 4 * tg) * 4;
+  const int b_off = (2 * warp * KC * NB + 4 * cg) * 4;
+
+  float acc[2][8][8];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[p][i][c] = 0.f;
+
+  // ---- ring: prologue ----------------------------------------------------
+  // commit groups: chunk i's x and U for i < DEPTH - 1, then x DEPTH - 1
+#pragma unroll
+  for (int i = 0; i < DEPTH; ++i) {
+    copy_x(i, 0);
+    copy_x(i, 1);
+    if (i < DEPTH - 1)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) copy_u(i, r);
+    cp_async_commit();
   }
+  cp_async_wait<DEPTH - 1>();          // x 0, U 0
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t_load(0, i);
+  t_bt();
+#pragma unroll
+  for (int a = 0; a < 4; ++a) t_store(0, a);
+  cp_async_wait<DEPTH - 2>();          // x 1, U 1
+  __syncthreads();
 
-  // Software pipeline over C_in chunks: iteration i loads chunk i's x patch
-  // and U values into registers, runs the FMAs of chunk i-1 from shared
-  // memory while those loads are in flight, then stages chunk i (V = B^T d B
-  // and U) in shared memory. One load site keeps d and ur in registers.
-  float d[4][4];   // x patch of (tile lp, channel c0 + lk)
-  float ur[UPT];   // U values this thread stages
-  for (int c0 = 0; c0 < Cin + CK; c0 += CK) {
-    const bool have = c0 < Cin;
-    if (have) {
-      const int c = c0 + lk;
-      const bool cvalid = l_valid && c < Cin;
+  // chunk j: the FMAs on V j & 1 and U j % DEPTH, 16 steps of one point
+  // and one input channel. Between the steps run the transform of x j+1
+  // into V (j+1) & 1 (past the last chunk it transforms stale data into a
+  // V stage that is never read) and the copies of U j+DEPTH-1 and x
+  // j+DEPTH, so that their latency and issue overlap the FMAs. Each stage
+  // is free again when it is refilled: x stage j % DEPTH was transformed,
+  // and U stage (j - 1) % DEPTH consumed, before the barrier that ended
+  // iteration j - 1.
+#ifdef WINOGRAD_PROBE
+  unsigned long long probe[4] = {0, 0, 0, 0};
+  long long probe_t = clock64();
+#endif
+  for (int j = 0; j < n_chunks; ++j) {
+    const float* va =
+        reinterpret_cast<const float*>(Vs + (j & 1) * V_BYTES + a_off);
+    const float* ub =
+        reinterpret_cast<const float*>(Us + (j % DEPTH) * U_BYTES + b_off);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = lr0 + i;
-        const float* xrow = x + lbase + ((long long)r * W + lc0) * Cin + c;
+    for (int p = 0; p < 2; ++p)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int q = lc0 + j;
-          d[i][j] = (cvalid && r >= 0 && r < H && q >= 0 && q < W)
-                        ? xrow[j * Cin] : 0.f;
+      for (int k = 0; k < KC; ++k) {
+        const int step = p * KC + k;
+        if (step < 4) t_load(j + 1, step);
+        if (step == 4) t_bt();
+        if (step >= 5 && step < 9) t_store(j + 1, step - 5);
+        if (step % 2 == 0) copy_u(j + DEPTH - 1, step / 2);
+        if (step == 2 * KC - 3) copy_x(j + DEPTH, 0);
+        if (step == 2 * KC - 1) copy_x(j + DEPTH, 1);
+        const float* vr = va + (p * KC + k) * VROW;
+        const float* ur = ub + (p * KC + k) * NB;
+        const float4 a0 = *reinterpret_cast<const float4*>(vr);
+        const float4 a1 = *reinterpret_cast<const float4*>(vr + 16);
+        const float4 b0 = *reinterpret_cast<const float4*>(ur);
+        const float4 b1 = *reinterpret_cast<const float4*>(ur + 32);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[p][i][c] = fmaf(av[i], bv[c], acc[p][i][c]);
+      }
+    cp_async_commit();
+    PROBE(0);
+    cp_async_wait<DEPTH - 2>();        // x j+2, U j+1
+    PROBE(1);
+    __syncthreads();
+    PROBE(2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // the ring's memory becomes R
+
+  // ---- epilogue: row u = warp / 2 gets M[u, v] A^T from points v, v + 1
+  // (v = 0: q0 M0 + M1, q1 M1; v = 2: q0 M2, q1 -M2 - M3), then
+  // Y = A^T r with r_u the sum of its two warps' shares
+  float* const R = reinterpret_cast<float*>(smem);   // [8 w][2 q][NTILE][NB]
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tile = 4 * tg + (i & 3) + 16 * (i >> 2);
+      float s0[4], s1[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float m0 = acc[0][i][4 * h + c], m1 = acc[1][i][4 * h + c];
+        s0[c] = (warp & 1) ? m0 : m0 + m1;
+        s1[c] = (warp & 1) ? -m0 - m1 : m1;
+      }
+      float* dst = R + ((2 * warp) * NTILE + tile) * NB + 4 * cg + 32 * h;
+      *reinterpret_cast<float4*>(dst) = make_float4(s0[0], s0[1], s0[2], s0[3]);
+      *reinterpret_cast<float4*>(dst + NTILE * NB) =
+          make_float4(s1[0], s1[1], s1[2], s1[3]);
+    }
+  __syncthreads();
+
+  const int e_tile = tid >> 3, e_cg = tid & 7;
+  const int orow = tr0 + e_tile / TCOL, ocol = tc0 + e_tile % TCOL;
+  if (orow < th && ocol < tw) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {      // channels co0 + 4 e_cg + 32 h ..
+      const int co = co0 + 4 * e_cg + 32 * h;
+      if (co >= Cout) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {    // output column 2 ocol + c
+        float r[4][4];
+#pragma unroll
+        for (int uu = 0; uu < 4; ++uu) {
+          const float* s = R + 4 * e_cg + 32 * h + e_tile * NB;
+          const float4 a = *reinterpret_cast<const float4*>(
+              s + ((2 * (2 * uu) + c) * NTILE) * NB);
+          const float4 bq = *reinterpret_cast<const float4*>(
+              s + ((2 * (2 * uu + 1) + c) * NTILE) * NB);
+          r[uu][0] = a.x + bq.x; r[uu][1] = a.y + bq.y;
+          r[uu][2] = a.z + bq.z; r[uu][3] = a.w + bq.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // output row 2 orow + i
+          float o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[e] = i == 0 ? r[0][e] + r[1][e] + r[2][e]
+                          : r[1][e] - r[2][e] - r[3][e];
+          float* dst = y + (((long long)b * H + d * (2 * orow + i) + pr) * W +
+                            d * (2 * ocol + c) + pc) *
+                               Cout +
+                       co;
+          if constexpr (CV) {
+            *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+          } else {
+            const int n = Cout - co;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (e < n) dst[e] = o[e];
+          }
         }
       }
-#pragma unroll
-      for (int i = 0; i < UPT; ++i) {  // zero-filled past C_in / C_out
-        const int e = tid + i * NT;
-        const int uv = (e / TC) % 16, k = e / (TC * 16);
-        const int ci = c0 + k, o = co0 + e % TC;
-        ur[i] = (ci < Cin && o < Cout)
-                    ? u[((long long)uv * Cin + ci) * Cout + o] : 0.f;
-      }
     }
-    if (c0 > 0) {  // FMAs of the chunk staged in the previous iteration
-#pragma unroll 2
-      for (int k = 0; k < CK; ++k) {
-#pragma unroll
-        for (int uv = 0; uv < 16; ++uv) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              Vs + k * VSTRIDE + uv * TP + cp);
-          const float2 w = *reinterpret_cast<const float2*>(
-              Us + (k * 16 + uv) * TC + cc);
-          acc[uv][0][0] = fmaf(v.x, w.x, acc[uv][0][0]);
-          acc[uv][0][1] = fmaf(v.x, w.y, acc[uv][0][1]);
-          acc[uv][1][0] = fmaf(v.y, w.x, acc[uv][1][0]);
-          acc[uv][1][1] = fmaf(v.y, w.y, acc[uv][1][1]);
-        }
-      }
-    }
-    __syncthreads();  // shared memory free for the next stage
-    if (have) {
-      float t[4][4];  // B^T d
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        t[0][j] = d[0][j] - d[2][j];
-        t[1][j] = d[1][j] + d[2][j];
-        t[2][j] = d[2][j] - d[1][j];
-        t[3][j] = d[1][j] - d[3][j];
-      }
-      float* vs = Vs + lk * VSTRIDE + lp;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {  // (B^T d) B
-        vs[(a * 4 + 0) * TP] = t[a][0] - t[a][2];
-        vs[(a * 4 + 1) * TP] = t[a][1] + t[a][2];
-        vs[(a * 4 + 2) * TP] = t[a][2] - t[a][1];
-        vs[(a * 4 + 3) * TP] = t[a][1] - t[a][3];
-      }
-#pragma unroll
-      for (int i = 0; i < UPT; ++i) Us[tid + i * NT] = ur[i];
-    }
-    __syncthreads();  // staged chunk visible to every thread
   }
+#ifdef WINOGRAD_PROBE
+  PROBE(3);
+  if (lane == 0)
+    for (int i = 0; i < 4; ++i) atomicAdd(&g_probe_f32[warp][i], probe[i]);
+#endif
+}
 
-  // Y = A^T M A, written straight into the interleaved NHWC output
-#pragma unroll
-  for (int pi = 0; pi < 2; ++pi) {
-    const long long t = tile0 + cp + pi;
-    if (t >= n_tiles) continue;
-    const long long b = t / tiles_per_img;
-    const int rem = (int)(t - b * tiles_per_img);
-    const int r = 2 * (rem / tw), q = 2 * (rem % tw);
-    float* out = y + ((b * H + r) * (long long)W + q) * Cout;
-#pragma unroll
-    for (int ci = 0; ci < 2; ++ci) {
-      const int o = co0 + cc + ci;
-      if (o >= Cout) continue;
-      float r0[4], r1[4];  // A^T M
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const float m0 = acc[0 * 4 + v][pi][ci], m1 = acc[1 * 4 + v][pi][ci];
-        const float m2 = acc[2 * 4 + v][pi][ci], m3 = acc[3 * 4 + v][pi][ci];
-        r0[v] = m0 + m1 + m2;
-        r1[v] = m1 - m2 - m3;
-      }
-      out[o] = r0[0] + r0[1] + r0[2];
-      out[Cout + o] = r0[1] - r0[2] - r0[3];
-      out[(long long)W * Cout + o] = r1[0] + r1[1] + r1[2];
-      out[(long long)W * Cout + Cout + o] = r1[1] - r1[2] - r1[3];
-    }
-  }
+template <int TR, bool XV, bool CV>
+int launch(const void* x, const void* u, void* y, int B, int H, int W,
+           int Cin, int Cout, int d, cudaStream_t s) {
+  const int th = H / (2 * d), tw = W / (2 * d);
+  const int n_trb = (th + TR - 1) / TR;
+  const int n_tcb = (tw + NTILE / TR - 1) / (NTILE / TR);
+  const int n_cb = (Cout + NB - 1) / NB;
+  const long long blocks = (long long)B * d * d * n_trb * n_tcb * n_cb;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = winograd_f23_f32_kernel<TR, XV, CV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, NT, SMEM_BYTES, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(u),
+      static_cast<float*>(y), H, W, Cin, Cout, d, n_trb, n_tcb, n_cb);
+  return (int)cudaGetLastError();
+}
+
+template <int TR>
+int dispatch(const void* x, const void* u, void* y, int B, int H, int W,
+             int Cin, int Cout, int d, bool xv, bool cv, cudaStream_t s) {
+  if (xv && cv) return launch<TR, true, true>(x, u, y, B, H, W, Cin, Cout, d, s);
+  if (xv) return launch<TR, true, false>(x, u, y, B, H, W, Cin, Cout, d, s);
+  if (cv) return launch<TR, false, true>(x, u, y, B, H, W, Cin, Cout, d, s);
+  return launch<TR, false, false>(x, u, y, B, H, W, Cin, Cout, d, s);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 extern "C" int winograd_f23_fwd_f32(const void* x, const void* u, void* y,
                                     int B, int H, int W, int Cin, int Cout,
-                                    void* stream) {
-  if (B < 0 || H < 2 || W < 2 || (H % 2) || (W % 2) || Cin < 1 || Cout < 1)
+                                    int d, int block_rows, void* stream) {
+  if (B < 0 || d < 1 || H < 2 * d || W < 2 * d || H % (2 * d) ||
+      W % (2 * d) || Cin < 1 || Cout < 1 ||
+      (block_rows != 4 && block_rows != 8))
     return (int)cudaErrorInvalidValue;
-  const long long n_tiles = (long long)B * (H / 2) * (W / 2);
-  if (n_tiles == 0) return (int)cudaSuccess;
-  const long long gx = (n_tiles + TP - 1) / TP;
-  const int gy = (Cout + TC - 1) / TC;
-  if (gx > 0x7fffffffLL || gy > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)gx, (unsigned)gy);
-  winograd_f23_f32_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(u),
-      static_cast<float*>(y), B, H, W, Cin, Cout);
-  return (int)cudaGetLastError();
+  if (B == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool xv = Cin % 4 == 0 && aligned16(x);
+  const bool cv = Cout % 4 == 0 && aligned16(u) && aligned16(y);
+  return block_rows == 4
+             ? dispatch<4>(x, u, y, B, H, W, Cin, Cout, d, xv, cv, s)
+             : dispatch<8>(x, u, y, B, H, W, Cin, Cout, d, xv, cv, s);
 }
+
+extern "C" int winograd_f23_f32_smem_bytes() { return SMEM_BYTES; }
+
+#ifdef WINOGRAD_PROBE
+// copies the phase cycles ([8 warps][4] u64) to `out` and zeroes them
+extern "C" int winograd_f23_f32_probe(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_probe_f32, sizeof(g_probe_f32));
+  static const unsigned long long zero[8][4] = {};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_probe_f32, zero, sizeof(zero));
+  return (int)err;
+}
+#endif

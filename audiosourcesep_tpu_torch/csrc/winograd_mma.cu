@@ -1,14 +1,22 @@
 // Winograd F(2x2,3x3) convolution for Hopper (sm_90a): bf16 on the tensor
-// cores, NHWC.
+// cores, NHWC, for dilation 1 and for the phase grids of a dilated conv.
 //
 // Replaces: audiosourcesep_tpu/ops/winograd.py::_wino_kernel (launched by
-// _winograd_pallas, behind winograd_conv2d) for bf16 inputs; float32 inputs
+// _winograd_pallas, behind winograd_conv2d and dilated_winograd_conv2d) for
+// bf16 inputs; float32 inputs
 // go to the CUDA-core kernel in winograd.cu. Same function and the same
 // operand rounding as the TPU kernel: a SAME 3x3 stride-1 conv computed per
 // 2x2 output tile as  Y = A^T [ sum_cin (G g G^T) . (B^T d B) ] A,  with U =
 // G g G^T handed in already rounded to bf16 (winograd.py:292), V = B^T d B
 // formed in bf16 arithmetic from bf16 d, the 16 channel contractions
 // accumulated in f32, and Y rounded to bf16 once. The bias is the caller's.
+//
+// Dilation d: output pixel (d (2a + r) + p, d (2c + s) + q) of phase (p, q)
+// reads only x[d (2a + i - 1) + p, d (2c + j - 1) + q], so each phase is a
+// stride-1 SAME conv on its (H/d) x (W/d) grid. A block owns tiles of one
+// phase and reads and writes them in place in the undilated NHWC tensors,
+// with the SAME halo zero-filled per phase grid: no phase copy. d = 1 is
+// the dense conv.
 //
 // What bounds it on this card: operations. The 16 transform-domain
 // contractions are 16 * tiles * C_in * C_out multiply-adds; at 96x64
@@ -18,14 +26,18 @@
 // What the design does about it:
 // - The contractions run as mma.sync.m16n8k16 (bf16 in, f32 accumulate)
 //   fed by ldmatrix from shared memory.
-// - A block owns a rectangle of 4 x 8 tiles (an 8 x 16-pixel output patch)
-//   and 64 output channels, and walks C_in in chunks of 16. Eight warps:
+// - A block owns a rectangle of 4 x 8 tiles of one phase grid (an 8 x
+//   16-pixel output patch; 8 x 4 tiles for grids 4 tiles wide, which the
+//   wrapper picks: the cascade's d = 4 grid of 6 x 4 tiles then fills 75%
+//   of a block instead of 37.5%) and 64 output channels, and walks C_in in
+//   chunks of 16. Eight warps:
 //   warp (row u, half h) holds transform-domain row u (points 4u..4u+3)
 //   for the 32 tiles x 32 channels h*32.., 128 f32 accumulators a thread.
 //   Per point and k16 step a warp reads 1 KB of V and 1 KB of U from shared
 //   memory for 16,384 MACs: 0.125 B/MAC, about 1,024 MAC/clk/SM at 128
 //   B/clk, half the tensor cores' peak.
-// - Per chunk the block copies the 10 x 18-pixel x slab and the U chunk
+// - Per chunk the block copies the 10 x 18-pixel (or 18 x 10) x slab and
+//   the U chunk
 //   [16][16][64] with 16-byte cp.async. NHWC keeps 8 bf16 channels in 16
 //   bytes; the SAME halo, the ragged image edge and channels past C_in or
 //   C_out are zero-filled by the copy's source size, with no padded copy in
@@ -45,7 +57,7 @@
 // the same kernel with plain loads in place of the 16-byte copies.
 //
 // What still holds it back: the 16 accumulator sets cap a block at 32
-// tiles x 64 channels (128 f32 a thread, 235 registers), so one
+// tiles x 64 channels (128 f32 a thread, 239-251 registers), so one
 // block of 8 warps runs per SM, and every chunk moves about 134 KB through
 // shared memory (38 KB copied in, 16 KB of slab read, 16 KB of V written,
 // 64 KB of ldmatrix) for 524,288 MACs. Copies, MMAs and the transform take
@@ -53,9 +65,10 @@
 // producers is the next step (PERF.md, ROADMAP.md).
 //
 // C interface (bound with ctypes): winograd_f23_fwd_bf16(x, u, y, B, H, W,
-// Cin, Cout, stream) with x [B,H,W,Cin], U [16,Cin,Cout] and y [B,H,W,Cout],
-// all bf16; H and W even. It launches on `stream`, allocates nothing, and
-// returns cudaGetLastError(). winograd_f23_bf16_smem_bytes() returns the
+// Cin, Cout, d, block_rows, stream) with x [B,H,W,Cin], U [16,Cin,Cout] and
+// y [B,H,W,Cout], all bf16, and dilation d; H and W divisible by 2d;
+// block_rows 4 or 8 (the tile rows of a block). It launches on `stream`,
+// allocates nothing, and returns cudaGetLastError(). winograd_f23_bf16_smem_bytes() returns the
 // dynamic shared memory a block takes.
 
 #include <cuda_bf16.h>
@@ -81,23 +94,20 @@ __device__ unsigned long long g_probe[8][5];
 
 namespace {
 
-constexpr int TR = 4;                  // tile rows per block
-constexpr int TCOL = 8;                // tile columns per block
-constexpr int NTILE = TR * TCOL;       // 32 tiles
+constexpr int NTILE = 32;              // tiles per block: 4 x 8 or 8 x 4
 constexpr int NB = 64;                 // output channels per block
 constexpr int KC = 16;                 // input channels per chunk
 constexpr int NT = 256;                // 8 warps
 constexpr int DEPTH = 4;               // x and U stages of the ring
-constexpr int SR = 2 * TR + 2;         // x slab rows
-constexpr int SC = 2 * TCOL + 2;       // x slab columns
+constexpr int SLAB = 180;              // slab pixels: 10 x 18 or 18 x 10
 constexpr int PIX = 48;                // bytes per slab pixel: 16 bf16 + pad
-constexpr int X_PIECES = SR * SC * 2;  // 16-byte pieces per slab: 360
+constexpr int X_PIECES = SLAB * 2;     // 16-byte pieces per slab: 360
 
 constexpr int VP = NTILE * KC * 2;     // bytes of one point of V: 1 KB
 constexpr int UP = KC * NB * 2;        // bytes of one point of U: 2 KB
 constexpr int V_BYTES = 16 * VP;       // one V stage
 constexpr int U_BYTES = 16 * UP;       // one U stage
-constexpr int X_BYTES = SR * SC * PIX; // one x stage
+constexpr int X_BYTES = SLAB * PIX;    // one x stage
 constexpr int RSTR = NB + 8;           // f32 row stride of the epilogue
 constexpr int R_BYTES = 4 * 2 * NTILE * RSTR * 4;
 constexpr int RING_BYTES = 2 * V_BYTES + DEPTH * (U_BYTES + X_BYTES);
@@ -106,6 +116,7 @@ constexpr int SMEM_BYTES = RING_BYTES > R_BYTES ? RING_BYTES : R_BYTES;
 static_assert(NTILE * (KC / 2) == NT, "one (tile, channel pair) a thread");
 static_assert(16 * KC * (NB / 8) == 8 * NT, "eight U pieces a thread");
 static_assert(X_PIECES <= 2 * NT, "at most two x pieces a thread");
+static_assert((2 * 4 + 2) * (2 * 8 + 2) == SLAB, "slab of a 4 x 8 block");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -170,20 +181,24 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// TR: tile rows of the block (4 or 8; 32 / TR tile columns)
 // XV: C_in % 8 == 0 and x 16-byte aligned (x by cp.async, else plain loads)
 // CV: C_out % 8 == 0 and U, y 16-byte aligned (U by cp.async, 16-byte
 //     stores of y, else plain loads and stores)
-template <bool XV, bool CV>
+template <int TR, bool XV, bool CV>
 __global__ void __launch_bounds__(NT, 1)
     winograd_f23_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                              const __nv_bfloat16* __restrict__ u,
                              __nv_bfloat16* __restrict__ y, int H, int W,
-                             int Cin, int Cout, int n_trb, int n_tcb,
+                             int Cin, int Cout, int d, int n_trb, int n_tcb,
                              int n_cb) {
+  constexpr int TCOL = NTILE / TR;
+  constexpr int SC = 2 * TCOL + 2;     // slab columns
+  static_assert((2 * TR + 2) * SC == SLAB, "slab size");
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* const Vs = smem;                  // [2][16][NTILE][KC]
   unsigned char* const Us = Vs + 2 * V_BYTES;      // [DEPTH][16][KC][NB]
-  unsigned char* const Xs = Us + DEPTH * U_BYTES;  // [DEPTH][SR][SC][PIX B]
+  unsigned char* const Xs = Us + DEPTH * U_BYTES;  // [DEPTH][SLAB][PIX B]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int bid = blockIdx.x;                // C_out block fastest: x from L2
@@ -192,11 +207,16 @@ __global__ void __launch_bounds__(NT, 1)
   const int tcb = bid % n_tcb;
   bid /= n_tcb;
   const int trb = bid % n_trb;
-  const int b = bid / n_trb;
-  const int th = H >> 1, tw = W >> 1;
+  bid /= n_trb;
+  const int phase = bid % (d * d), b = bid / (d * d);
+  const int pr = phase / d, pc = phase % d;        // phase (row, column)
+  const int gh = H / d, gw = W / d;                // phase grid, pixels
+  const int th = gh >> 1, tw = gw >> 1;            // phase grid, tiles
   const int co0 = cb * NB, tr0 = trb * TR, tc0 = tcb * TCOL;
   const int n_chunks = (Cin + KC - 1) / KC;
-  const __nv_bfloat16* const xb = x + (long long)b * H * W * Cin;
+  // pixel (r, c) of the phase grid is x[b, d r + pr, d c + pc]
+  const __nv_bfloat16* const xb =
+      x + (((long long)b * H + pr) * W + pc) * Cin;
 
   // ---- copy roles -------------------------------------------------------
   // x: pieces e = tid, tid + NT of the slab's (pixel, 8-channel half)
@@ -207,11 +227,13 @@ __global__ void __launch_bounds__(NT, 1)
   for (int r = 0; r < 2; ++r) {
     const int e = tid + r * NT;
     const int pix = e >> 1, sr = pix / SC, sc = pix % SC;
-    const int ih = 2 * tr0 - 1 + sr, iw = 2 * tc0 - 1 + sc;
-    const bool in = ih >= 0 && ih < H && iw >= 0 && iw < W;
-    xsrc[r] = in ? xb + ((long long)ih * W + iw) * Cin + 8 * (e & 1) : x;
+    const int gr = 2 * tr0 - 1 + sr, gc = 2 * tc0 - 1 + sc;
+    const bool in = e < X_PIECES && gr >= 0 && gr < gh && gc >= 0 && gc < gw;
+    xsrc[r] = in ? xb + ((long long)d * gr * W + (long long)d * gc) * Cin +
+                       8 * (e & 1)
+                 : x;
     xdst[r] = smem_u32(Xs) + pix * PIX + 16 * (e & 1);
-    xn[r] = in ? Cin - 8 * (e & 1) : 0;   // outside the image: zeros
+    xn[r] = in ? Cin - 8 * (e & 1) : 0;   // outside the grid: zeros
   }
   // U: row k, 16-byte column c, points up0 + 2r (r < 8)
   const int uk = (tid >> 3) & (KC - 1), uc = tid & 7, up0 = tid >> 7;
@@ -255,8 +277,8 @@ __global__ void __launch_bounds__(NT, 1)
   };
 
   // ---- transform role: tile (t_tr, t_tc), channels 2 t_cp, 2 t_cp + 1 ---
-  const int t_tr = warp >> 1, t_tc = 4 * (warp & 1) + (lane >> 3);
-  const int t_cp = lane & 7, t_tile = t_tr * TCOL + t_tc;
+  const int t_tile = 4 * warp + (lane >> 3), t_cp = lane & 7;
+  const int t_tr = t_tile / TCOL, t_tc = t_tile % TCOL;
   const uint32_t t_src = ((2 * t_tr) * SC + 2 * t_tc) * PIX + 4 * t_cp;
   const uint32_t t_dst = t_tile * (KC * 2) +
                          (((t_cp >> 2) ^ ((t_tile >> 2) & 1)) << 4) +
@@ -429,8 +451,8 @@ __global__ void __launch_bounds__(NT, 1)
         o[e] = i == 0 ? r[0][e] + r[1][e] + r[2][e]
                       : r[1][e] - r[2][e] - r[3][e];
       __nv_bfloat16* dst =
-          y + (((long long)b * H + 2 * orow + i) * W + 2 * ocol + c) * Cout +
-          co;
+          y + (((long long)b * H + d * (2 * orow + i) + pr) * W +
+               d * (2 * ocol + c) + pc) * Cout + co;
       if constexpr (CV) {
         *reinterpret_cast<uint4*>(dst) =
             make_uint4(pack_bf16x2(o[0], o[1]), pack_bf16x2(o[2], o[3]),
@@ -445,22 +467,33 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <bool XV, bool CV>
+template <int TR, bool XV, bool CV>
 int launch(const void* x, const void* u, void* y, int B, int H, int W,
-           int Cin, int Cout, cudaStream_t s) {
-  const int n_trb = (H / 2 + TR - 1) / TR, n_tcb = (W / 2 + TCOL - 1) / TCOL;
+           int Cin, int Cout, int d, cudaStream_t s) {
+  const int th = H / (2 * d), tw = W / (2 * d);
+  const int n_trb = (th + TR - 1) / TR;
+  const int n_tcb = (tw + NTILE / TR - 1) / (NTILE / TR);
   const int n_cb = (Cout + NB - 1) / NB;
-  const long long blocks = (long long)B * n_trb * n_tcb * n_cb;
+  const long long blocks = (long long)B * d * d * n_trb * n_tcb * n_cb;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = winograd_f23_bf16_kernel<XV, CV>;
+  auto kernel = winograd_f23_bf16_kernel<TR, XV, CV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, NT, SMEM_BYTES, s>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(y),
-      H, W, Cin, Cout, n_trb, n_tcb, n_cb);
+      H, W, Cin, Cout, d, n_trb, n_tcb, n_cb);
   return (int)cudaGetLastError();
+}
+
+template <int TR>
+int dispatch(const void* x, const void* u, void* y, int B, int H, int W,
+             int Cin, int Cout, int d, bool xv, bool cv, cudaStream_t s) {
+  if (xv && cv) return launch<TR, true, true>(x, u, y, B, H, W, Cin, Cout, d, s);
+  if (xv) return launch<TR, true, false>(x, u, y, B, H, W, Cin, Cout, d, s);
+  if (cv) return launch<TR, false, true>(x, u, y, B, H, W, Cin, Cout, d, s);
+  return launch<TR, false, false>(x, u, y, B, H, W, Cin, Cout, d, s);
 }
 
 bool aligned16(const void* p) {
@@ -471,17 +504,18 @@ bool aligned16(const void* p) {
 
 extern "C" int winograd_f23_fwd_bf16(const void* x, const void* u, void* y,
                                      int B, int H, int W, int Cin, int Cout,
-                                     void* stream) {
-  if (B < 0 || H < 2 || W < 2 || (H % 2) || (W % 2) || Cin < 1 || Cout < 1)
+                                     int d, int block_rows, void* stream) {
+  if (B < 0 || d < 1 || H < 2 * d || W < 2 * d || H % (2 * d) ||
+      W % (2 * d) || Cin < 1 || Cout < 1 ||
+      (block_rows != 4 && block_rows != 8))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool xv = Cin % 8 == 0 && aligned16(x);
   const bool cv = Cout % 8 == 0 && aligned16(u) && aligned16(y);
-  if (xv && cv) return launch<true, true>(x, u, y, B, H, W, Cin, Cout, s);
-  if (xv) return launch<true, false>(x, u, y, B, H, W, Cin, Cout, s);
-  if (cv) return launch<false, true>(x, u, y, B, H, W, Cin, Cout, s);
-  return launch<false, false>(x, u, y, B, H, W, Cin, Cout, s);
+  return block_rows == 4
+             ? dispatch<4>(x, u, y, B, H, W, Cin, Cout, d, xv, cv, s)
+             : dispatch<8>(x, u, y, B, H, W, Cin, Cout, d, xv, cv, s);
 }
 
 extern "C" int winograd_f23_bf16_smem_bytes() { return SMEM_BYTES; }

@@ -34,10 +34,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every exported function: name -> (argtypes, restype).
 # Pointers and the stream are c_void_p; every int is c_int.
 SIGNATURES = {
-    # (x, u, y, B, H, W, Cin, Cout, stream) -> cudaError_t
-    "winograd_f23_fwd_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "winograd_f23_fwd_bf16": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    # () -> dynamic shared memory bytes per block of the bf16 kernel
+    # (x, u, y, B, H, W, Cin, Cout, dilation, block_rows, stream)
+    #   -> cudaError_t
+    "winograd_f23_fwd_f32": ([_P, _P, _P, *[_I] * 7, _P], _I),
+    "winograd_f23_fwd_bf16": ([_P, _P, _P, *[_I] * 7, _P], _I),
+    # () -> dynamic shared memory bytes per block of each kernel
+    "winograd_f23_f32_smem_bytes": ([], _I),
     "winograd_f23_bf16_smem_bytes": ([], _I),
 }
 

@@ -25,8 +25,11 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
 * ``launch_count`` counts kernel launches (and nothing else);
   ``launch_counts`` splits it by kernel name.
 * A dilated 3x3 conv runs the same kernels on its d*d phase grids
-  (``dilated_winograd_conv2d``), one launch per conv, counted as above.
-  ``nn.conv2d`` does not route dilated convs, as in the JAX package.
+  (``dilated_winograd_conv2d``): the kernels take d, read each phase's
+  pixels in place from the undilated ``x`` and write its outputs in
+  place, so a dilated conv is one launch and no phase copy. Only the
+  plain version splits the phases out. ``nn.conv2d`` does not route
+  dilated convs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -119,10 +122,24 @@ def winograd_eligible(x_shape, kernel_shape, dilation: int = 1) -> bool:
         and kernel_shape[3] >= 1
 
 
-def _winograd_cuda(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel of ``x``'s dtype on the current stream. NHWC
-    ``x`` (f32 or bf16, contiguous, even H/W) and ``U [16, C_in, C_out]``
-    of the same dtype."""
+def _block_rows(th: int, tw: int) -> int:
+    """Tile rows of the kernels' 32-tile block for a (phase) grid of
+    ``th`` x ``tw`` tiles: 4 (a 4 x 8 block) unless 8 x 4 leaves fewer
+    tile slots idle. The cascade's 48x32 convs: the dense 24 x 16 and the
+    d = 2 12 x 8 grids fill 4 x 8 blocks; the d = 4 grid, 6 x 4 tiles,
+    fills 75% of an 8 x 4 block against 37.5% of a 4 x 8 one."""
+    def slots(rows):
+        cols = 32 // rows
+        return -(-th // rows) * rows * -(-tw // cols) * cols
+    return 8 if slots(8) < slots(4) else 4
+
+
+def _winograd_cuda(x: torch.Tensor, u: torch.Tensor,
+                   dilation: int = 1) -> torch.Tensor:
+    """Launch the kernel of ``x``'s dtype on the current stream: the
+    3x3 SAME conv of dilation d on NHWC ``x`` (f32 or bf16, contiguous, H
+    and W divisible by 2d) with ``U [16, C_in, C_out]`` of the same
+    dtype. One launch, whatever d."""
     global launch_count
     if not x.is_cuda or u.device != x.device:
         raise ValueError(f"winograd kernel needs x and U on one CUDA device, "
@@ -135,8 +152,10 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if x.dim() != 4 or not x.is_contiguous() or not u.is_contiguous():
         raise ValueError("winograd kernel needs contiguous NHWC x and U")
     b, h, w, cin = x.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"winograd kernel needs even H and W, got {h}x{w}")
+    d = dilation
+    if d < 1 or h % (2 * d) or w % (2 * d):
+        raise ValueError(f"winograd kernel needs H and W divisible by 2d, "
+                         f"got {h}x{w}, d={d}")
     if u.dim() != 3 or u.shape[0] != 16 or u.shape[1] != cin:
         raise ValueError(f"U must be [16, {cin}, C_out], got "
                          f"{tuple(u.shape)}")
@@ -150,51 +169,58 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(load_library(), name)(
             x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
-            stream)
+            d, _block_rows(h // (2 * d), w // (2 * d)), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(x {tuple(x.shape)}, C_out {cout})")
+                           f"(x {tuple(x.shape)}, C_out {cout}, d={d})")
     launch_count += 1
     launch_counts[name] += 1
     return y
 
 
 def _forward(x: torch.Tensor, kernel: torch.Tensor,
-             u: Optional[torch.Tensor]) -> torch.Tensor:
+             u: Optional[torch.Tensor], dilation: int) -> torch.Tensor:
     if x.is_cuda:
         # U rounded to x's dtype, as the JAX wrapper does (winograd.py:292)
         if u is None:
             u = transform_weights(kernel)
-        return _winograd_cuda(x, u.to(x.dtype))
+        return _winograd_cuda(x, u.to(x.dtype), dilation)
     if x.device.type == "cpu":
-        return winograd_conv2d_reference(x, kernel)
+        if dilation == 1:
+            return winograd_conv2d_reference(x, kernel)
+        return dilated_winograd_conv2d_reference(x, kernel, dilation)
     raise ValueError(f"winograd_conv2d: no implementation for device "
                      f"{x.device}")
 
 
 class _WinogradConv2d(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or its plain version (CPU). Backward:
-    the plain conv VJP, as in the JAX package's custom VJP."""
+    """Forward: the kernel (CUDA) or its plain version (CPU), at
+    dilation d. Backward: the plain (dilated) conv VJP, as in the JAX
+    package's custom VJP."""
 
     @staticmethod
-    def forward(ctx, x, kernel, u):
+    def forward(ctx, x, kernel, u, dilation):
         ctx.save_for_backward(x, kernel)
-        return _forward(x, kernel, u)
+        ctx.dilation = dilation
+        return _forward(x, kernel, u, dilation)
 
     @staticmethod
     def backward(ctx, gy):
         x, kernel = ctx.saved_tensors
+        d = ctx.dilation
         w = kernel.permute(3, 2, 0, 1).to(x.dtype)          # HWIO -> OIHW
         xn = x.permute(0, 3, 1, 2)
         g = gy.permute(0, 3, 1, 2).to(x.dtype)
         gx = gk = None
         if ctx.needs_input_grad[0]:
-            gx = torch.nn.grad.conv2d_input(xn.shape, w, g, padding=1)
+            gx = torch.nn.grad.conv2d_input(xn.shape, w, g, padding=d,
+                                            dilation=d)
             gx = gx.permute(0, 2, 3, 1)
         if ctx.needs_input_grad[1]:
-            gk = torch.nn.grad.conv2d_weight(xn, w.shape, g, padding=1)
+            gk = torch.nn.grad.conv2d_weight(xn, w.shape, g, padding=d,
+                                             dilation=d)
             gk = gk.permute(2, 3, 1, 0).to(kernel.dtype)
-        return gx, gk, None
+        return gx, gk, None, None
 
 
 def winograd_conv2d(x: torch.Tensor, kernel: torch.Tensor,
@@ -208,7 +234,7 @@ def winograd_conv2d(x: torch.Tensor, kernel: torch.Tensor,
     skips it; gradients still flow to ``kernel``). Bias is the caller's
     job.
     """
-    return _WinogradConv2d.apply(x, kernel, u)
+    return _WinogradConv2d.apply(x, kernel, u, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -253,17 +279,17 @@ def dilated_winograd_conv2d(x: torch.Tensor, kernel: torch.Tensor,
 
     ``y[d a + p, d b + q]`` reads only ``x[d (a+i) + p, d (b+j) + q]``, so
     each phase (p, q) is an independent stride-1 SAME conv on its
-    subsampled grid. The phases move to the batch axis, go through
-    :func:`winograd_conv2d` (the kernel on a CUDA tensor, the plain
-    version on a CPU tensor) and interleave back. NHWC ``x``, HWIO
-    ``kernel``, ``u`` as for :func:`winograd_conv2d`.
+    subsampled grid. On a CUDA tensor the kernel of ``x``'s dtype computes
+    all phases in one launch, reading and writing them in place; on a CPU
+    tensor :func:`dilated_winograd_conv2d_reference` moves the phases to
+    the batch axis and back. Gradients are the dilated conv's VJP. NHWC
+    ``x``, HWIO ``kernel``, ``u`` as for :func:`winograd_conv2d`.
     """
     if not dilated_eligible(x.shape, kernel.shape, dilation=dilation):
         raise ValueError(f"dilated winograd needs a 3x3 kernel, d >= 2 and "
                          f"H, W divisible by 2d; got x {tuple(x.shape)}, "
                          f"kernel {tuple(kernel.shape)}, d={dilation}")
-    y = winograd_conv2d(_to_phases(x, dilation), kernel, u)
-    return _from_phases(y, x.shape[0], dilation)
+    return _WinogradConv2d.apply(x, kernel, u, dilation)
 
 
 def dilated_winograd_conv2d_reference(x: torch.Tensor, kernel: torch.Tensor,

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Where the port's bf16 Winograd kernel spends its time, on one CUDA card.
+"""Where the port's Winograd kernels spend their time, on one CUDA card.
 
     python3 benchmarks/torch_winograd_probe.py
 
-Builds ``audiosourcesep_tpu_torch/csrc/winograd_mma.cu`` a second time
-with ``-DWINOGRAD_PROBE``: each warp then sums the ``clock64`` cycles it
-spends in each phase of its loop over 16-channel chunks. For each conv
-class that the NCSN v1 forward routes to the kernel (batch 30) it prints
-the plain build's time, the probed build's time, and the cycles per
-chunk of each phase (the MMAs, the V transform, issuing the copies,
-waiting for copies, the barrier), averaged over the eight warps. The
-probe build is slower than the plain one; the phase shares are what it
-is for.
+Builds ``audiosourcesep_tpu_torch/csrc/winograd_mma.cu`` (bf16) and
+``csrc/winograd.cu`` (f32) a second time with ``-DWINOGRAD_PROBE``: each
+warp then sums the ``clock64`` cycles it spends in each phase of its loop
+over input-channel chunks (bf16: 16 channels; f32: 8), and the f32 kernel
+also its epilogue. For each conv class that the NCSN v1 forward routes to
+the kernels (batch 30) it prints the plain build's time, the probed
+build's time, and the cycles per chunk of each phase, averaged over the
+eight warps (the f32 epilogue spread over the chunks). The probe build is
+slower than the plain one; the phase shares are what it is for.
 """
 
 import ctypes
@@ -24,22 +24,28 @@ CLASSES = [(96, 64, 1, 192), (96, 64, 192, 192), (96, 64, 192, 384),
            (96, 64, 192, 1), (48, 32, 384, 384), (48, 32, 384, 192),
            (48, 32, 192, 192)]
 BATCH = 30
-PHASES = ("mma", "transform", "copies", "wait", "barrier")
+# dtype name -> source, C entry, probe entry, channels per chunk, phases
+KERNELS = {
+    "bfloat16": ("winograd_mma.cu", "winograd_f23_fwd_bf16",
+                 "winograd_f23_bf16_probe", 16,
+                 ("mma", "transform", "copies", "wait", "barrier")),
+    "float32": ("winograd.cu", "winograd_f23_fwd_f32",
+                "winograd_f23_f32_probe", 8,
+                ("fma+transform+copies", "wait", "barrier", "epilogue")),
+}
 
 
-def build_probe(build):
-    src = os.path.join(build.CSRC, "winograd_mma.cu")
-    so = os.path.join(build.BUILD_DIR, f"winograd_probe_{os.getpid()}.so")
+def build_probe(build, source, entry, probe):
+    so = os.path.join(build.BUILD_DIR, f"probe_{os.getpid()}_{entry}.so")
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-DWINOGRAD_PROBE",
-           "-shared", "-o", so, src]
+           "-shared", "-o", so, os.path.join(build.CSRC, source)]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
     os.unlink(so)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.winograd_f23_fwd_bf16.argtypes = [P, P, P, I, I, I, I, I, P]
-    lib.winograd_f23_fwd_bf16.restype = I
-    lib.winograd_f23_bf16_probe.restype = I
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = build.SIGNATURES[entry]
+    getattr(lib, probe).restype = ctypes.c_int
     return lib
 
 
@@ -54,8 +60,6 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
-    lib = build_probe(build)
-    buf = (ctypes.c_ulonglong * 40)()
     g = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -70,34 +74,41 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
-    for h, w, cin, cout in CLASSES:
-        x = torch.randn(BATCH, h, w, cin, device="cuda",
-                        generator=g).bfloat16()
-        u = torch.randn(16, cin, cout, device="cuda", generator=g).bfloat16()
-        y = torch.empty(BATCH, h, w, cout, device="cuda",
-                        dtype=torch.bfloat16)
+    for dname, (source, entry, probe, kc, phases) in KERNELS.items():
+        dtype = getattr(torch, dname)
+        lib = build_probe(build, source, entry, probe)
+        buf = (ctypes.c_ulonglong * (8 * len(phases)))()
+        print(f"{dname} ({source}): clk per {kc}-channel chunk per warp")
+        for h, w, cin, cout in CLASSES:
+            x = torch.randn(BATCH, h, w, cin, device="cuda",
+                            generator=g).to(dtype)
+            u = torch.randn(16, cin, cout, device="cuda",
+                            generator=g).to(dtype)
+            y = torch.empty(BATCH, h, w, cout, device="cuda", dtype=dtype)
 
-        def probed():
-            err = lib.winograd_f23_fwd_bf16(x.data_ptr(), u.data_ptr(),
-                                            y.data_ptr(), BATCH, h, w, cin,
-                                            cout, stream)
-            assert err == 0, err
+            def probed():
+                err = getattr(lib, entry)(x.data_ptr(), u.data_ptr(),
+                                          y.data_ptr(), BATCH, h, w, cin,
+                                          cout, 1, 4, stream)
+                assert err == 0, err
 
-        ms_plain = ms(lambda: W._winograd_cuda(x, u))
-        probed()
-        assert lib.winograd_f23_bf16_probe(buf) == 0
-        ms_probe = ms(probed)
-        assert lib.winograd_f23_bf16_probe(buf) == 0
-        blocks = BATCH * -(-h // 8) * -(-w // 16) * -(-cout // 64)
-        chunks = 21 * blocks * -(-cin // 16)      # 1 warm-up + 20 timed
-        per = [sum(buf[wp * 5 + i] for wp in range(8)) / 8 / chunks
-               for i in range(5)]
-        tot = sum(per)
-        shares = ", ".join(f"{n} {c:.0f} ({100 * c / tot:.0f}%)"
-                           for n, c in zip(PHASES, per))
-        print(f"{h}x{w} {cin:3d}->{cout:3d}: kernel {ms_plain:.4f} ms, "
-              f"probed {ms_probe:.4f} ms; clk per chunk per warp: {shares}; "
-              f"total {tot:.0f}")
+            ms_plain = ms(lambda: W._winograd_cuda(x, u))
+            probed()
+            assert getattr(lib, probe)(buf) == 0
+            ms_probe = ms(probed)
+            assert getattr(lib, probe)(buf) == 0
+            # 32-tile blocks of 4 x 8 tiles, 64 output channels
+            blocks = BATCH * -(-h // 8) * -(-w // 16) * -(-cout // 64)
+            chunks = 21 * blocks * -(-cin // kc)      # 1 warm-up + 20 timed
+            n = len(phases)
+            per = [sum(buf[wp * n + i] for wp in range(8)) / 8 / chunks
+                   for i in range(n)]
+            tot = sum(per)
+            shares = ", ".join(f"{p} {c:.0f} ({100 * c / tot:.0f}%)"
+                               for p, c in zip(phases, per))
+            print(f"  {h}x{w} {cin:3d}->{cout:3d}: kernel {ms_plain:.4f} ms, "
+                  f"probed {ms_probe:.4f} ms; {shares}; total {tot:.0f}")
+            del x, u, y
 
 
 if __name__ == "__main__":

@@ -16,10 +16,12 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    class the NCSN v1 forward routes to them (batch 30), with errors, times
    and each class's bound (the least time the card could take); then the
    dilated route (the kernels on the d*d phase grids) at the cascade's
-   dilated convs, 48x32 384->384 at d = 2 and 4, against its plain version
-   and the dilated F.conv2d;
+   dilated convs, 48x32 384->384 at d = 2 and 4 (one launch per conv,
+   the phases read and written in place), against its plain version and
+   the dilated F.conv2d;
 4. the full-width v1 score network (192 filters, ``[30, 96, 64, 1]``,
-   bf16, random weights) with Winograd routing on and off;
+   random weights) with Winograd routing on and off, in bf16 and in f32
+   (TF32 off, the CLIs' default ``--compute_dtype``);
 5. the separation CLI in-process (``run_basis_sep.main``) on ~70 s of
    synthetic piano/violin wavs with two random-init priors written as
    JAX-format checkpoints: 30 frames, 10 noise levels, ``--winograd``,
@@ -72,7 +74,9 @@ BATCH = 30
 # 4.7e-3 mean (tests/test_torch_winograd.py pins it under 2e-2 and 1e-2).
 # F.conv2d (direct, cuDNN) adds its own order and rounding.
 TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (2e-2, 1e-2, 3e-2)}
-MODEL_TOL = 0.05   # routed vs cuDNN forward, mean|diff| / mean|off|, bf16
+# routed vs cuDNN forward, mean|diff| / mean|off|; f32 differs only in
+# summation order
+MODEL_TOL = {"bfloat16": 0.05, "float32": 1e-3}
 # published H100 SXM peaks: bf16 dense tensor cores, f32 CUDA cores (FLOP/s)
 PEAK = {"bfloat16": 989e12, "float32": 67e12}
 HBM = 3.35e12      # bytes/s
@@ -139,8 +143,10 @@ def phase_build():
     for line in build.build_log.splitlines():
         if any(k in line for k in ("entry function", "registers", "spill")):
             print(f"[2] ptxas: {line.strip()}")
-    print(f"[2] bf16 kernel: {lib.winograd_f23_bf16_smem_bytes()} bytes of "
-          f"dynamic shared memory per block")
+    for name in build.SIGNATURES:
+        if name.endswith("_smem_bytes"):
+            print(f"[2] {name}: {getattr(lib, name)()} bytes of dynamic "
+                  f"shared memory per block")
 
 
 def conv_bound(h, w, cin, cout, dname):
@@ -243,6 +249,10 @@ def phase_kernel():
         h, w, cin, cout = DILATED_CLASS
         for d, n in DILATED.items():
             x, k, u, xc, kc = inputs(h, w, cin, cout, dtype)
+            before = dict(W.launch_counts)
+            W.dilated_winograd_conv2d(x, k, d, u)
+            if sum(W.launch_counts.values()) - sum(before.values()) != 1:
+                raise AssertionError(f"dilated conv d={d} is not one launch")
             _hold(r, f"{h}x{w} {cin:3d}->{cout:3d} d={d}", dname, n,
                   DILATED_CLASS,
                   lambda: W.dilated_winograd_conv2d(x, k, d, u),
@@ -253,13 +263,13 @@ def phase_kernel():
     return res
 
 
-def phase_model():
+def phase_model(dtype):
     import torch
     from audiosourcesep_tpu_torch import nn
     from audiosourcesep_tpu_torch.models.ncsn import get_score_model
     from audiosourcesep_tpu_torch.ops import winograd as W
-    model = get_score_model("v1", (96, 64, 1), 192, 10,
-                            compute_dtype=torch.bfloat16)
+    dname = str(dtype).split(".")[1]
+    model = get_score_model("v1", (96, 64, 1), 192, 10, compute_dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(1))
     model = model.cuda().eval().requires_grad_(False)
     routed = sum(1 for m in model.modules() if isinstance(m, nn.Conv2d)
@@ -275,24 +285,25 @@ def phase_model():
         off = model(x, idx)
         ms_off = cuda_ms(lambda: model(x, idx), 3)
         nn.set_winograd(True)
-        before = W.launch_counts[W.KERNELS[torch.bfloat16]]
+        before = W.launch_counts[W.KERNELS[dtype]]
         on = model(x, idx)
         torch.cuda.synchronize()
-        grew = W.launch_counts[W.KERNELS[torch.bfloat16]] - before
+        grew = W.launch_counts[W.KERNELS[dtype]] - before
         ms_on = cuda_ms(lambda: model(x, idx), 3)
     finally:
         nn.set_winograd(False)
     if grew != ROUTED_PER_FORWARD:
-        raise AssertionError(f"one routed forward launched the bf16 kernel "
-                             f"{grew} times, expected {ROUTED_PER_FORWARD}")
+        raise AssertionError(f"one routed forward launched the {dname} "
+                             f"kernel {grew} times, expected "
+                             f"{ROUTED_PER_FORWARD}")
     if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
         raise AssertionError("non-finite model output")
     rel = ((on - off).abs().mean() / off.abs().mean()).item()
-    print(f"[4] v1 192 filters, x [{BATCH},96,64,1] bf16: routing on "
+    print(f"[4] v1 192 filters, x [{BATCH},96,64,1] {dname}: routing on "
           f"{ms_on:.2f} ms/forward, off {ms_off:.2f} ms/forward; launches "
           f"per forward {grew}; mean|on-off|/mean|off| {rel:.3e} "
-          f"(tol {MODEL_TOL})")
-    if rel > MODEL_TOL:
+          f"(tol {MODEL_TOL[dname]:g})")
+    if rel > MODEL_TOL[dname]:
         raise AssertionError("routed forward disagrees with the cuDNN one")
     del model
     torch.cuda.empty_cache()
@@ -549,7 +560,8 @@ def main(argv):
     smi = phase_device()
     phase_build()
     res = phase_kernel()
-    phase_model()
+    phase_model(torch.bfloat16)
+    phase_model(torch.float32)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         bf16_launches, _, bf16_out = phase_cli(work, 2, "bf16", inverse=True)

@@ -43,10 +43,14 @@ def _inputs(shape, cout, dtype, seed=0):
     return x, k
 
 
-# ragged shapes: tiles not a multiple of the block's 4 x 8 rectangle (W = 2,
-# 6), C_in not a multiple of 16 (1, 5, 17, 40), C_out not a multiple of 8
-# or of the 64-channel block (1, 7, 33, 200); then full channel widths
+# ragged shapes: tiles not a multiple of the blocks' 4 x 8 rectangle (W = 2,
+# 6), C_in not a multiple of the chunks (1, 3, 5, 12, 17, 40), C_out not a
+# multiple of 4, 8 or of the 64-channel block (1, 7, 33, 65, 100, 200), 33 x
+# 1 and 7 x 5 tiles at batch 1 (the f32 block owns 32); then full widths
 @pytest.mark.parametrize("shape,cout", [((3, 12, 10, 5), 7),
+                                        ((1, 14, 10, 3), 65),
+                                        ((1, 2, 66, 12), 100),
+                                        ((1, 6, 34, 8), 4),
                                         ((2, 16, 8, 40), 33),
                                         ((1, 2, 2, 1), 1),
                                         ((2, 8, 6, 17), 64),
@@ -145,16 +149,33 @@ def test_routed_conv_follows_in_place_weight_updates(cuda):
                                atol=2e-2, rtol=2e-2)
 
 
+def _no_phase_copy(*args):
+    raise AssertionError("the CUDA path copied the phases")
+
+
+# ragged channels; the cascade's dilated convs (48x32 384->384: phase grids
+# of 12 x 8 tiles at d = 2, 6 x 4 at d = 4); phase grids smaller than one
+# block (2 x 2 tiles at d = 2, 1 x 1 at d = 4)
+@pytest.mark.parametrize("shape,cout", [((2, 16, 24, 40), 33),
+                                        ((2, 48, 32, 384), 384),
+                                        ((1, 8, 8, 16), 24)])
 @pytest.mark.parametrize("d", [2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dilated_route_matches_plain_version(cuda, d, dtype):
-    x, k = _inputs((2, 16, 24, 40), 33, dtype, seed=d)
-    name = W.KERNELS[dtype]
-    before = W.launch_counts[name]
-    got = W.dilated_winograd_conv2d(x, k, d)
-    assert W.launch_counts[name] == before + 1       # all d*d phases at once
-    tol_max, tol_mean, tol_conv = TOL[dtype]
+def test_dilated_route_matches_plain_version(cuda, monkeypatch, d, dtype,
+                                             shape, cout):
+    x, k = _inputs(shape, cout, dtype, seed=d)
     want = W.dilated_winograd_conv2d_reference(x, k, d).float()
+    name = W.KERNELS[dtype]
+    before = dict(W.launch_counts)
+    with monkeypatch.context() as mp:
+        mp.setattr(W, "_to_phases", _no_phase_copy)
+        mp.setattr(W, "_from_phases", _no_phase_copy)
+        got = W.dilated_winograd_conv2d(x, k, d)
+    # all d*d phases in one launch of this dtype's kernel, counted where
+    # _winograd_cuda launches it
+    assert W.launch_counts == {n: c + (n == name) for n, c in before.items()}
+    assert got.dtype == dtype and got.shape == (*shape[:3], cout)
+    tol_max, tol_mean, tol_conv = TOL[dtype]
     err = (got.float() - want).abs()
     assert err.max().item() <= tol_max * want.abs().max().item()
     assert err.mean().item() <= tol_mean * want.abs().mean().item()

@@ -172,6 +172,88 @@ def test_dilated_matches_pallas_interpret_and_conv(d):
     np.testing.assert_array_equal(ref.numpy(), got)
 
 
+def _phase_gather_reference(x, k, d):
+    """The dilated conv by the kernels' own addressing, with no phase copy:
+    tile (a, c) of phase (p, q) gathers x[d (2a + i - 1) + p,
+    d (2c + j - 1) + q] (zero outside the image) with strided indices and
+    writes y[d (2a + r) + p, d (2c + s) + q]."""
+    b, h, w, cin = x.shape
+    xp = F.pad(x, (0, 0, d, d, d, d))          # row d (2a + i) + p of xp
+    ph = torch.arange(d)
+
+    def taps(n_tiles, i):                      # [tiles, d] padded indices
+        return d * (2 * torch.arange(n_tiles)[:, None] + i) + ph[None, :]
+
+    th, tw = h // (2 * d), w // (2 * d)
+    # dd[i, j, b, a, p, c, q, cin]
+    dd = torch.stack([torch.stack([xp[:, taps(th, i)][:, :, :, taps(tw, j)]
+                                   for j in range(4)]) for i in range(4)])
+    bt, at = torch.from_numpy(twino._BT), torch.from_numpy(twino._AT)
+    u = twino.transform_weights(k).reshape(4, 4, cin, -1)
+    v = torch.einsum("ui,vj,ijbapcqn->uvbapcqn", bt, bt, dd)
+    m = torch.einsum("uvbapcqn,uvnm->uvbapcqm", v, u)
+    y = torch.einsum("ru,sv,uvbapcqm->barpcsqm", at, at, m)
+    return y.reshape(b, h, w, -1)              # row a 2d + r d + p
+
+
+@pytest.mark.parametrize("cin,cout", [(5, 7), (40, 33)])
+@pytest.mark.parametrize("d", [2, 4])
+def test_kernel_addressing_matches_pallas_interpret_and_phase_split(d, cin,
+                                                                    cout):
+    """The kernels read each phase's taps in place from the undilated x
+    and write its outputs in place; that addressing, as plain PyTorch,
+    against the JAX package's phase split around the Pallas kernel and
+    the port's plain phase split, to 1e-5 relative."""
+    x, k = _inputs(20 + d, (2, 16, 24, cin), cout)
+    got = _phase_gather_reference(torch.from_numpy(x), torch.from_numpy(k),
+                                  d).numpy()
+    pallas = np.asarray(jwino.dilated_winograd_conv2d(
+        jnp.asarray(x), jnp.asarray(k), d, interpret=True))
+    split = twino.dilated_winograd_conv2d_reference(
+        torch.from_numpy(x), torch.from_numpy(k), d).numpy()
+    assert got.shape == (2, 16, 24, cout)
+    for want in (pallas, split):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_phase_gather_reference_is_the_dense_conv_at_d1():
+    x, k = _inputs(24, (2, 8, 12, 6), 5)
+    got = _phase_gather_reference(torch.from_numpy(x), torch.from_numpy(k), 1)
+    want = twino.winograd_conv2d_reference(torch.from_numpy(x),
+                                           torch.from_numpy(k))
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("h,w,d,rows,idle", [(48, 32, 1, 4, 0.0),
+                                             (48, 32, 2, 4, 0.0),
+                                             (48, 32, 4, 8, 0.25),
+                                             (96, 64, 1, 4, 0.0)])
+def test_block_shape_fills_the_cascade_grids(h, w, d, rows, idle):
+    """The 32-tile block the wrappers pick for a (phase) grid: the dense
+    and d = 2 grids of the cascade's 48x32 convs leave no tile slot idle,
+    the d = 4 grid (6 x 4 tiles) at most a quarter."""
+    th, tw = h // (2 * d), w // (2 * d)
+    assert twino._block_rows(th, tw) == rows
+    cols = 32 // rows
+    slots = -(-th // rows) * rows * -(-tw // cols) * cols
+    assert 1 - th * tw / slots == pytest.approx(idle)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_dilated_gradient_is_the_dilated_conv_vjp(d):
+    x, k = _inputs(30 + d, (1, 16, 8, 6), 5)
+    xt = torch.from_numpy(x).requires_grad_()
+    kt = torch.from_numpy(k).requires_grad_()
+    (twino.dilated_winograd_conv2d(xt, kt, d) ** 2).sum().backward()
+    xc = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    kc = torch.from_numpy(k).permute(3, 2, 0, 1).requires_grad_()
+    (F.conv2d(xc, kc, padding=d, dilation=d) ** 2).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(),
+                               xc.grad.permute(0, 2, 3, 1).numpy(), atol=1e-3)
+    np.testing.assert_allclose(kt.grad.numpy(),
+                               kc.grad.permute(2, 3, 1, 0).numpy(), atol=1e-3)
+
+
 def test_dilated_eligibility_and_refusal():
     assert twino.dilated_eligible((30, 48, 32, 384), (3, 3, 384, 384),
                                   dilation=2)
