@@ -16,7 +16,10 @@ Ported so far: the NCSN BASIS main path, from wavs to ``results.npz``
 (``python -m audiosourcesep_tpu_torch.run_basis_sep``), back to audio
 (its ``--inverse``, and
 ``python -m audiosourcesep_tpu_torch.melspec_inversion_basis``) and its
-BSS-Eval score (``evaluation``).
+BSS-Eval score (``evaluation``); and NCSN training, from wavs to a
+TFRecord dataset (``wav_to_spec``), a trained prior (``train_ncsn``, with
+JAX-layout train-state checkpoints) and its samples
+(``ncsn_generate_samples``).
 """
 
 __version__ = "0.1.0"

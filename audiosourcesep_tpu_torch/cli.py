@@ -1,0 +1,111 @@
+"""CLI plumbing shared by the port's entry points (port of ``audiosourcesep_tpu/cli.py``).
+
+The JAX package's operational behaviour, without its ``chdir``: the
+output directory is created, stdout goes to ``out.log`` there unless
+``--debug`` (for the duration of the call), every output is written under
+it by path, and a ``--config`` YAML overlays the parsed flags (a key it
+names replaces the flag; flags it does not name keep their values, so a
+YAML without ``seed`` still runs with the default seed). Devices: ``cuda``
+raises when there is no card, and nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+from typing import Iterable
+
+import torch
+
+from .data import load_melspec_ds
+from .training.train_utils import get_config
+
+# run-level flags a --config YAML never overrides
+KEEP = ("dataset", "output", "debug", "restore", "RESTORE", "song_dir",
+        "inverse", "model_type", "n_mixed", "device")
+
+
+def apply_config_override(args: argparse.Namespace,
+                          keep: Iterable[str] = KEEP) -> argparse.Namespace:
+    """``--config`` (YAML) overrides the hyperparameters it names; the
+    run-level flags in ``keep`` always stay as given."""
+    if getattr(args, "config", None) is None:
+        return args
+    new_args = argparse.Namespace(**vars(args))
+    keep = set(keep)
+    for k, v in vars(get_config(args.config)).items():
+        if k not in keep:
+            setattr(new_args, k, v)
+    return new_args
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name} requested but CUDA is not "
+                           "available (no fallback to the CPU)")
+    return device
+
+
+def add_multihost_flags(parser: argparse.ArgumentParser) -> None:
+    """The JAX scripts' multi-host flags; ``--multihost`` is not ported
+    yet and raises (:func:`refuse_not_ported`)."""
+    parser.add_argument("--multihost", action="store_true",
+                        help="not ported yet: raises")
+    parser.add_argument("--coordinator_address", type=str, default=None)
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+
+
+def refuse_not_ported(args, script: str) -> None:
+    """Raise ``NotImplementedError`` for the image datasets and
+    ``--multihost``, which wait for later slices of the port."""
+    for flag, hit in ((f"--dataset {getattr(args, 'dataset', None)}",
+                       getattr(args, "dataset", None) in ("mnist",
+                                                          "cifar10")),
+                      ("--multihost", getattr(args, "multihost", False))):
+        if hit:
+            raise NotImplementedError(
+                f"{flag} is not yet ported to audiosourcesep_tpu_torch; "
+                f"use the JAX {script}")
+
+
+@contextlib.contextmanager
+def setup_output_dir(output: str, debug: bool):
+    """Create ``output``; for the duration, stdout goes to
+    ``output/out.log`` unless ``debug``. Yields the log file."""
+    os.makedirs(output, exist_ok=True)
+    with open(os.path.join(output, "out.log"), "w") as log_file:
+        with (contextlib.nullcontext() if debug
+              else contextlib.redirect_stdout(log_file)):
+            yield log_file
+
+
+def resolve_dataset(args) -> dict:
+    """Load a melspec dataset: ``args.dataset`` is a directory with
+    ``train/`` and ``test/`` TFRecord subdirectories (reference layout).
+    Returns ``ds_train, ds_test, minibatch, n_train, n_test, data_shape,
+    data_type, minval, maxval``; the scale limits are those of ``--scale``
+    (dB: [-100, 20], power: [1e-10, 100])."""
+    ds_train, ds_test, minibatch, n_train, n_test = load_melspec_ds(
+        os.path.join(args.dataset, "train"),
+        os.path.join(args.dataset, "test"), batch_size=args.batch_size)
+    if getattr(args, "scale", "dB") == "power":
+        minval, maxval = 1e-10, 100.0
+    else:
+        minval, maxval = -100.0, 20.0
+    return dict(ds_train=ds_train, ds_test=ds_test, minibatch=minibatch,
+                n_train=n_train, n_test=n_test,
+                data_shape=tuple(minibatch.shape[1:]), data_type="melspec",
+                minval=minval, maxval=maxval)
+
+
+def print_params(args, writer=None) -> str:
+    template = "Parameters \n\t "
+    for k, v in vars(args).items():
+        template += f"{k} = {v} \n\t "
+    print(template)
+    if writer is not None:
+        writer.add_text("Parameters", template, 0)
+    return template

@@ -1,8 +1,16 @@
-"""Song extracts for separation (port of ``load_wav`` and ``get_song_extract`` in ``audiosourcesep_tpu/data/loaders.py``)."""
+"""Datasets: wav windows, melspec TFRecord datasets, npy spectrograms, song extracts for separation (port of ``audiosourcesep_tpu/data/loaders.py``).
+
+Host-side data is plain numpy (thousands of 96x64 patches); batches are
+drawn by :class:`ArrayDataset` with the JAX package's shuffle, so the
+same seed gives the same batch order. The image datasets (MNIST,
+CIFAR-10) and per-host sharding are not ported yet.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+import re
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -10,6 +18,7 @@ import torch
 from ..ops.mel import power_to_db
 from ..ops.spectrogram import melspectrogram
 from ..ops.stft import stft
+from .tfrecord import load_tf_records
 from .wav import load_audio
 
 
@@ -27,6 +36,95 @@ def load_wav(path: str, length_sec: float, sr: Optional[int] = None,
         return song[:n * L].reshape(n, L), rate
     starts = np.arange(0, len(song) - L + 1, hop)
     return np.stack([song[s:s + L] for s in starts]), rate
+
+
+def load_multiple_wav(path: str, length_sec: float) -> np.ndarray:
+    """Walk ``path`` for .wav files and concatenate their windows
+    (preprocessing.py:29-57)."""
+    wav_files = []
+    for root, _, files in os.walk(os.path.abspath(path)):
+        wav_files += [os.path.join(root, f) for f in files
+                      if re.match(r".*\.wav$", f)]
+    windows = [load_wav(f, length_sec)[0] for f in sorted(wav_files)]
+    print(f"{len(wav_files)} wav files loaded")
+    return np.concatenate(windows, axis=0) if windows else np.zeros((0, 0))
+
+
+# ---------------------------------------------------------------------------
+# in-memory dataset with reference-compatible batching
+# ---------------------------------------------------------------------------
+
+class ArrayDataset:
+    """Shuffled, batched iteration over a numpy array: drop_remainder by
+    default, like the reference's training batches; ``drop_remainder=False``
+    keeps the final partial batch (the reference's eval batching). Each
+    pass draws a new permutation from ``np.random.RandomState(seed)``."""
+
+    def __init__(self, data: np.ndarray, batch_size: Optional[int],
+                 shuffle: bool = True, seed: int = 0,
+                 drop_remainder: bool = True):
+        self.data = data
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        if self.batch_size is None:
+            return len(self.data)
+        if self.drop_remainder:
+            return len(self.data) // self.batch_size
+        return -(-len(self.data) // self.batch_size)
+
+    @property
+    def n_examples(self) -> int:
+        return len(self.data)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        idx = np.arange(len(self.data))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        bs = self.batch_size
+        if bs is None:
+            yield self.data[idx]
+            return
+        for i in range(len(self)):
+            yield self.data[idx[i * bs:(i + 1) * bs]]
+
+
+# ---------------------------------------------------------------------------
+# melspec TFRecord datasets (data_loader.py:69-110)
+# ---------------------------------------------------------------------------
+
+def _find_tfrecords(dirpath: str) -> List[str]:
+    files = []
+    for root, _, names in os.walk(os.path.abspath(dirpath)):
+        files += [os.path.join(root, f) for f in names
+                  if re.match(r".*\.tfrecord$", f)]
+    return sorted(files)
+
+
+def load_melspec_ds(train_dirpath: str, test_dirpath: str,
+                    batch_size: Optional[int] = 256, shuffle: bool = True,
+                    seed: int = 0):
+    """Load train/test melspec TFRecords.
+
+    Returns ``(ds_train, ds_test, minibatch, n_train, n_test)``
+    (data_loader.py:69-110): arrays get a trailing channel axis, training
+    batches drop the remainder, evaluation batches keep it (a test split
+    smaller than a batch would otherwise give no validation batch), and
+    ``minibatch`` is the first training batch (drawn from ``ds_train``, so
+    its shuffle advances as in the JAX package).
+    """
+    train = np.stack(load_tf_records(_find_tfrecords(train_dirpath)))
+    test = np.stack(load_tf_records(_find_tfrecords(test_dirpath)))
+    train = train[..., None].astype(np.float32)
+    test = test[..., None].astype(np.float32)
+    ds_train = ArrayDataset(train, batch_size, shuffle, seed)
+    ds_test = ArrayDataset(test, batch_size, shuffle, seed + 1,
+                           drop_remainder=False)
+    minibatch = next(iter(ds_train))
+    return ds_train, ds_test, minibatch, len(train), len(test)
 
 
 def get_song_extract(mix_path: str, piano_path: str, violin_path: str,
@@ -71,3 +169,34 @@ def get_song_extract(mix_path: str, piano_path: str, violin_path: str,
     mels = mels.cpu().numpy()
     mel_spec = [mels[i][..., None] for i in range(3)]
     return mel_spec, raw_audio, stft_mixture
+
+
+# ---------------------------------------------------------------------------
+# npy spectrogram storage (preprocessing.py:128-184)
+# ---------------------------------------------------------------------------
+
+def save_mel_spectrograms(spectrograms, filename: str) -> int:
+    """Save each spectrogram as ``{filename}_{i}.npy``
+    (preprocessing.py:128-143)."""
+    count = 0
+    for i, spect in enumerate(spectrograms):
+        np.save(f"{filename}_{i}", np.asarray(spect))
+        count += 1
+    return count
+
+
+def load_spec(directory: str) -> List[np.ndarray]:
+    """Load all .npy spectrograms of one directory
+    (preprocessing.py:146-164)."""
+    files = sorted(f for f in os.listdir(directory) if f.endswith(".npy"))
+    return [np.load(os.path.join(directory, f)) for f in files]
+
+
+def load_spec_tf(directory: str) -> List[np.ndarray]:
+    """Walk a directory tree and load every .npy spectrogram
+    (preprocessing.py:167-184)."""
+    out: List[np.ndarray] = []
+    for root, _, files in os.walk(os.path.abspath(directory)):
+        if any(f.endswith(".npy") for f in files):
+            out.extend(load_spec(root))
+    return out

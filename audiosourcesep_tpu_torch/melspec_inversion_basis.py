@@ -31,10 +31,10 @@ import time
 import numpy as np
 import torch
 
+from .cli import resolve_device
 from .data import write_wav
 from .ops.inversion import invert_melspec_reuse_phase, mel_to_audio
 from .ops.mel import db_to_power
-from .run_basis_sep import resolve_device
 
 SR = 16000
 FMIN, FMAX = 125.0, 7600.0

@@ -1,7 +1,9 @@
-"""Slaney mel filterbank and dB conversions (port of ``audiosourcesep_tpu/ops/mel.py``).
+"""Mel filterbanks and dB conversions (port of ``audiosourcesep_tpu/ops/mel.py``).
 
-The filterbank is a constant numpy matrix (librosa.filters.mel); the dB
-conversions are PyTorch tensor functions with librosa semantics.
+The filterbanks are constant numpy matrices: librosa's (slaney scale and
+norm, ``librosa.filters.mel``) and ``tf.signal``'s (HTK scale, no norm,
+``linear_to_mel_weight_matrix``). The dB conversions are PyTorch tensor
+functions with librosa semantics.
 """
 
 from __future__ import annotations
@@ -66,6 +68,28 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int = 128,
         enorm = 2.0 / (mel_f[2: n_mels + 2] - mel_f[:n_mels])
         weights *= enorm[:, None]
     return weights.astype(dtype)
+
+
+def linear_to_mel_weight_matrix(num_mel_bins: int, num_spectrogram_bins: int,
+                                sample_rate: float,
+                                lower_edge_hertz: float = 125.0,
+                                upper_edge_hertz: float = 3800.0,
+                                dtype=np.float32) -> np.ndarray:
+    """``tf.signal.linear_to_mel_weight_matrix`` equivalent:
+    ``[num_spectrogram_bins, num_mel_bins]`` (HTK scale, unnormalised,
+    DC bin dropped)."""
+    bands_to_zero = 1
+    nyquist = sample_rate / 2.0
+    freqs = np.linspace(0.0, nyquist, num_spectrogram_bins)[bands_to_zero:]
+    spec_mel = hz_to_mel_htk(freqs)[:, None]
+    edges = np.linspace(hz_to_mel_htk(lower_edge_hertz),
+                        hz_to_mel_htk(upper_edge_hertz), num_mel_bins + 2)
+    lower, center, upper = (edges[:-2][None, :], edges[1:-1][None, :],
+                            edges[2:][None, :])
+    lower_slope = (spec_mel - lower) / (center - lower)
+    upper_slope = (upper - spec_mel) / (upper - center)
+    w = np.maximum(0.0, np.minimum(lower_slope, upper_slope))
+    return np.pad(w, [[bands_to_zero, 0], [0, 0]]).astype(dtype)
 
 
 def power_to_db(S: torch.Tensor, ref: float = 1.0, amin: float = 1e-10,

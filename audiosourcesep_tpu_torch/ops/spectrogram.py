@@ -1,4 +1,4 @@
-"""Batched mel spectrogram (port of ``melspectrogram`` in ``audiosourcesep_tpu/ops/spectrogram.py``)."""
+"""Batched mel spectrograms, librosa's and tf.signal's (port of ``audiosourcesep_tpu/ops/spectrogram.py``)."""
 
 from __future__ import annotations
 
@@ -6,9 +6,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .mel import mel_filterbank
-from .stft import stft
+from .mel import linear_to_mel_weight_matrix, mel_filterbank
+from .stft import hann_window_np, stft
 
 
 def db_limits_to_power(dbmin: float, dbmax: float) -> Tuple[float, float]:
@@ -41,3 +42,26 @@ def melspectrogram(audio: torch.Tensor, sr: int = 16000, n_fft: int = 2048,
     if use_dB:
         melspec = 10.0 * torch.log10(torch.clamp(melspec, min=1e-10))
     return melspec
+
+
+def melspectrogram_tf_signal(audio: torch.Tensor, sr: int, frame_length: int,
+                             n_fft: int = 2048, hop_length: int = 512,
+                             n_mels: int = 128) -> torch.Tensor:
+    """tf.signal-path mel spectrogram (preprocessing.py:104-125) of
+    ``[..., T]`` audio -> ``[..., n_frames, n_mels]`` (frame-major): HTK
+    mel over [0, sr/2], ``pad_end`` framing (``ceil(T / hop)`` frames),
+    not centred, periodic Hann of ``frame_length``, and an ``n_fft``-point
+    rfft of each frame (cropped to ``n_fft`` samples when the frame is
+    longer, as ``rfft(n=n_fft)`` does)."""
+    T = audio.shape[-1]
+    n_frames = -(-T // hop_length)
+    pad = max(0, (n_frames - 1) * hop_length + frame_length - T)
+    x = F.pad(audio, (0, pad))
+    frames = x.unfold(-1, frame_length, hop_length)[..., :n_frames, :]
+    frames = frames * torch.as_tensor(hann_window_np(frame_length),
+                                      dtype=x.dtype, device=x.device)
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)          # [..., F, bins]
+    power = torch.square(torch.abs(spec)).float()
+    A = torch.as_tensor(linear_to_mel_weight_matrix(
+        n_mels, n_fft // 2 + 1, sr, 0.0, sr / 2.0), device=audio.device)
+    return torch.einsum("...fb,bm->...fm", power, A)

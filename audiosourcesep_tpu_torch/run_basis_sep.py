@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import nn as nn_mod
+from .cli import apply_config_override, resolve_device
 from .data import get_song_extract, write_wav
 from .models.ncsn import get_score_model, get_sigmas
 from .ops.inversion import mel_to_audio
@@ -41,6 +42,7 @@ SPEC_PARAMS = {"length_sec": 2.04, "dbmin": -100.0, "dbmax": 20.0,
                "fmin": 125.0, "fmax": 7600.0, "n_fft": 2048,
                "hop_length": 512, "n_mels": 96, "sr": 16000}
 
+# run-level flags a --config YAML never overrides
 _KEEP = ("dataset", "output", "debug", "restore", "RESTORE", "song_dir",
          "inverse", "model_type", "n_mixed", "RESTORE1", "RESTORE2",
          "device", "winograd", "compute_dtype")
@@ -114,29 +116,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use_logit", action="store_true")
     parser.add_argument("--alpha", type=float, default=1e-6)
     return parser
-
-
-def apply_config_override(args: argparse.Namespace) -> argparse.Namespace:
-    """``--config`` (YAML) overrides the hyperparameters it names; the
-    run-level flags in ``_KEEP`` always stay as given."""
-    if args.config is None:
-        return args
-    import yaml   # only needed with --config
-    with open(args.config) as f:
-        config = yaml.safe_load(f) or {}
-    new_args = argparse.Namespace(**vars(args))
-    for k, v in config.items():
-        if k not in _KEEP:
-            setattr(new_args, k, v)
-    return new_args
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name} requested but CUDA is not "
-                           "available (no fallback to the CPU)")
-    return device
 
 
 def _not_ported(args) -> None:
@@ -266,7 +245,7 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     args.RESTORE1 = os.path.abspath(args.RESTORE1)
     args.RESTORE2 = os.path.abspath(args.RESTORE2)
-    args = apply_config_override(args)
+    args = apply_config_override(args, _KEEP)
     os.makedirs(args.output, exist_ok=True)
     winograd_was = nn_mod.winograd_enabled()
     with open(os.path.join(args.output, "out.log"), "w") as log_file:

@@ -1,11 +1,15 @@
 """Flat-npz checkpoints shared with the JAX package (port of ``audiosourcesep_tpu/training/checkpoint.py``).
 
 A checkpoint is one ``.npz`` whose keys are ``jax.tree_util.keystr`` paths
-of the saved pytree (``"['params']['res1_1']['conv1']['kernel']"``) plus
-``__step__``; a directory of them carries a ``checkpoint.json`` index.
-Here the files are read and written with numpy alone, and converted to and
-from a PyTorch ``state_dict`` (``"res1_1.conv1.kernel"``): 4-D conv kernels
-go HWIO <-> OIHW, every other leaf passes through unchanged.
+of the saved pytree plus ``__step__``; a directory of them carries a
+``checkpoint.json`` index. A path is made of dict keys (``['params']``),
+sequence indices (``[0]``) and namedtuple fields (``.mu``), so a whole
+train state reads as ``['params']['res1_1']['conv1']['kernel']``,
+``['opt_state'][0].count``, ``['opt_state'][0].mu[...]``, ``['step']``.
+Here the files are read and written with numpy alone. A pytree is nested
+dicts, tuples and namedtuples of arrays or tensors; a parameter
+``state_dict`` (``"res1_1.conv1.kernel"``) converts to and from the
+``params`` subtree, 4-D conv kernels going HWIO <-> OIHW.
 """
 
 from __future__ import annotations
@@ -13,42 +17,74 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-_KEY = re.compile(r"\['([^'\]]*)'\]")
+_ENTRY = re.compile(r"\['([^'\]]*)'\]|\[(\d+)\]|\.([A-Za-z_]\w*)")
+
+
+class Attr(str):
+    """A namedtuple field in a key path (``.count``)."""
+
+
+def _entry(k) -> str:
+    if isinstance(k, Attr):
+        return f".{k}"
+    if isinstance(k, int):
+        return f"[{k}]"
+    return f"['{k}']"
 
 
 def keystr(path) -> str:
-    """``("a", "b")`` -> ``"['a']['b']"`` (``jax.tree_util.keystr`` of
-    dict keys)."""
-    return "".join(f"['{k}']" for k in path)
+    """``("a", 0, Attr("mu"))`` -> ``"['a'][0].mu"``
+    (``jax.tree_util.keystr``)."""
+    return "".join(_entry(k) for k in path)
 
 
-def _split_keystr(key: str) -> Tuple[str, ...]:
-    parts = tuple(_KEY.findall(key))
+def _split_keystr(key: str) -> Tuple:
+    parts = tuple(k if k is not None else (int(i) if i is not None
+                                           else Attr(a))
+                  for k, i, a in _ENTRY.findall(key))
     if keystr(parts) != key:
-        raise ValueError(f"not a dict-key path: {key!r}")
+        raise ValueError(f"not a key path: {key!r}")
     return parts
 
 
-def _flatten(tree: Mapping, prefix=()) -> Dict[str, np.ndarray]:
+def map_with_path(fn: Callable, tree: Any, prefix: Tuple = ()) -> Any:
+    """``fn(path, leaf)`` over every leaf of ``tree`` (dicts, namedtuples,
+    tuples and lists), rebuilding the same structure."""
+    if isinstance(tree, Mapping):
+        return {k: map_with_path(fn, tree[k], prefix + (k,))
+                for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_path(fn, v, prefix + (Attr(f),))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_with_path(fn, v, prefix + (i,))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _flatten(tree: Any) -> Dict[str, np.ndarray]:
     flat = {}
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, Mapping):
-            flat.update(_flatten(v, prefix + (k,)))
-        else:
-            if isinstance(v, torch.Tensor):
-                v = v.detach().cpu().numpy()
-            flat[keystr(prefix + (k,))] = np.asarray(v)
+
+    def put(path, leaf):
+        flat[keystr(path)] = _to_numpy(leaf)
+
+    map_with_path(put, tree)
     return flat
 
 
-def save_pytree(path: str, tree: Mapping, step: int = 0) -> str:
-    """Save a nested dict of arrays/tensors to ``<path>.npz`` in the JAX
+def save_pytree(path: str, tree: Any, step: int = 0) -> str:
+    """Save a pytree of arrays/tensors to ``<path>.npz`` in the JAX
     package's flat layout."""
     flat = _flatten(tree)
     flat["__step__"] = np.asarray(step)
@@ -65,6 +101,28 @@ def load_flat(path: str) -> Tuple[Dict[str, np.ndarray], int]:
         step = int(data["__step__"]) if "__step__" in data else 0
         flat = {k: data[k] for k in data.files if k != "__step__"}
     return flat, step
+
+
+def restore_pytree(path: str, template: Any,
+                   strict: bool = True) -> Tuple[Any, int]:
+    """Restore into ``template``'s structure -> ``(tree of numpy arrays,
+    step)``. ``strict``: every template leaf must be in the checkpoint with
+    the template's shape; otherwise a missing leaf keeps the template's."""
+    flat, step = load_flat(path)
+
+    def pick(keypath, leaf):
+        key = keystr(keypath)
+        if key not in flat:
+            if strict:
+                raise KeyError(f"checkpoint {path} missing parameter {key}")
+            return leaf
+        val = flat[key]
+        if strict and tuple(val.shape) != tuple(np.shape(leaf)):
+            raise ValueError(f"shape mismatch for {key}: checkpoint "
+                             f"{val.shape} vs template {tuple(np.shape(leaf))}")
+        return val
+
+    return map_with_path(pick, template), step
 
 
 class CheckpointManager:
@@ -114,6 +172,20 @@ class CheckpointManager:
         cands.sort(key=lambda f: int(re.findall(r"\d+", f)[0]))
         return os.path.join(self.directory, cands[-1][:-4])
 
+    def restore_latest(self, template: Any,
+                       strict: bool = True) -> Tuple[Any, int]:
+        """:func:`restore_pytree` of the newest checkpoint."""
+        latest = self.latest()
+        if latest is None:
+            raise FileNotFoundError(
+                f"no checkpoint found in {self.directory}")
+        return restore_pytree(latest, template, strict)
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    """``tf.train.latest_checkpoint`` analog for this layout."""
+    return CheckpointManager(directory).latest()
+
 
 # ---------------------------------------------------------------------------
 # JAX param pytree <-> torch state_dict
@@ -129,7 +201,10 @@ def params_from_jax(flat: Mapping[str, np.ndarray]
     root) -> a ``state_dict`` (HWIO conv kernels become OIHW)."""
     sd = {}
     for key, val in flat.items():
-        name = ".".join(_split_keystr(key))
+        parts = _split_keystr(key)
+        if not all(type(k) is str for k in parts):
+            raise ValueError(f"not a dict-key path: {key!r}")
+        name = ".".join(parts)
         val = np.asarray(val)
         if _is_conv_kernel(name, val.ndim):
             val = val.transpose(3, 2, 0, 1)
@@ -137,20 +212,26 @@ def params_from_jax(flat: Mapping[str, np.ndarray]
     return sd
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """A ``state_dict`` -> the JAX params pytree (nested dicts of numpy
-    arrays, OIHW conv kernels back to HWIO)."""
+def nest_params(named: Mapping[str, torch.Tensor]) -> dict:
+    """``{"a.b.kernel": t}`` -> ``{"a": {"b": {"kernel": t}}}``, each 4-D
+    conv kernel viewed HWIO (a permuted view, no copy)."""
     tree: dict = {}
-    for name, t in state_dict.items():
-        val = t.detach().cpu().numpy()
-        if _is_conv_kernel(name, val.ndim):
-            val = val.transpose(2, 3, 1, 0)
+    for name, t in named.items():
+        if _is_conv_kernel(name, t.ndim):
+            t = t.permute(2, 3, 1, 0)
         node = tree
         *parents, leaf = name.split(".")
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(val)
+        node[leaf] = t
     return tree
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A ``state_dict`` -> the JAX params pytree (nested dicts of numpy
+    arrays, OIHW conv kernels back to HWIO)."""
+    return map_with_path(lambda _, t: np.ascontiguousarray(_to_numpy(t)),
+                         nest_params(state_dict))
 
 
 def restore_ncsn_params(path: str, template: Mapping[str, torch.Tensor],

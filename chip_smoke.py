@@ -36,7 +36,22 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    against a float64 run on the CPU (and, as a control, the same solve in
    TF32); and the ground-truth Wiener inversion scored with the port's
    ``bss_eval`` against the raw stems, held to the JAX package's numbers
-   on the same song (``benchmarks/jax_ground_truth_sdr.py``).
+   on the same song (``benchmarks/jax_ground_truth_sdr.py``);
+7. NCSN training at full width (v1, 192 filters, 10 levels, f32, TF32
+   off): (a) ``wav_to_spec.main`` turns phase 5's wavs into a TFRecord
+   dataset on the card (piano and violin to ``train/``, the mix to
+   ``test/``); (b) one Adam train step at batch 2 on the card and on the
+   CPU from the same init and the same injected sigma indices and noise;
+   (c) two steps at batch 32 with Winograd routing on and off (the second
+   step's loss shows that the cached U followed the first optimizer
+   step; 64 f32 launches per forward, no bf16 one), with the step's time
+   split into forward, backward and optimizer, routing off and on, and
+   with TF32 on (PyTorch's default, which the training CLI keeps); (d) the
+   training CLI (``train_ncsn.main``, ``--ema``, one epoch, a T=1 Langevin
+   snapshot) and ``ncsn_generate_samples.main`` on its checkpoint, both
+   with routing on, each launching the f32 kernel exactly 64 times per
+   forward it runs; the checkpoint holds the JAX train state's keys and
+   ``restore_ncsn_params(ema=True)`` loads it.
 
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -94,6 +109,18 @@ JAX_SDR = (6.0076, 6.0152)
 JAX_SIR = (52.2431, 49.9401)
 GT_TOL = {"SDR": 0.1, "SIR": 1.0}
 N_FFT, HOP = 2048, 512
+# phase 7: card vs CPU train step in f32 (TF32 off), each as ||diff|| /
+# ||CPU|| over all tensors: the loss, the gradients, and the params after
+# one Adam step at lr 1e-3. Adam's first step moves every weight by at
+# most lr, so an element whose gradient sits at the f32 noise floor can
+# move differently by up to 2 lr (max|diff| is printed, not held); a
+# wrong update moves most weights by ~lr, ||diff|| / ||p|| ~ 3e-2
+TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3, "param": 1e-3}
+TRAIN_BATCH = 32
+# bench.py:137: 7.728 TFLOP per v1 forward at batch 30; a train step is
+# about 3 forwards (the backward computes two products per conv)
+FWD_TFLOP_30 = 7.728
+TF32_PEAK = 495e12
 # a raw ground-truth window and its inversion (HOP * 63), in samples
 W_RAW, W_INV = 32640, HOP * 63
 
@@ -545,6 +572,303 @@ def phase_inversion(basis_dir: str):
           f"the host")
 
 
+def _full_width_state(device, seed: int = 0):
+    """A v1 192-filter train state with Adam (lr 1e-3) and EMA on
+    ``device``, its weights drawn on the CPU from ``seed``."""
+    import torch
+    from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+    from audiosourcesep_tpu_torch.training import (init_train_state,
+                                                   setup_optimizer)
+    m = get_score_model("v1", (96, 64, 1), 192, 10, device=device)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    return init_train_state(m, setup_optimizer("adam", 1e-3), ema=True)
+
+
+def _draws(batch: int, seed: int):
+    """A batch in [0, 1), sigma indices and standard-normal noise, drawn
+    on the CPU (the same on every device)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(batch, 96, 64, 1, generator=g),
+            torch.randint(10, (batch,), generator=g),
+            torch.randn(batch, 96, 64, 1, generator=g))
+
+
+def phase_train_data(work: str):
+    """7a: wav_to_spec on phase 5's wavs; returns the dataset directory
+    and the (train, test) record counts."""
+    import io
+    import numpy as np
+    from audiosourcesep_tpu_torch import wav_to_spec
+    from audiosourcesep_tpu_torch.data import load_tf_records
+    ds = os.path.join(work, "train_ds")
+    counts = []
+    t0 = time.time()
+    for split, names in (("train", ("piano", "violin")), ("test", ("mix",))):
+        wavs = os.path.join(work, f"wavs_{split}")
+        os.makedirs(wavs, exist_ok=True)
+        for n in names:
+            shutil.copy(os.path.join(work, "song", f"{n}.wav"), wavs)
+        with contextlib.redirect_stdout(io.StringIO()):
+            wav_to_spec.main([wavs, os.path.join(ds, split), "--use_dB",
+                              "--tfrecords", "--device", "cuda"])
+        recs = [r for n in names for r in load_tf_records(
+            [os.path.join(ds, split, f"{n}.tfrecord")])]
+        for r in recs:
+            if r.shape != (96, 64) or not np.isfinite(r).all() \
+                    or r.min() < -100.0 or r.max() > 20.0:
+                raise AssertionError(f"{split} record {r.shape} "
+                                     f"[{r.min()}, {r.max()}]")
+        counts.append(len(recs))
+    print(f"[7a] wav_to_spec --use_dB --tfrecords on the card: train "
+          f"{counts[0]} and test {counts[1]} records of (96, 64) in "
+          f"[-100, 20] dB, {time.time() - t0:.2f} s")
+    return ds, counts
+
+
+def phase_train_step_vs_cpu():
+    """7b: one full-width train step at batch 2 on the card and on the
+    CPU, same init and draws."""
+    import torch
+    from audiosourcesep_tpu_torch.models.ncsn import get_sigmas
+    from audiosourcesep_tpu_torch.training import make_ncsn_train_step
+    sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")
+    x, idx, noise = _draws(2, 20)
+    out = {}
+    for device in ("cuda", "cpu"):
+        state = _full_width_state(device)
+        step, _ = make_ncsn_train_step(sigmas, ema_decay=0.999)
+        t0 = time.time()
+        _, loss = step(state, x.to(device), sigma_idx=idx.to(device),
+                       noise=noise.to(device))
+        loss = float(loss)
+        out[device] = (loss, time.time() - t0,
+                       {n: p.detach().cpu() for n, p in state.params.items()},
+                       {n: p.grad.cpu() for n, p in state.params.items()})
+        del state
+    torch.cuda.empty_cache()
+    (l_gpu, s_gpu, p_gpu, g_gpu), (l_cpu, s_cpu, p_cpu, g_cpu) = \
+        out["cuda"], out["cpu"]
+
+    def rel(a, b):
+        num = sum(((a[n] - t) ** 2).sum().item() for n, t in b.items())
+        return (num / sum((t ** 2).sum().item() for t in b.values())) ** 0.5
+
+    errs = {"loss": abs(l_gpu - l_cpu) / abs(l_cpu),
+            "grad": rel(g_gpu, g_cpu), "param": rel(p_gpu, p_cpu)}
+    max_abs = max((p_gpu[n] - p).abs().max().item() for n, p in p_cpu.items())
+    max_rel = max((p_gpu[n] - p).abs().max().item() / p.abs().max().item()
+                  for n, p in p_cpu.items())
+    print(f"[7b] one Adam step, batch 2, card vs CPU: loss {l_gpu:.6f} vs "
+          f"{l_cpu:.6f}; rel diff loss {errs['loss']:.2e}, gradients "
+          f"{errs['grad']:.2e}, params after the step {errs['param']:.2e} "
+          f"(tol {TRAIN_TOL}); params max|diff| {max_abs:.2e}, max-rel "
+          f"(per tensor, of its max) {max_rel:.2e}; first step {s_gpu:.2f} "
+          f"s on the card, {s_cpu:.2f} s on the CPU")
+    if any(errs[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU")
+
+
+def _step_split(state, step, x, idx, noise, sigmas_dev):
+    """ms of the loss (forward), of the loss and its backward, of the
+    optimizer and EMA update, and of the whole train step, on the same
+    inputs (CUDA events; the steps move the weights, which the times do
+    not depend on)."""
+    from audiosourcesep_tpu_torch.models.ncsn import dsm_loss
+    from audiosourcesep_tpu_torch.training import ema_update
+
+    def fwd():
+        return dsm_loss(state.model, x, sigmas_dev, sigma_idx=idx,
+                        noise=noise)
+
+    def fwd_bwd():
+        state.optimizer.zero_grad(set_to_none=True)
+        fwd().backward()
+
+    def update():
+        state.optimizer.step()
+        ema_update(state.ema_params.values(), state.params.values(), 0.999)
+
+    t_fwd = cuda_ms(fwd, 3)
+    t_fb = cuda_ms(fwd_bwd, 3)
+    t_opt = cuda_ms(update, 3)
+    t_step = cuda_ms(lambda: step(state, x, sigma_idx=idx, noise=noise), 3)
+    return t_fwd, t_fb - t_fwd, t_opt, t_step
+
+
+def phase_train_routing(smi: str):
+    """7c: two full-width steps at batch 32, routing off and on, then the
+    step times."""
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.models.ncsn import get_sigmas
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.training import make_ncsn_train_step
+    sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")
+    sig_dev = torch.as_tensor(sigmas, device="cuda")
+    draws = [[t.cuda() for t in _draws(TRAIN_BATCH, 30 + s)]
+             for s in range(2)]
+    f32, bf16 = W.KERNELS[torch.float32], W.KERNELS[torch.bfloat16]
+    losses, times = {}, {}
+    for routed in (False, True):
+        state = _full_width_state("cuda")
+        step, _ = make_ncsn_train_step(sigmas, ema_decay=0.999)
+        try:
+            nn.set_winograd(routed)
+            losses[routed] = []
+            for x, idx, noise in draws:
+                _reset_counts()
+                _, loss = step(state, x, sigma_idx=idx, noise=noise)
+                losses[routed].append(float(loss))
+                want = {f32: ROUTED_PER_FORWARD if routed else 0, bf16: 0}
+                if dict(W.launch_counts) != want:
+                    raise AssertionError(f"train step launches "
+                                         f"{W.launch_counts}, expected "
+                                         f"{want}")
+            if routed:
+                # the weights moved in step 2's optimizer update after its
+                # forward cached U: a routed forward now must agree with
+                # cuDNN's on the same weights
+                x, idx = draws[0][0], draws[0][1]
+                with torch.no_grad():
+                    on = state.model(x, idx)
+                    nn.set_winograd(False)
+                    off = state.model(x, idx)
+                    nn.set_winograd(True)
+                u_rel = ((on - off).abs().mean() / off.abs().mean()).item()
+            times[routed] = _step_split(state, step, *draws[0], sig_dev)
+        finally:
+            nn.set_winograd(False)
+        del state, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        state = _full_width_state("cuda")
+        step, _ = make_ncsn_train_step(sigmas, ema_decay=0.999)
+        times["tf32"] = _step_split(state, step, *draws[0], sig_dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    del state, step
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False])]
+    moved = abs(losses[False][1] - losses[False][0]) / losses[False][0]
+    print(f"[7c] batch {TRAIN_BATCH}, routing on vs off: step 1 loss "
+          f"{losses[True][0]:.4f} vs {losses[False][0]:.4f} (rel "
+          f"{rel[0]:.2e}), step 2 {losses[True][1]:.4f} vs "
+          f"{losses[False][1]:.4f} (rel {rel[1]:.2e}; tol "
+          f"{MODEL_TOL['float32']:g}; the loss moved {moved:.2e} between "
+          f"the steps); {ROUTED_PER_FORWARD} f32 launches per step, no bf16")
+    print(f"[7c] after the routed steps, the scores of the updated weights "
+          f"routed vs cuDNN: mean|on-off|/mean|off| {u_rel:.2e} (tol "
+          f"{MODEL_TOL['float32']:g})")
+    if max(rel) > MODEL_TOL["float32"] or u_rel > MODEL_TOL["float32"]:
+        raise AssertionError("routed train step disagrees with cuDNN's "
+                             "(is U stale after the optimizer step?)")
+    flop = 3 * FWD_TFLOP_30 * 1e12 * TRAIN_BATCH / 30
+    bound, bound_tf32 = 1e3 * flop / PEAK["float32"], 1e3 * flop / TF32_PEAK
+    for key, what in ((False, "f32, TF32 off, routing off"),
+                      (True, "f32, TF32 off, routing on"),
+                      ("tf32", "TF32 convs (PyTorch default), routing off")):
+        t_fwd, t_bwd, t_opt, t_step = times[key]
+        print(f"[7c] train step batch {TRAIN_BATCH}, {what}: {t_step:.2f} "
+              f"ms; apart: forward {t_fwd:.2f}, backward {t_bwd:.2f}, Adam "
+              f"and EMA {t_opt:.2f}")
+    print(f"[7c] step bound: {flop / 1e12:.3f} TFLOP (3 x {FWD_TFLOP_30} x "
+          f"{TRAIN_BATCH}/30) at 67 TFLOP/s f32 = {bound:.1f} ms, at 495 "
+          f"TFLOP/s TF32 = {bound_tf32:.1f} ms; card {smi}")
+    return times
+
+
+def phase_train_cli(work: str, ds: str, counts):
+    """7d: train_ncsn and ncsn_generate_samples in-process at full width,
+    routing on; returns the f32 launches of each."""
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch import (nn, ncsn_generate_samples,
+                                          train_ncsn)
+    from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.training.checkpoint import (
+        CheckpointManager, load_flat, restore_ncsn_params)
+    f32, bf16 = W.KERNELS[torch.float32], W.KERNELS[torch.bfloat16]
+    out, gen = os.path.join(work, "ncsn"), os.path.join(work, "ncsn_gen")
+    L, T = 10, 1
+    steps = counts[0] // TRAIN_BATCH
+    forwards = steps + -(-counts[1] // TRAIN_BATCH) + L * T
+    try:
+        nn.set_winograd(True)
+        _reset_counts()
+        t0 = time.time()
+        train_ncsn.main(["--dataset", ds, "--output", out, "--version", "v1",
+                         "--n_filters", "192", "--num_classes", str(L),
+                         "--batch_size", str(TRAIN_BATCH), "--ema",
+                         "--n_epochs", "1", "--T", str(T), "--sample_every",
+                         "1", "--device", "cuda"])
+        wall = time.time() - t0
+        train_launches = dict(W.launch_counts)
+        _reset_counts()
+        t0 = time.time()
+        ncsn_generate_samples.main([out, "--output", gen, "--ema",
+                                    "--version", "v1", "--n_filters", "192",
+                                    "--num_classes", str(L), "--T", str(T),
+                                    "--n_samples", "8", "--device", "cuda"])
+        gen_wall = time.time() - t0
+        gen_launches = dict(W.launch_counts)
+    finally:
+        nn.set_winograd(False)
+    with open(os.path.join(out, "out.log")) as f:
+        log = [ln.strip() for ln in f if ln.startswith(
+            ("Total Trainable", "Epoch", "Training time"))]
+    print(f"[7d] train_ncsn v1 192 filters, {L} levels, batch {TRAIN_BATCH}, "
+          f"--ema, 1 epoch ({steps} steps), T={T} snapshot, routing on: "
+          f"wall-clock {wall:.2f} s; out.log: {log}")
+    want = {f32: forwards * ROUTED_PER_FORWARD, bf16: 0}
+    print(f"[7d] kernel launches {train_launches}, expected {want}: "
+          f"({steps} steps + {forwards - steps - L * T} eval batches + "
+          f"{L}x{T} Langevin) x {ROUTED_PER_FORWARD}")
+    if train_launches != want:
+        raise AssertionError("the training CLI did not launch the f32 "
+                             "kernel for every routed conv, and only it")
+    if not os.path.isfile(os.path.join(out, "ckpts", "checkpoint.json")):
+        raise AssertionError("no ckpts/checkpoint.json")
+    latest = CheckpointManager(os.path.join(out, "ckpts")).latest()
+    flat, step = load_flat(latest)
+    for key in ("['step']", "['opt_state'][0].count",
+                "['params']['res1_1']['conv1']['kernel']",
+                "['ema_params']['res1_1']['conv1']['kernel']",
+                "['opt_state'][0].mu['res1_1']['conv1']['kernel']",
+                "['opt_state'][0].nu['res1_1']['conv1']['kernel']"):
+        if key not in flat:
+            raise AssertionError(f"checkpoint lacks {key}")
+    if step != steps or int(flat["['opt_state'][0].count"]) != steps:
+        raise AssertionError(f"checkpoint at step {step}, expected {steps}")
+    template = get_score_model("v1", (96, 64, 1), 192, L,
+                               device="meta").state_dict()
+    sd = restore_ncsn_params(out, template, ema=True)
+    samples = np.load(os.path.join(out, "generated_samples",
+                                   "generated_samples_1.npy"))
+    if samples.shape != (L + 1, 32, 96, 64, 1) \
+            or not np.isfinite(samples).all():
+        raise AssertionError(f"Langevin snapshot {samples.shape}")
+    print(f"[7d] {os.path.basename(latest)}.npz: {len(flat)} JAX keys "
+          f"(params, ema_params, opt_state, step), step {step}; "
+          f"restore_ncsn_params(ema=True) loaded {len(sd)} tensors; "
+          f"snapshot {samples.shape}, finite")
+    gen_want = {f32: L * T * ROUTED_PER_FORWARD, bf16: 0}
+    g = np.load(os.path.join(gen, "generated_samples.npy"))
+    print(f"[7d] ncsn_generate_samples --ema --T {T} --n_samples 8: "
+          f"{gen_wall:.2f} s, {g.shape} in [{g.min():.2f}, {g.max():.2f}] dB; "
+          f"launches {gen_launches}, expected {gen_want}")
+    if g.shape != (8, 96, 64, 1) or not np.isfinite(g).all() \
+            or g.min() < -100.0 or g.max() > 20.0:
+        raise AssertionError("generated samples")
+    if gen_launches != gen_want:
+        raise AssertionError("the sampler did not launch the f32 kernel "
+                             "for every routed conv, and only it")
+    return train_launches[f32], gen_launches[f32]
+
+
 def main(argv):
     full = "--full" in argv
     try:
@@ -568,6 +892,10 @@ def main(argv):
         f32_launches, _, _ = phase_cli(work, 1, "f32")
         launches = {"bfloat16": bf16_launches, "float32": f32_launches}
         phase_inversion(bf16_out)
+        ds, counts = phase_train_data(work)
+        phase_train_step_vs_cpu()
+        phase_train_routing(smi)
+        phase_train_cli(work, ds, counts)
         if full:
             phase_cli(work, 100, "bf16")
     finally:
@@ -594,7 +922,7 @@ def main(argv):
             # cascade's 10 dilated convs (not routed by nn.conv2d)
             "dilated_route": numbers(res[dname + "_dilated"]),
         })
-    print(f"[7] card: {smi}")
+    print(f"[8] card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
-"""The port's separation and inversion CLIs
-(audiosourcesep_tpu_torch.run_basis_sep, .melspec_inversion_basis) at tiny
-size on the CPU, from synthetic wavs and a JAX-format checkpoint, and the
-port's independence from JAX."""
+"""The port's CLIs at tiny size on the CPU, from synthetic wavs: the
+separation and inversion CLIs (audiosourcesep_tpu_torch.run_basis_sep,
+.melspec_inversion_basis) on a JAX-format checkpoint; the training chain
+(.wav_to_spec -> .train_ncsn -> .run_basis_sep and
+.ncsn_generate_samples), with checkpoints crossing to and from the JAX
+package; and the port's independence from JAX."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -11,13 +14,19 @@ import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from audiosourcesep_tpu.data import write_wav
 from audiosourcesep_tpu.models.ncsn import RefineNetDilated as JRefineNet
 from audiosourcesep_tpu.training import CheckpointManager
-from audiosourcesep_tpu_torch import melspec_inversion_basis, run_basis_sep
-from audiosourcesep_tpu_torch.data import read_wav
+from audiosourcesep_tpu.training import init_train_state as jinit_state
+from audiosourcesep_tpu.training import setup_optimizer as jsetup_optimizer
+from audiosourcesep_tpu_torch import (melspec_inversion_basis,
+                                      ncsn_generate_samples, run_basis_sep,
+                                      train_ncsn, wav_to_spec)
+from audiosourcesep_tpu_torch.data import load_tf_records, read_wav
 from audiosourcesep_tpu_torch.evaluation import bss_eval
+from audiosourcesep_tpu_torch.training.checkpoint import load_flat
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,20 +170,185 @@ def test_inversion_cli_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port imports with jax and the JAX package
+    blocked."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['audiosourcesep_tpu'] = None\n"
-        "import audiosourcesep_tpu_torch\n"
-        "import audiosourcesep_tpu_torch.run_basis_sep\n"
-        "import audiosourcesep_tpu_torch.kernels.build\n"
-        "import audiosourcesep_tpu_torch.ops.winograd\n"
-        "import audiosourcesep_tpu_torch.ops.inversion\n"
-        "import audiosourcesep_tpu_torch.evaluation\n"
-        "import audiosourcesep_tpu_torch.melspec_inversion_basis\n"
+        "import audiosourcesep_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'audiosourcesep_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'audiosourcesep_tpu_torch.train_ncsn' in names\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+# ---------------------------------------------------------------------------
+# training: wav_to_spec -> train_ncsn -> run_basis_sep, ncsn_generate_samples
+# ---------------------------------------------------------------------------
+
+TINY = ["--n_filters", "4", "--num_classes", "2", "--T", "1",
+        "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory, song_dir):
+    """``wav_to_spec --use_dB --tfrecords``: the piano and violin wavs
+    into train/ (8 windows), the mix into test/ (4 windows)."""
+    root = tmp_path_factory.mktemp("data")
+    for split, names in (("train", ("piano", "violin")), ("test", ("mix",))):
+        wavs = root / f"wavs_{split}"
+        wavs.mkdir()
+        for n in names:
+            shutil.copy(os.path.join(song_dir, f"{n}.wav"), wavs / f"{n}.wav")
+        wav_to_spec.main([str(wavs), str(root / "ds" / split), "--use_dB",
+                          "--tfrecords", "--device", "cpu"])
+    return str(root / "ds")
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory, dataset):
+    """One tiny ``train_ncsn --ema`` run (2 epochs, a Langevin snapshot
+    each epoch); returns its output directory."""
+    out = str(tmp_path_factory.mktemp("train") / "run")
+    train_ncsn.main(["--dataset", dataset, "--output", out, "--ema",
+                     "--n_epochs", "2", "--sample_every", "1",
+                     "--batch_size", "2", *TINY])
+    return out
+
+
+def test_wav_to_spec_writes_the_dataset(dataset):
+    recs = load_tf_records([os.path.join(dataset, "train", "piano.tfrecord")])
+    assert len(recs) == 4 and recs[0].shape == (96, 64)
+    assert all(-100.0 <= r.min() and r.max() <= 20.0 for r in recs)
+    with open(os.path.join(dataset, "train", "out.log")) as f:
+        assert "2 wav files saved as spectrograms" in f.read()
+
+
+def test_wav_to_spec_npy_and_tf_signal(tmp_path, song_dir):
+    wav_to_spec.main([song_dir, str(tmp_path / "npy"), "--device", "cpu"])
+    assert np.load(tmp_path / "npy" / "mix_3.npy").shape == (96, 64)
+    wav_to_spec.main([song_dir, str(tmp_path / "sig"), "--use_signal",
+                      "--tfrecords", "--device", "cpu"])
+    recs = load_tf_records([str(tmp_path / "sig" / "mix.tfrecord")])
+    assert len(recs) == 4 and recs[0].shape == (64, 96)   # frame-major
+
+
+def test_train_ncsn_outputs(trained):
+    with open(os.path.join(trained, "out.log")) as f:
+        log = f.read()
+    assert "Total Trainable Variables: " in log and "Training time:" in log
+    assert "Epoch 002" in log
+    flat, step = load_flat(os.path.join(trained, "ckpts", "ckpt-8"))
+    assert step == 8                       # 2 epochs x 4 batches of 2
+    keys = set(flat)
+    assert {"['step']", "['opt_state'][0].count",
+            "['params']['begin_conv']['kernel']",
+            "['ema_params']['begin_conv']['kernel']",
+            "['opt_state'][0].mu['begin_conv']['kernel']",
+            "['opt_state'][0].nu['begin_conv']['kernel']"} <= keys
+    for epoch in (1, 2):
+        s = np.load(os.path.join(trained, "generated_samples",
+                                 f"generated_samples_{epoch}.npy"))
+        assert s.shape == (3, 32, 96, 64, 1) and np.isfinite(s).all()
+
+
+def test_trained_prior_separates_and_samples(trained, song_dir, tmp_path):
+    out = str(tmp_path / "sep")
+    run_basis_sep.main([trained, trained, "--output", out, "--song_dir",
+                        song_dir, "--ema", "--n_mixed", "2", "--T", "1",
+                        "--num_classes", "2", "--n_filters", "4",
+                        "--device", "cpu"])
+    res = np.load(os.path.join(out, "results.npz"))
+    assert res["x1"].shape == (2, 96, 64) and np.isfinite(res["x1"]).all()
+    gen = str(tmp_path / "gen")
+    ncsn_generate_samples.main([trained, "--output", gen, "--ema",
+                                "--n_samples", "3", "--return_arr",
+                                *TINY])
+    s = np.load(os.path.join(gen, "generated_samples.npy"))
+    assert s.shape == (3, 3, 96, 64, 1) and np.isfinite(s).all()
+    assert s.min() >= -100.0 and s.max() <= 20.0
+    with open(os.path.join(gen, "out.log")) as f:
+        assert "Restored EMA weights" in f.read()
+
+
+def test_port_trained_prior_restores_in_jax(trained):
+    sys.path.insert(0, REPO)
+    from run_basis_sep import restore_ncsn_params as jrestore
+    template = JRefineNet((96, 64, 1), 4, num_classes=2).init_params(
+        jax.random.PRNGKey(0))
+    flat, _ = load_flat(os.path.join(trained, "ckpts", "ckpt-8"))
+    for ema in (False, True):
+        p = jrestore(trained, template, ema=ema)
+        key = "['res1_1']['conv1']['kernel']"
+        sub = "['ema_params']" if ema else "['params']"
+        np.testing.assert_array_equal(
+            np.asarray(p["res1_1"]["conv1"]["kernel"]), flat[sub + key])
+
+
+def test_jax_train_state_resumes_in_the_port(tmp_path, dataset):
+    jp = JRefineNet((96, 64, 1), 4, num_classes=2).init_params(
+        jax.random.PRNGKey(1))
+    jstate = jinit_state(jp, jsetup_optimizer("adamax", 1e-3), ema=True)
+    jstate = jax.tree_util.tree_map(
+        lambda a: a + (5 if a.dtype == np.int32 else 0.125), jstate)
+    CheckpointManager(str(tmp_path / "jax" / "ckpts")).save(jstate, 5)
+    out = str(tmp_path / "resumed")
+    train_ncsn.main(["--dataset", dataset, "--output", out, "--ema",
+                     "--optimizer", "adamax", "--restore",
+                     str(tmp_path / "jax"), "--n_epochs", "1",
+                     "--sample_every", "5", "--batch_size", "2", *TINY])
+    with open(os.path.join(out, "out.log")) as f:
+        assert "at step 5" in f.read()
+    flat, step = load_flat(os.path.join(out, "ckpts", "ckpt-9"))
+    assert step == 9 and int(flat["['opt_state'][0].count"]) == 9
+
+
+def test_train_ncsn_with_the_repo_config(tmp_path, dataset):
+    """The YAML of configs/melspec_ncsnv1.yml, sizes cut, names neither
+    seed nor sample_every: the flags keep them (the JAX script's
+    wholesale replacement loses them)."""
+    with open(os.path.join(REPO, "configs", "melspec_ncsnv1.yml")) as f:
+        config = yaml.safe_load(f)
+    assert "seed" not in config and "sample_every" not in config
+    config.update(n_filters=4, num_classes=2, batch_size=2, n_epochs=1, T=1)
+    path = tmp_path / "tiny.yml"
+    path.write_text(yaml.safe_dump(config))
+    out = str(tmp_path / "cfg")
+    train_ncsn.main(["--dataset", dataset, "--output", out, "--config",
+                     str(path), "--device", "cpu", "--sample_every", "1"])
+    flat, step = load_flat(os.path.join(out, "ckpts", "ckpt-4"))
+    assert step == 4 and "['ema_params']['begin_conv']['kernel']" not in flat
+    assert os.path.exists(os.path.join(out, "generated_samples",
+                                       "generated_samples_1.npy"))
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (wav_to_spec, ["a", "b"]),
+    (train_ncsn, ["--dataset", "d", "--debug"]),
+    (ncsn_generate_samples, ["r", "--debug"])])
+def test_training_clis_cuda_without_gpu_raise(tmp_path, monkeypatch, cli,
+                                              argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv)
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (train_ncsn, ["--dataset", "mnist"]),
+    (train_ncsn, ["--dataset", "cifar10"]),
+    (train_ncsn, ["--dataset", "d", "--multihost"]),
+    (ncsn_generate_samples, ["r", "--dataset", "mnist"])])
+def test_training_clis_refuse_what_is_not_ported(tmp_path, monkeypatch, cli,
+                                                 argv):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main([*argv, "--device", "cpu", "--debug"])

@@ -12,10 +12,14 @@ import torch
 import torch.nn.functional as F
 
 from audiosourcesep_tpu_torch import nn
-from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+from audiosourcesep_tpu_torch.models.ncsn import (dsm_loss, get_score_model,
+                                                  get_sigmas)
 from audiosourcesep_tpu_torch.ops import inversion
 from audiosourcesep_tpu_torch.ops import winograd as W
 from audiosourcesep_tpu_torch.ops.stft import istft, stft
+from audiosourcesep_tpu_torch.training import (init_train_state,
+                                               make_ncsn_train_step,
+                                               setup_optimizer)
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +221,130 @@ def test_inversion_ops_on_the_card_match_the_cpu(cuda, monkeypatch):
                               angles=angles.to(cuda)).cpu(),
         inversion.griffin_lim(mag, n_iter=4, angles=angles),
         atol=1e-4 * mag.max().item(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 16, 24, 16), (2, 384, 12, 8)])
+def test_avg_pool_same_gradient_on_the_card(cuda, shape):
+    """The CRP's 5x5 pool, channels_last on the card: its gradient against
+    float64 on the CPU. (PyTorch 2.11's own CUDA backward of
+    ``avg_pool2d(count_include_pad=False)`` lands 1.1 away, relative, on
+    channels_last input; ``nn.avg_pool_same`` does not use it.)"""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(*shape, generator=g, dtype=torch.float64)
+    w = torch.randn(*shape, generator=g, dtype=torch.float64)
+    ref = x.clone().requires_grad_()
+    (F.avg_pool2d(ref, 5, 1, 2, count_include_pad=False) * w).sum().backward()
+    xc = x.float().to(cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    y = nn.avg_pool_same(xc, 5)
+    (y * w.float().to(cuda)).sum().backward()
+    torch.testing.assert_close(y.double().cpu(), F.avg_pool2d(
+        x, 5, 1, 2, count_include_pad=False), atol=1e-5, rtol=1e-5)
+    err = (xc.grad.double().cpu() - ref.grad).norm() / ref.grad.norm()
+    assert err < 1e-6, err
+
+SIGMAS = get_sigmas(1.0, 0.01, 10, "logarithmic")
+
+
+def _train(device, shape, ngf, batch, steps=1, routed=False, lr=1e-3,
+           seed=0):
+    """``steps`` Adam steps of a v1 model (same init and draws on any
+    device); returns (losses, state)."""
+    m = get_score_model("v1", shape, ngf, 10, device=device)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    state = init_train_state(m, setup_optimizer("adam", lr), ema=True)
+    step, _ = make_ncsn_train_step(SIGMAS, ema_decay=0.999)
+    g = torch.Generator().manual_seed(seed + 1)
+    losses = []
+    try:
+        nn.set_winograd(routed)
+        for _ in range(steps):
+            x = torch.rand(batch, *shape, generator=g)
+            idx = torch.randint(10, (batch,), generator=g)
+            noise = torch.randn(batch, *shape, generator=g)
+            _, loss = step(state, x.to(device), sigma_idx=idx.to(device),
+                           noise=noise.to(device))
+            losses.append(float(loss))
+    finally:
+        nn.set_winograd(False)
+    return losses, state
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    # f32 with TF32 off: the loss to 1e-5; params to 2e-4 absolute (lr
+    # 1e-3: an element whose gradient sits at the f32 noise floor can
+    # move by a fraction of lr differently, as against the JAX package)
+    l_cpu, cpu = _train("cpu", (32, 16, 1), 8, 4)
+    l_gpu, gpu = _train(cuda, (32, 16, 1), 8, 4)
+    assert abs(l_gpu[0] - l_cpu[0]) <= 1e-5 * abs(l_cpu[0])
+    for name, p in cpu.params.items():
+        torch.testing.assert_close(gpu.params[name].detach().cpu(),
+                                   p.detach(), atol=2e-4, rtol=0)
+
+
+def test_routed_full_width_step_matches_cudnn(cuda):
+    """One full-width step (192 filters, [96, 64, 1]) with routing on and
+    off: the loss and every routed conv kernel's gradient, and 64 launches
+    of the f32 kernel per forward."""
+    grads = []
+    for routed in (False, True):
+        m = get_score_model("v1", (96, 64, 1), 192, 10, device=cuda)
+        m.reset_parameters(torch.Generator().manual_seed(0))
+        g = torch.Generator().manual_seed(1)
+        x = torch.rand(4, 96, 64, 1, generator=g).to(cuda)
+        idx = torch.randint(10, (4,), generator=g).to(cuda)
+        noise = torch.randn(4, 96, 64, 1, generator=g).to(cuda)
+        try:
+            nn.set_winograd(routed)
+            before = dict(W.launch_counts)
+            loss = dsm_loss(m, x, torch.as_tensor(SIGMAS, device=cuda),
+                            sigma_idx=idx, noise=noise)
+            loss.backward()
+            launched = {k: W.launch_counts[k] - before[k] for k in before}
+        finally:
+            nn.set_winograd(False)
+        assert launched == {W.KERNELS[torch.float32]: 64 if routed else 0,
+                            W.KERNELS[torch.bfloat16]: 0}
+        grads.append((loss.item(), {
+            n: mod.kernel.grad.clone() for n, mod in m.named_modules()
+            if isinstance(mod, nn.Conv2d) and mod.dilation == 1
+            and mod.kernel.shape[-1] == 3}))
+        del m
+    (l_off, g_off), (l_on, g_on) = grads
+    # routed vs cuDNN forward: 1e-3 mean-rel (chip_smoke.MODEL_TOL); the
+    # loss and each kernel's gradient (L2) to the same
+    assert abs(l_on - l_off) <= 1e-3 * abs(l_off)
+    assert len(g_on) == 64
+    for n, g in g_off.items():
+        assert (g_on[n] - g).norm() <= 1e-3 * g.norm(), n
+
+
+def test_cached_u_follows_the_optimizer_step(cuda, monkeypatch):
+    """nn.Conv2d keys its cached U on the kernel's version: after an Adam
+    step (foreach on the card) the routed forward of the updated weights
+    agrees with cuDNN's; with U kept from before the step it does not."""
+    def routed_vs_cudnn():
+        _, state = _train(cuda, (32, 16, 1), 8, 4, routed=True, lr=1e-2)
+        x = torch.rand(4, 32, 16, 1, device=cuda)
+        idx = torch.arange(4, device=cuda)
+        with torch.no_grad():
+            try:
+                nn.set_winograd(True)
+                on = state.model(x, idx)
+            finally:
+                nn.set_winograd(False)
+            off = state.model(x, idx)
+        return ((on - off).abs().mean() / off.abs().mean()).item()
+
+    assert routed_vs_cudnn() < 1e-5
+    real = nn._winograd_weights
+
+    def stale(cache, kernel, hwio, dtype):     # a cache that never refreshes
+        return cache["u"] if "u" in cache else real(cache, kernel, hwio,
+                                                    dtype)
+    monkeypatch.setattr(nn, "_winograd_weights", stale)
+    assert routed_vs_cudnn() > 1e-3

@@ -83,6 +83,20 @@ def test_avg_pool_same_matches_jax():
                                want, atol=ATOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 9, 12, 3), (1, 2, 7, 4)])
+def test_avg_pool_same_gradient_matches_jax(shape):
+    """The pool's own backward (through its forward op) against JAX's
+    VJP of avg_pool_same, channels_last input."""
+    import jax
+    x = _nhwc(6, shape)
+    w = _nhwc(7, shape)
+    want = np.asarray(jax.grad(lambda a: jnp.sum(
+        jnn.avg_pool_same(a, 5) * w))(jnp.asarray(x)))
+    xt = _to_torch(x).detach().requires_grad_()
+    (tnn.avg_pool_same(xt, 5) * _to_torch(w)).sum().backward()
+    np.testing.assert_allclose(_to_nhwc(xt.grad), want, atol=ATOL)
+
+
 def test_avg_pool2_matches_jax():
     x = _nhwc(5, (2, 8, 12, 3))
     want = np.asarray(jnn.avg_pool2(jnp.asarray(x)))
