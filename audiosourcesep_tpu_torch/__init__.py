@@ -1,8 +1,9 @@
 """audiosourcesep_tpu_torch — the PyTorch/CUDA port of ``audiosourcesep_tpu``.
 
 The JAX package ``audiosourcesep_tpu`` stays the reference; this package
-mirrors its module layout (``nn``, ``ops``, ``models.ncsn``,
-``separation``, ``training.checkpoint``, ``data``, ``evaluation``) so each
+mirrors its module layout (``nn``, ``ops``, ``bijectors``,
+``models.ncsn``, ``models.glow``, ``separation``, ``training``, ``data``,
+``evaluation``) so each
 ported function sits at the same path as its counterpart. It imports
 ``torch`` and never ``jax``.
 
@@ -19,7 +20,9 @@ Ported so far: the NCSN BASIS main path, from wavs to ``results.npz``
 BSS-Eval score (``evaluation``); and NCSN training, from wavs to a
 TFRecord dataset (``wav_to_spec``), a trained prior (``train_ncsn``, with
 JAX-layout train-state checkpoints) and its samples
-(``ncsn_generate_samples``).
+(``ncsn_generate_samples``); and the Glow prior, from a trained flow
+(``train_glow``) and its noise-level chain (``train_noisy_glow``) to a
+separation under two Glow priors (``run_basis_sep --model_type glow``).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""NN primitives the NCSN score network needs (port of ``audiosourcesep_tpu/nn.py``).
+"""NN primitives of the NCSN score network and the Glow coupling nets (port of ``audiosourcesep_tpu/nn.py``).
 
 Inside the models activations are NCHW tensors kept in
 ``torch.channels_last`` memory, which is physically NHWC: a
@@ -139,6 +139,54 @@ class Conv2d(torch.nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.kernel, self.bias, self.dilation,
                       self._winograd_cache)
+
+
+def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1x1 conv of NCHW ``x`` with an OIHW ``[C_out, C_in, 1, 1]``
+    ``kernel``, as one matmul over the channels of the NHWC view (a
+    ``channels_last`` ``x`` needs no copy); returns an NCHW view in
+    ``channels_last`` memory."""
+    w = kernel.to(x.dtype)[:, :, 0, 0]
+    y = torch.matmul(x.permute(0, 2, 3, 1), w.t())
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y.permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# normalisation
+# ---------------------------------------------------------------------------
+
+def frozen_batchnorm(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Per-channel affine ``gamma * x / sqrt(1 + eps) + beta`` of NCHW
+    ``x``: the reference's Keras BatchNormalization inside the flows'
+    coupling nets, whose moving statistics stay at (0, 1) because it only
+    ever runs in inference mode (JAX ``frozen_batchnorm``)."""
+    g = gamma.to(x.dtype) * torch.rsqrt(
+        torch.tensor(1.0 + eps, dtype=x.dtype, device=x.device))
+    return x * g[:, None, None] + beta.to(x.dtype)[:, None, None]
+
+
+class FrozenBatchNorm(torch.nn.Module):
+    """:func:`frozen_batchnorm` with parameters ``gamma`` and ``beta``
+    (initialised to 1 and 0 by :meth:`reset_parameters`)."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__()
+        self.gamma = torch.nn.Parameter(torch.empty(num_features,
+                                                    device=device))
+        self.beta = torch.nn.Parameter(torch.empty(num_features,
+                                                   device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        self.gamma.fill_(1.0)
+        self.beta.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return frozen_batchnorm(x, self.gamma, self.beta)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""BASIS source separation with two NCSN priors, on PyTorch.
+"""BASIS source separation with two NCSN or two Glow priors, on PyTorch.
 
-Port of the NCSN branch of the repository's ``run_basis_sep.py``: the
-same positional ``RESTORE1 RESTORE2`` (JAX-format flat-npz checkpoints or
-directories of them), the same flags, and the same outputs in ``--output``:
+Port of the repository's ``run_basis_sep.py``: the same positional
+``RESTORE1 RESTORE2`` (JAX-format flat-npz checkpoints or directories of
+them; for ``--model_type glow``, ``train_noisy_glow`` output directories
+with one ``sigma_{s}/ckpts`` per noise level), the same flags, and the
+same outputs in ``--output``:
 ``results.npz`` (``x1 x2 gt1 gt2 mixed stft_mixture``),
 ``results_convergence.npz`` (the L+1 per-level states), ``out.log`` and the
 ``mix.wav`` / ``ground_truth{1,2}.wav`` extracts. ``--inverse`` also
@@ -12,9 +14,15 @@ inverts the two separated sources, frames concatenated, to ``sep1.wav`` and
     python -m audiosourcesep_tpu_torch.run_basis_sep CKPT1 CKPT2 \\
         --song_dir SONG --device cuda --compute_dtype bf16 --winograd
 
+NCSN priors separate the mixture rescaled to ``[0, 1]``; Glow priors,
+trained on data-scale patches, separate it in data scale (uniform init
+over ``[minval, maxval]``, outputs only clipped), with the score
+``grad_x log p(x)`` taken through each level's flow, ``--score_chunk``
+frames at a time.
+
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
-``--model_type glow``, ``--shard_sources`` and ``--dataset mnist|cifar10``
-are not ported yet and raise.
+``--shard_sources`` and ``--dataset mnist|cifar10`` are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -31,11 +39,13 @@ import torch
 from . import nn as nn_mod
 from .cli import apply_config_override, resolve_device
 from .data import get_song_extract, write_wav
+from .models import build_glow
 from .models.ncsn import get_score_model, get_sigmas
 from .ops.inversion import mel_to_audio
 from .ops.mel import db_to_power
 from .separation import (BasisConfig, basis_separate_per_level,
-                         ncsn_score_fn, postprocess, preprocess_mixture)
+                         glow_score_fn, ncsn_score_fn, postprocess,
+                         preprocess_mixture)
 from .training.checkpoint import restore_ncsn_params
 
 SPEC_PARAMS = {"length_sec": 2.04, "dbmin": -100.0, "dbmax": 20.0,
@@ -65,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="invert the separated sources to sep1.wav and "
                              "sep2.wav (NNLS + Griffin-Lim)")
     parser.add_argument("--model_type", type=str, default="ncsn",
-                        help="ncsn (glow not ported yet)")
+                        help="ncsn or glow")
     parser.add_argument("--version", type=str, default="v1")
     parser.add_argument("--ema", action="store_true",
                         help="restore the EMA weights of the priors")
@@ -82,7 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--shard_sources", action="store_true",
                         help="not ported yet: raises")
     parser.add_argument("--score_chunk", type=int, default=8,
-                        help="Glow priors only (not ported); ignored")
+                        help="Glow priors only: take the score's gradient "
+                             "through the flow over this many frames at a "
+                             "time (bounds its memory); 0 = all frames")
     parser.add_argument("--n_mixed", type=int, default=30)
     parser.add_argument("--config", type=str)
     parser.add_argument("--seed", type=int, default=0)
@@ -119,14 +131,52 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args) -> None:
-    for flag, hit in (("--model_type glow", args.model_type != "ncsn"),
-                      ("--shard_sources", args.shard_sources),
+    for flag, hit in (("--shard_sources", args.shard_sources),
                       (f"--dataset {args.dataset}",
                        args.dataset != "melspec")):
         if hit:
             raise NotImplementedError(
                 f"{flag} is not yet ported to audiosourcesep_tpu_torch; "
                 "use the JAX run_basis_sep.py")
+
+
+def _restore_ncsn_models(args, data_shape, sigmas, device):
+    """The two NCSN priors, built on ``meta`` and loaded strictly."""
+    compute_dtype = torch.bfloat16 if args.compute_dtype == "bf16" else None
+    models = []
+    for i, path in enumerate((args.RESTORE1, args.RESTORE2)):
+        model = get_score_model(args.version, data_shape, args.n_filters,
+                                int(args.num_classes), sigmas=sigmas,
+                                logit_transform=args.use_logit,
+                                compute_dtype=compute_dtype, device="meta")
+        sd = restore_ncsn_params(path, model.state_dict(), ema=args.ema)
+        model = model.to_empty(device=device)
+        model.load_state_dict(sd)
+        if model.sigmas is not None:   # v2: a buffer, not a checkpoint entry
+            model.sigmas.copy_(torch.as_tensor(sigmas))
+        models.append(model.eval().requires_grad_(False))
+        print(f"Model {i + 1} restored from {path}"
+              + (" (EMA weights)" if args.ema else ""))
+    return models
+
+
+def _restore_glow(root, sigma, args, data_shape, minval, maxval, alpha,
+                  device):
+    """The Glow prior of noise level ``sigma``, built on ``meta`` and
+    loaded strictly from the newest checkpoint in
+    ``root/sigma_{round(sigma, 2)}/ckpts``; its parameters take no
+    gradient (the score differentiates with respect to the input only)."""
+    path = os.path.join(root, f"sigma_{round(float(sigma), 2)}", "ckpts")
+    model = build_glow(data_shape, L=args.L, K=args.K,
+                       n_filters=args.n_filters, learntop=args.learntop,
+                       data_type="melspec", use_logit=args.use_logit,
+                       alpha=alpha, minval=minval, maxval=maxval,
+                       device="meta")
+    sd = restore_ncsn_params(path, model.state_dict())
+    model = model.to_empty(device=device)
+    model.load_state_dict(sd)
+    print(f"Model at noise level {sigma} restored from {path}")
+    return model.eval().requires_grad_(False)
 
 
 def run(args: argparse.Namespace) -> None:
@@ -146,6 +196,10 @@ def run(args: argparse.Namespace) -> None:
         raise ValueError("scale should be 'power' or 'dB'")
     alpha = args.alpha or 1e-6
     out_dir = args.output
+    # Glow priors are trained on data-scale patches (their preprocessing
+    # bijector rescales inside the flow), so they separate in data scale;
+    # NCSN priors on [0,1]-rescaled ones
+    model_scale = args.model_type == "glow"
 
     # ---------------- data -------------------------------------------------
     t0 = time.time()
@@ -158,8 +212,12 @@ def run(args: argparse.Namespace) -> None:
         os.path.join(song_dir, "violin.wav"), duration, **spec)
     mixed = torch.as_tensor(mel_spec[0], device=device)
     gt1, gt2 = mel_spec[1], mel_spec[2]
-    mixed = preprocess_mixture(mixed, minval, maxval, args.use_logit, alpha)
     x_init = torch.rand((2, *mixed.shape), generator=gen, device=device)
+    if model_scale:
+        x_init = x_init * (maxval - minval) + minval
+    else:
+        mixed = preprocess_mixture(mixed, minval, maxval, args.use_logit,
+                                   alpha)
     for name, audio in zip(("mix.wav", "ground_truth1.wav",
                             "ground_truth2.wav"), raw_audio):
         write_wav(os.path.join(out_dir, name), audio, spec["sr"])
@@ -167,21 +225,15 @@ def run(args: argparse.Namespace) -> None:
 
     # ---------------- models ----------------------------------------------
     nn_mod.set_winograd(args.winograd)
-    compute_dtype = torch.bfloat16 if args.compute_dtype == "bf16" else None
-    models = []
-    for i, path in enumerate((args.RESTORE1, args.RESTORE2)):
-        model = get_score_model(args.version, data_shape, args.n_filters,
-                                int(args.num_classes), sigmas=sigmas,
-                                logit_transform=args.use_logit,
-                                compute_dtype=compute_dtype, device="meta")
-        sd = restore_ncsn_params(path, model.state_dict(), ema=args.ema)
-        model = model.to_empty(device=device)
-        model.load_state_dict(sd)
-        if model.sigmas is not None:   # v2: a buffer, not a checkpoint entry
-            model.sigmas.copy_(torch.as_tensor(sigmas))
-        models.append(model.eval().requires_grad_(False))
-        print(f"Model {i + 1} restored from {path}"
-              + (" (EMA weights)" if args.ema else ""))
+    if model_scale:
+        score_fn = glow_score_fn(
+            [[_restore_glow(root, sigma, args, data_shape, minval, maxval,
+                            alpha, device)
+              for root in (args.RESTORE1, args.RESTORE2)]
+             for sigma in sigmas], frame_chunk=args.score_chunk or None)
+    else:
+        score_fn = ncsn_score_fn(_restore_ncsn_models(args, data_shape,
+                                                      sigmas, device))
     print("Parameters \n\t " + "".join(f"{k} = {v} \n\t "
                                        for k, v in vars(args).items()))
 
@@ -195,8 +247,7 @@ def run(args: argparse.Namespace) -> None:
 
     t0 = time.time()
     x_final, traj = basis_separate_per_level(
-        ncsn_score_fn(models), mixed, x_init, sigmas, gen, cfg,
-        callback=progress)
+        score_fn, mixed, x_init, sigmas, gen, cfg, callback=progress)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print(f"Duration: {round(time.time() - t0, 3)} seconds")
@@ -204,7 +255,7 @@ def run(args: argparse.Namespace) -> None:
     # ---------------- save results ----------------------------------------
     def post(x):
         return postprocess(x, minval, maxval, args.use_logit, alpha,
-                           "melspec").cpu().numpy()
+                           "melspec", rescale=not model_scale).cpu().numpy()
 
     def squeeze_ch(a):
         # drop only the trailing channel axis (a plain squeeze would also

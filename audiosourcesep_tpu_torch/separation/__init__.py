@@ -1,9 +1,10 @@
 """BASIS separation with score priors."""
 
 from .basis import (BasisConfig, basis_separate, basis_separate_per_level,
-                    ncsn_score_fn, postprocess, preprocess_mixture)
+                    glow_score_fn, ncsn_score_fn, postprocess,
+                    preprocess_mixture)
 from .mixing import mixing_process
 
 __all__ = ["BasisConfig", "basis_separate", "basis_separate_per_level",
-           "ncsn_score_fn", "postprocess", "preprocess_mixture",
-           "mixing_process"]
+           "glow_score_fn", "ncsn_score_fn", "postprocess",
+           "preprocess_mixture", "mixing_process"]

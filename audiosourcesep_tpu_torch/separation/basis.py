@@ -1,6 +1,6 @@
 """BASIS: Bayesian Annealed SIgnal Separation (port of
-``basis_separate`` and ``basis_separate_per_level`` in
-``audiosourcesep_tpu/separation/basis.py``).
+``basis_separate``, ``basis_separate_per_level`` and the NCSN and Glow
+score functions in ``audiosourcesep_tpu/separation/basis.py``).
 
 Per noise level ``sigma`` the sources take ``T`` Langevin steps held to
 the mixture:
@@ -49,6 +49,30 @@ def ncsn_score_fn(models: Sequence[torch.nn.Module]) -> Callable:
               level: int) -> torch.Tensor:
         del level
         return torch.stack([m(x[k], sigma_idx) for k, m in enumerate(models)])
+
+    return score
+
+
+def glow_score_fn(models_per_level: Sequence[Sequence[torch.nn.Module]],
+                  frame_chunk: Optional[int] = None) -> Callable:
+    """Glow-prior score over stacked sources: ``score(x [K, N, ...],
+    sigma_idx, level) -> [K, N, ...]``, with ``models_per_level[level][k]``
+    the flow of source ``k`` at that noise level, applied in turn.
+
+    The score is ``grad_x log p(x)`` through the flow (autograd with
+    respect to ``x`` only: the priors' parameters should have
+    ``requires_grad_(False)``, so no weight gradient is formed).
+    ``frame_chunk`` bounds the backward's working set: the frames go
+    through the flow ``frame_chunk`` at a time, which is exact because
+    frames are independent. ``None`` or 0 takes all frames at once.
+    """
+    def score(x: torch.Tensor, sigma_idx: torch.Tensor,
+              level: int) -> torch.Tensor:
+        del sigma_idx
+        return torch.stack([
+            torch.cat([m.score(xc) for xc in (x[k].split(frame_chunk)
+                                              if frame_chunk else (x[k],))])
+            for k, m in enumerate(models_per_level[level])])
 
     return score
 

@@ -1,4 +1,4 @@
-"""NCSN train step with EMA (port of ``init_train_state`` and ``make_ncsn_train_step`` in ``audiosourcesep_tpu/training/trainers.py``).
+"""Train steps and the noisy-Glow chain (port of ``audiosourcesep_tpu/training/trainers.py``).
 
 The JAX train state is a pytree ``{params, opt_state, step[, ema_params]}``
 that a jitted step replaces. Here :class:`TrainState` holds the same
@@ -6,20 +6,22 @@ fields as PyTorch objects (the model's parameters, the ``torch.optim``
 optimizer's state, the step count, the EMA tensors), which the step
 updates in place, and converts to and from the JAX pytree, key for key,
 for checkpoints. One device; data parallelism waits for the multi-GPU
-port. The flow trainers wait for the flows.
+port.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.ncsn.utils import dsm_loss
-from .checkpoint import (_flatten, _to_numpy, map_with_path, nest_params,
-                         params_from_jax)
-from .train_utils import OptimizerSpec, clip_by_global_norm_, ema_update
+from .checkpoint import (CheckpointManager, _flatten, _to_numpy,
+                         map_with_path, nest_params, params_from_jax)
+from .train_utils import (OptimizerSpec, clip_by_global_norm_, ema_update,
+                          setup_optimizer)
 
 
 class ScaleByAdamState(NamedTuple):
@@ -108,6 +110,66 @@ def init_train_state(model: torch.nn.Module, optimizer: OptimizerSpec,
     return TrainState(model, optimizer, ema)
 
 
+def _optimize(state: TrainState, loss: torch.Tensor) -> None:
+    """Backward of ``loss``, the optional global-norm clip and the
+    optimizer step (the gradients were zeroed before the forward)."""
+    loss.backward()
+    if state.spec.clipnorm is not None:
+        clip_by_global_norm_([p.grad for p in state.params.values()],
+                             state.spec.clipnorm)
+    state.optimizer.step()
+    state.step += 1
+
+
+# ---------------------------------------------------------------------------
+# flows (train_glow.py:29-44; train_noisy_glow.py:30-38)
+# ---------------------------------------------------------------------------
+
+def make_flow_train_step(noise_sigma: Optional[float] = None
+                         ) -> Tuple[Callable, Callable]:
+    """Returns ``(step, eval_loss)`` for a :class:`~..bijectors.FlowModel`
+    held by the state.
+
+    ``step(state, batch, generator=None, noise=None, dequant=None) ->
+    (state, loss)``: one gradient step on the mean NLL of ``batch``.
+    ``noise_sigma`` set -> the batch is ``X + noise_sigma * noise``
+    (noisy-Glow fine-tuning), ``noise`` standard normal of the batch's
+    shape; ``dequant`` (uniform on ``[0, 1)``) is the dequantisation draw
+    the flow's preprocessing reads (image data only). Both are drawn from
+    ``generator`` unless given, as the JAX step draws both from its key.
+    ``eval_loss`` is the same loss without a gradient. ``loss`` stays on
+    the device.
+    """
+    def loss_fn(model, batch, generator, noise, dequant):
+        if noise_sigma is not None:
+            if noise is None:
+                noise = torch.randn(batch.shape, generator=generator,
+                                    device=batch.device)
+            batch = batch + noise_sigma * noise
+        if dequant is None:
+            dequant = torch.rand(batch.shape, generator=generator,
+                                 device=batch.device)
+        return -torch.mean(model.log_prob(batch, dequant))
+
+    def step(state: TrainState, batch: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None,
+             dequant: Optional[torch.Tensor] = None):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(state.model, batch, generator, noise, dequant)
+        _optimize(state, loss)
+        return state, loss.detach()
+
+    @torch.no_grad()
+    def eval_loss(state: TrainState, batch: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  dequant: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return loss_fn(state.model, batch, generator, noise, dequant)
+
+    return step, eval_loss
+
+
 # ---------------------------------------------------------------------------
 # NCSN (train_ncsn.py:26-75)
 # ---------------------------------------------------------------------------
@@ -142,17 +204,12 @@ def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
              generator: Optional[torch.Generator] = None,
              sigma_idx: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None):
-        params = list(state.params.values())
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.model, batch, generator, sigma_idx, noise)
-        loss.backward()
-        if state.spec.clipnorm is not None:
-            clip_by_global_norm_([p.grad for p in params],
-                                 state.spec.clipnorm)
-        state.optimizer.step()
-        state.step += 1
+        _optimize(state, loss)
         if ema_decay is not None and state.ema_params is not None:
-            ema_update(state.ema_params.values(), params, ema_decay)
+            ema_update(state.ema_params.values(), state.params.values(),
+                       ema_decay)
         return state, loss.detach()
 
     @torch.no_grad()
@@ -168,3 +225,97 @@ def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
         return loss_fn(score_fn, batch, generator, sigma_idx, noise)
 
     return step, eval_loss
+
+
+# ---------------------------------------------------------------------------
+# noisy-Glow chain (train_noisy_glow.py:187-360)
+# ---------------------------------------------------------------------------
+
+class _NoisyView:
+    """A dataset's batches plus ``sigma * eps``, ``eps`` drawn in numpy
+    from ``RandomState(seed)`` (the JAX package's draws, bit for bit)."""
+
+    def __init__(self, ds, sigma: float, seed: int):
+        self.ds, self.sigma = ds, float(sigma)
+        self._rng = np.random.RandomState(seed)
+        self.batch_size = ds.batch_size
+
+    def __len__(self):
+        return len(self.ds)
+
+    @property
+    def n_examples(self):
+        return self.ds.n_examples
+
+    def __iter__(self):
+        for batch in self.ds:
+            yield (batch + self.sigma * self._rng.randn(*batch.shape)
+                   ).astype(batch.dtype)
+
+
+def train_noisy_glow_chain(model: torch.nn.Module, sigmas, ds_train,
+                           ds_test, *, optimizer_name: str = "adamax",
+                           learning_rate: float = 1e-3,
+                           clipnorm: Optional[float] = None,
+                           n_epochs_per_sigma: int = 20,
+                           batch_size: int = 32, output_dir: str = ".",
+                           restore_path: Optional[str] = None,
+                           generator: Optional[torch.Generator] = None,
+                           reinit_actnorm: bool = False,
+                           reinit_minibatch: Optional[np.ndarray] = None
+                           ) -> Dict[float, str]:
+    """Serially fine-tune the Glow ``model`` (its parameters updated in
+    place) at each noise level.
+
+    For each sigma (descending): restore the previous level's train state
+    (``restore_path``, a ``ckpts`` directory, for the first), not
+    strictly, as the JAX package does; optionally re-anchor the ActNorm
+    statistics on ``reinit_minibatch`` (or a batch of ``ds_train``) plus
+    ``sigma * RandomState(3000 + level)`` noise; train on ``X + sigma *
+    eps`` (``RandomState(1000 + level)`` for the training batches,
+    ``2000 + level`` for the validation ones); and save under
+    ``output_dir/sigma_{round(sigma, 2)}/ckpts``, the layout
+    ``run_basis_sep --model_type glow`` reads. ``generator`` (on the
+    model's device) draws the steps' remaining noise. Returns ``{sigma:
+    ckpts directory}``.
+    """
+    from .loop import LoopConfig, run_training
+
+    device = next(model.parameters()).device
+    generator = (generator if generator is not None
+                 else torch.Generator(device=device).manual_seed(0))
+    spec = setup_optimizer(optimizer_name, learning_rate, clipnorm=clipnorm)
+    # one step for every level: the perturbation is applied to the batches
+    # outside the step
+    step, eval_loss = make_flow_train_step()
+    prev_ckpt_dir = restore_path
+    save_dirs = {}
+    for li, sigma in enumerate(np.asarray(sigmas)):
+        sigma_dir = os.path.join(output_dir,
+                                 f"sigma_{round(float(sigma), 2)}")
+        os.makedirs(sigma_dir, exist_ok=True)
+        state = init_train_state(model, spec)
+        if prev_ckpt_dir is not None:
+            tree, _ = CheckpointManager(prev_ckpt_dir).restore_latest(
+                state.tree(), strict=False)
+            state.load_tree(tree)
+            print(f"Restored previous level weights from {prev_ckpt_dir}")
+        if reinit_actnorm:
+            if reinit_minibatch is not None:
+                clean = np.asarray(reinit_minibatch)
+                noise = np.random.RandomState(3000 + li).randn(*clean.shape)
+                nb = (clean + float(sigma) * noise).astype(np.float32)
+            else:
+                nb = next(iter(_NoisyView(ds_train, sigma, 3000 + li)))
+            model.reinit_data_dependent(torch.as_tensor(nb, device=device))
+            print(f"Re-anchored ActNorm stats on a sigma={float(sigma):.4f} "
+                  f"minibatch")
+        cfg = LoopConfig(n_epochs=n_epochs_per_sigma, batch_size=batch_size,
+                         output_dir=sigma_dir, ckpt_dir="ckpts")
+        run_training(state, step, eval_loss,
+                     _NoisyView(ds_train, sigma, 1000 + li),
+                     _NoisyView(ds_test, sigma, 2000 + li), cfg, generator)
+        prev_ckpt_dir = os.path.join(sigma_dir, "ckpts")
+        save_dirs[float(sigma)] = prev_ckpt_dir
+        print(f"sigma={float(sigma):.4f} done -> {prev_ckpt_dir}")
+    return save_dirs

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
     python3 chip_smoke.py            # T=2 separation (the default check)
-    python3 chip_smoke.py --full     # also the full T=100 separation
+    python3 chip_smoke.py --full     # also the full T=100 separations
 
 Phases, each printed on its own lines; any failure raises (exit != 0):
 
@@ -52,6 +52,20 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    with routing on, each launching the f32 kernel exactly 64 times per
    forward it runs; the checkpoint holds the JAX train state's keys and
    ``restore_ncsn_params(ema=True)`` loads it.
+8. the Glow prior at the width of ``configs/melspec_glow.yml`` (L=3, K=40,
+   512 filters, learntop, f32, TF32 off unless said): (a) the f32 kernel
+   at the coupling nets' six 3x3 conv classes (batch 30) against its plain
+   version and F.conv2d, with times and bounds, and the 1x1 512->512 conv
+   as a matmul against F.conv2d; (b) log p and the score of 2 frames on
+   the card against the CPU; (c) the score of 30 frames routed against
+   cuDNN, 240 f32 launches per forward; (d) one Adamax step at batch 2 on
+   the card against the CPU, then the step at batch 32 split into
+   forward, backward and optimizer, TF32 off (routing off and on) and on,
+   against its bound; (e) ``train_glow`` (one epoch on phase 7's dataset)
+   -> ``train_noisy_glow`` (2 levels, 10 with ``--full``) ->
+   ``run_basis_sep --model_type glow --winograd`` (T=2) at
+   ``--score_chunk 8`` and ``0``, with the f32 kernel's launches,
+   ``Duration`` and the peak memory (``--full`` adds T=100 at ``0``).
 
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -123,6 +137,23 @@ FWD_TFLOP_30 = 7.728
 TF32_PEAK = 495e12
 # a raw ground-truth window and its inversion (HOP * 63), in samples
 W_RAW, W_INV = 32640, HOP * 63
+# phase 8, Glow at the width of configs/melspec_glow.yml: L=3, K=40, 512
+# filters, learntop, [96, 64, 1] mel patches in dB. The coupling nets' 3x3
+# convs are the routed classes, (H, W, C_in, C_out) -> convs per forward
+GLOW = {"L": 3, "K": 40, "n_filters": 512}
+GLOW_CLASSES = {
+    (48, 32, 2, 512): 40, (48, 32, 512, 4): 40,
+    (24, 16, 4, 512): 40, (24, 16, 512, 8): 40,
+    (12, 8, 8, 512): 40, (12, 8, 512, 16): 40,
+}
+GLOW_ROUTED = sum(GLOW_CLASSES.values())                 # 240 per forward
+# card vs CPU and routed vs cuDNN, ||diff|| / ||ref|| of log p and of the
+# score (f32, TF32 off; the flow's 120 steps only reorder sums)
+GLOW_TOL = 1e-4
+# the coupling nets' last conv is zero at init (each coupling starts as
+# the identity): phase 8 draws it from N(0, GLOW_CONV3_STD^2) so that the
+# couplings, and the routed conv3, do work (|log_s| ~ 0.03)
+GLOW_CONV3_STD = 1e-3
 
 
 def fail(msg: str, code: int = 2):
@@ -195,7 +226,8 @@ def _new_result():
             "max_abs_err": 0.0, "by": {"operations": 0.0, "bytes": 0.0}}
 
 
-def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv):
+def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
+          tag="[3]"):
     """Run one conv class through the kernel, its plain version and
     F.conv2d on the same inputs; check the kernel's agreement, time all
     three, and add ``n`` times each to the route's result ``r``."""
@@ -219,7 +251,7 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv):
     r["library_ms"] += n * ms_c
     r["bound_ms"] += n * bound
     r["by"][by] += n * bound
-    print(f"[3] {dname:8s} {label} x{n:2d}/fwd: rel err vs plain max "
+    print(f"{tag} {dname:8s} {label} x{n:2d}/fwd: rel err vs plain max "
           f"{e_plain / scale:.2e} (tol {tol_max:g}) mean {e_mean:.2e} (tol "
           f"{tol_mean:g}), vs F.conv2d max {e_conv / scale:.2e} (tol "
           f"{tol_conv:g}); ms kernel {ms_k:.4f} plain {ms_p:.4f} F.conv2d "
@@ -230,8 +262,8 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv):
         raise AssertionError(f"kernel disagrees at {label} {dname}")
 
 
-def _summary(r, what, dname):
-    print(f"[3] {dname}: {what} (batch {BATCH}): kernel {r['ms']:.3f} ms, "
+def _summary(r, what, dname, tag="[3]"):
+    print(f"{tag} {dname}: {what} (batch {BATCH}): kernel {r['ms']:.3f} ms, "
           f"plain {r['plain_ms']:.3f} ms, F.conv2d {r['library_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.1f}%"
           f" of it reached)")
@@ -869,6 +901,347 @@ def phase_train_cli(work: str, ds: str, counts):
     return train_launches[f32], gen_launches[f32]
 
 
+def glow_forward_flop(batch: int) -> float:
+    """Multiply-adds x 2 of one Glow forward: per step the 3x3 convs
+    C/2 -> 512 -> C, the 1x1 512 -> 512 and the invertible 1x1 C -> C, at
+    each level's resolution (C channels after its squeeze)."""
+    f, flop = GLOW["n_filters"], 0
+    for level in range(GLOW["L"]):
+        hw = (96 >> (level + 1)) * (64 >> (level + 1))
+        c = 4 << level
+        flop += GLOW["K"] * 2 * hw * (9 * (c // 2) * f + f * f + 9 * f * c
+                                      + c * c)
+    return batch * flop
+
+
+def _glow(device, init=True):
+    """The full-width Glow on ``device``: with ``init``, initialised from a
+    random dB minibatch (draws on the CPU, the same on any device) and each
+    coupling's last conv drawn from N(0, GLOW_CONV3_STD^2); else left
+    uninitialised, to load a state_dict into."""
+    import torch
+    from audiosourcesep_tpu_torch.bijectors import ShiftAndLogScaleConvNet
+    from audiosourcesep_tpu_torch.models import build_glow
+    g = torch.Generator().manual_seed(0)
+    mb = torch.rand(8, 96, 64, 1, generator=g) * 120.0 - 100.0
+    model = build_glow((96, 64, 1), **GLOW, learntop=True,
+                       data_type="melspec", minibatch=mb.to(device)
+                       if init else None, generator=g, device=device)
+    if init:
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, ShiftAndLogScaleConvNet):
+                    m.conv3.kernel.copy_(GLOW_CONV3_STD * torch.randn(
+                        m.conv3.kernel.shape, generator=g))
+    return model
+
+
+def _glow_data(n: int, seed: int):
+    """``n`` random dB patches in [-100, 20), drawn on the CPU."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(n, 96, 64, 1, generator=g) * 120.0 - 100.0
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| over a tensor or a dict of tensors (on the CPU)."""
+    if isinstance(b, dict):
+        num = sum(((a[n].cpu() - t.cpu()) ** 2).sum().item()
+                  for n, t in b.items())
+        return (num / sum((t.cpu() ** 2).sum().item()
+                          for t in b.values())) ** 0.5
+    return ((a.cpu() - b.cpu()).norm() / b.cpu().norm()).item()
+
+
+def phase_glow_kernel():
+    """8a: the f32 kernel at the six Glow conv classes (batch 30) against
+    its plain version and F.conv2d; the coupling nets' 1x1 512->512 conv
+    as nn.conv1x1 (a matmul) against F.conv2d at each resolution."""
+    import torch
+    import torch.nn.functional as F
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    g = torch.Generator(device="cuda").manual_seed(8)
+    r = _new_result()
+    for (h, w, cin, cout), n in GLOW_CLASSES.items():
+        x = torch.randn(BATCH, h, w, cin, device="cuda", generator=g)
+        k = torch.randn(3, 3, cin, cout, device="cuda", generator=g) \
+            * (1.0 / (9 * cin)) ** 0.5
+        u = W.transform_weights(k)
+        xc, kc = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1)
+        _hold(r, f"{h}x{w} {cin:3d}->{cout:3d}", "float32", n,
+              (h, w, cin, cout), lambda: W._winograd_cuda(x, u),
+              lambda: W.winograd_conv2d_reference(x, k),
+              lambda: F.conv2d(xc, kc, padding=1).permute(0, 2, 3, 1),
+              tag="[8a]")
+        del x, k, u, xc, kc
+    _summary(r, "routed convs of one Glow forward", "float32", tag="[8a]")
+    f = GLOW["n_filters"]
+    for h, w in ((48, 32), (24, 16), (12, 8)):
+        x = torch.randn(BATCH, f, h, w, device="cuda", generator=g
+                        ).contiguous(memory_format=torch.channels_last)
+        k = torch.randn(f, f, 1, 1, device="cuda", generator=g) / f ** 0.5
+        mm, cv = nn.conv1x1(x, k), F.conv2d(x, k)
+        err = _rel(mm, cv)
+        ms_mm = cuda_ms(lambda: nn.conv1x1(x, k), 20, 2)
+        ms_cv = cuda_ms(lambda: F.conv2d(x, k), 20, 2)
+        bound = 1e3 * 2 * BATCH * h * w * f * f / PEAK["float32"]
+        print(f"[8a] 1x1 {f}->{f} at {h}x{w}, batch {BATCH}: nn.conv1x1 "
+              f"(matmul) {ms_mm:.4f} ms, F.conv2d {ms_cv:.4f} ms, bound "
+              f"{bound:.4f} ms; x{GLOW['K']}/fwd; rel diff {err:.1e}")
+        if err > GLOW_TOL:
+            raise AssertionError("nn.conv1x1 disagrees with F.conv2d")
+    return r
+
+
+def phase_glow_score():
+    """8b-8c: log p and the score of the full-width Glow on the card
+    against the CPU (2 frames), then routed against unrouted on the card
+    (batch 30)."""
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    t0 = time.time()
+    gpu = _glow("cuda").requires_grad_(False)
+    cpu = _glow("cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    cpu.requires_grad_(False)
+    n_params = sum(p.numel() for p in gpu.parameters())
+    print(f"[8b] Glow L={GLOW['L']} K={GLOW['K']} {GLOW['n_filters']} "
+          f"filters, learntop: {n_params:,} parameters, built and "
+          f"initialised on the card in {time.time() - t0:.2f} s")
+    x = _glow_data(2, 81)
+    t0 = time.time()
+    lp_cpu, s_cpu = cpu.log_prob(x), cpu.score(x)
+    t_cpu = time.time() - t0
+    lp_gpu, s_gpu = gpu.log_prob(x.cuda()), gpu.score(x.cuda())
+    errs = (_rel(lp_gpu, lp_cpu), _rel(s_gpu, s_cpu))
+    print(f"[8b] 2 frames, card vs CPU: log p {lp_gpu.tolist()} vs "
+          f"{lp_cpu.tolist()}; rel diff log p {errs[0]:.2e}, score "
+          f"{errs[1]:.2e} (tol {GLOW_TOL:g}); |score| mean "
+          f"{s_cpu.abs().mean().item():.3e}; CPU {t_cpu:.2f} s")
+    if not all(torch.isfinite(t).all() for t in (lp_gpu, s_gpu)) \
+            or max(errs) > GLOW_TOL:
+        raise AssertionError("the Glow on the card disagrees with the CPU")
+    del cpu
+    x = _glow_data(BATCH, 82).cuda()
+    scores, times = {}, {}
+    try:
+        for routed in (False, True):
+            nn.set_winograd(routed)
+            _reset_counts()
+            scores[routed] = gpu.score(x)
+            torch.cuda.synchronize()
+            launched = dict(W.launch_counts)
+            want = {name: GLOW_ROUTED if routed and dt == torch.float32
+                    else 0 for dt, name in W.KERNELS.items()}
+            if launched != want:
+                raise AssertionError(f"Glow score launches {launched}, "
+                                     f"expected {want}")
+            times[routed] = cuda_ms(lambda: gpu.score(x), 3)
+    finally:
+        nn.set_winograd(False)
+    err = _rel(scores[True], scores[False])
+    print(f"[8c] score of {BATCH} frames (forward + input gradient), "
+          f"routed vs cuDNN: rel diff {err:.2e} (tol {GLOW_TOL:g}); "
+          f"{GLOW_ROUTED} f32 launches per forward; {times[False]:.2f} ms "
+          f"cuDNN, {times[True]:.2f} ms routed; bound "
+          f"{1e3 * 2 * glow_forward_flop(BATCH) / PEAK['float32']:.2f} ms "
+          f"({2 * glow_forward_flop(BATCH) / 1e12:.3f} TFLOP, a forward and "
+          f"its input gradient, at 67 TFLOP/s)")
+    if err > GLOW_TOL:
+        raise AssertionError("routed Glow score disagrees with cuDNN's")
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def _glow_step_split(state, step, x, dq):
+    """ms of the loss, of the loss and its backward, of the Adamax update
+    and of the whole step (CUDA events)."""
+    def fwd():
+        return -state.model.log_prob(x, dq).mean()
+
+    def fwd_bwd():
+        state.optimizer.zero_grad(set_to_none=True)
+        fwd().backward()
+
+    t_fwd = cuda_ms(fwd, 3)
+    t_fb = cuda_ms(fwd_bwd, 3)
+    t_opt = cuda_ms(state.optimizer.step, 3)
+    t_step = cuda_ms(lambda: step(state, x, dequant=dq), 3)
+    return t_fwd, t_fb - t_fwd, t_opt, t_step
+
+
+def phase_glow_train(smi: str):
+    """8d: one Adamax step at batch 2 on the card and on the CPU, then the
+    step at batch 32 timed apart, TF32 off (routing off and on) and on."""
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.training import (init_train_state,
+                                                   make_flow_train_step,
+                                                   setup_optimizer)
+    step, _ = make_flow_train_step()
+    x, dq = _glow_data(2, 83), torch.rand(2, 96, 64, 1)
+    gpu = _glow("cuda")
+    cpu = _glow("cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    out = {}
+    for device, model in (("cuda", gpu), ("cpu", cpu)):
+        state = init_train_state(model, setup_optimizer("adamax", 1e-3))
+        _, loss = step(state, x.to(device), dequant=dq.to(device))
+        out[device] = (float(loss),
+                       {n: p.grad.cpu() for n, p in state.params.items()},
+                       {n: p.detach().cpu()
+                        for n, p in state.params.items()})
+        del state
+    del cpu
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = out["cuda"], out["cpu"]
+    errs = {"loss": abs(l_gpu - l_cpu) / abs(l_cpu),
+            "grad": _rel(g_gpu, g_cpu), "param": _rel(p_gpu, p_cpu)}
+    print(f"[8d] one Adamax step, batch 2, card vs CPU: loss {l_gpu:.4f} vs "
+          f"{l_cpu:.4f}; rel diff loss {errs['loss']:.2e}, gradients "
+          f"{errs['grad']:.2e}, params after the step {errs['param']:.2e} "
+          f"(tol {TRAIN_TOL})")
+    if any(errs[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError("the Glow train step on the card disagrees "
+                             "with the CPU")
+    del out, g_gpu, p_gpu, g_cpu, p_cpu
+    xb = _glow_data(TRAIN_BATCH, 84).cuda()
+    dqb = torch.rand(xb.shape, device="cuda")
+    times = {}
+    for key, routed, tf32 in (("f32", False, False),
+                              ("f32 routed", True, False),
+                              ("tf32", False, True)):
+        state = init_train_state(gpu, setup_optimizer("adamax", 1e-3))
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            nn.set_winograd(routed)
+            torch.cuda.reset_peak_memory_stats()
+            times[key] = _glow_step_split(state, step, xb, dqb)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            nn.set_winograd(False)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        del state
+        t_fwd, t_bwd, t_opt, t_step = times[key]
+        onoff = {True: "on", False: "off"}
+        print(f"[8d] Glow train step batch {TRAIN_BATCH}, {key} (TF32 "
+              f"{onoff[tf32]}, routing {onoff[routed]}): {t_step:.2f} ms; "
+              f"apart: forward {t_fwd:.2f}, "
+              f"backward {t_bwd:.2f}, Adamax {t_opt:.2f}; peak memory "
+              f"{peak:.2f} GiB")
+    flop = 3 * glow_forward_flop(TRAIN_BATCH)
+    print(f"[8d] step bound: {flop / 1e12:.3f} TFLOP (3 forwards of "
+          f"{glow_forward_flop(1) / 1e9:.2f} GFLOP a frame) at 67 TFLOP/s "
+          f"f32 = {1e3 * flop / PEAK['float32']:.2f} ms, at 495 TFLOP/s "
+          f"TF32 = {1e3 * flop / TF32_PEAK:.2f} ms; card {smi}")
+    del gpu
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_glow_cli(work: str, ds: str, counts, full: bool):
+    """8e: train_glow -> train_noisy_glow -> run_basis_sep --model_type
+    glow --winograd at full width on phase 7a's dataset; returns the f32
+    kernel's launches in the separation at --score_chunk 8."""
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch import (run_basis_sep, train_glow,
+                                          train_noisy_glow)
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.training.checkpoint import load_flat
+    width = ["--L", str(GLOW["L"]), "--K", str(GLOW["K"]), "--n_filters",
+             str(GLOW["n_filters"]), "--learntop", "--device", "cuda"]
+    glow, noisy = os.path.join(work, "glow"), os.path.join(work, "noisy")
+    L = 10 if full else 2
+    # Adamax moves every weight by ~lr a step, the couplings' zero-init
+    # last convs too; a 512-filter coupling then sums 4,608 such weights,
+    # and 40 couplings a level compound its scale. After two steps at the
+    # configs' lr 1e-3, log p and the score overflow on the separation's
+    # uniform init and the anneal goes NaN in its first level; at 1e-5 the
+    # anneal of --full went NaN in its 7th level (a prior of 16 steps), with
+    # the scores clipped. At lr 1e-6 the priors stay near their
+    # data-dependent init. The separation clips the scores at +-1/sigma
+    # (--score_clip, the JAX package's guard for grad-through-flow priors).
+    lr = ["--learning_rate", "1e-6"]
+    t0 = time.time()
+    train_glow.main(["--dataset", ds, "--output", glow, "--n_epochs", "1",
+                     "--batch_size", str(TRAIN_BATCH), *lr, *width])
+    wall = time.time() - t0
+    with open(os.path.join(glow, "out.log")) as f:
+        log = [ln.strip() for ln in f if ln.startswith(
+            ("Total Trainable", "Epoch", "Training time", "Validation"))]
+    steps = counts[0] // TRAIN_BATCH
+    flat, step = load_flat(os.path.join(glow, "ckpts", f"ckpt-{steps}"))
+    samples = np.load(os.path.join(glow, "generated_samples",
+                                   "generated_samples_1.npy"))
+    print(f"[8e] train_glow, batch {TRAIN_BATCH}, 1 epoch ({steps} steps): "
+          f"{wall:.2f} s; out.log: {log}; ckpt-{steps}.npz {len(flat)} JAX "
+          f"keys; samples {samples.shape}")
+    if step != steps or "['opt_state'][0].nu['prior']['loc']" not in flat \
+            or samples.shape != (32, 96, 64, 1) \
+            or not np.isfinite(samples).all():
+        raise AssertionError("train_glow outputs")
+    t0 = time.time()
+    train_noisy_glow.main([glow, "--dataset", ds, "--output", noisy,
+                           "--n_epochs", "1", "--batch_size",
+                           str(TRAIN_BATCH), "--num_classes", str(L), *lr,
+                           *width])
+    sigma_dirs = sorted(d for d in os.listdir(noisy)
+                        if d.startswith("sigma_"))
+    print(f"[8e] train_noisy_glow --num_classes {L}, 1 epoch a level: "
+          f"{time.time() - t0:.2f} s; {sigma_dirs}")
+    if len(sigma_dirs) != L:
+        raise AssertionError("train_noisy_glow sigma directories")
+    song = os.path.join(work, "song")
+    launches = {}
+    # the T=100 run takes all 30 frames at once: a score of 8 frames costs
+    # most of one of 30 (the flow's launches, not its FLOPs, set it)
+    runs = [(2, 8), (2, 0)] + ([(100, 0)] if full else [])
+    for T, chunk in runs:
+        out = os.path.join(work, f"sep_glow_T{T}_c{chunk}")
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        run_basis_sep.main([noisy, noisy, "--output", out, "--song_dir",
+                            song, "--model_type", "glow", "--winograd",
+                            "--T", str(T), "--n_mixed", str(BATCH),
+                            "--num_classes", str(L), "--score_chunk",
+                            str(chunk), "--score_clip", "1", *width])
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = dict(W.launch_counts)
+        chunks = -(-BATCH // chunk) if chunk else 1
+        want = {name: L * T * 2 * chunks * GLOW_ROUTED
+                if dt == torch.float32 else 0
+                for dt, name in W.KERNELS.items()}
+        with open(os.path.join(out, "out.log")) as f:
+            dur = [ln.strip() for ln in f if ln.startswith("Duration")]
+        res = np.load(os.path.join(out, "results.npz"))
+        traj = np.load(os.path.join(out, "results_convergence.npz"))["x1"]
+        finite = [float(np.isfinite(t).mean()) for t in traj]
+        print(f"[8e] run_basis_sep --model_type glow --winograd --T {T} "
+              f"--num_classes {L} --score_chunk {chunk} --score_clip 1: "
+              f"{dur}, finite share of x1 after each level {finite}, "
+              f"wall-clock "
+              f"{wall:.2f} s; peak memory {peak:.2f} GiB; launches {got}, "
+              f"expected {want} ({L} levels x T={T} x 2 sources x {chunks} "
+              f"chunks x {GLOW_ROUTED}); x1 {res['x1'].shape} in "
+              f"[{res['x1'].min():.2f}, {res['x1'].max():.2f}] dB")
+        if got != want:
+            raise AssertionError("the Glow separation did not launch the "
+                                 "f32 kernel for every routed conv")
+        for key in ("x1", "x2"):
+            if res[key].shape != (BATCH, 96, 64) \
+                    or not np.isfinite(res[key]).all() \
+                    or res[key].min() < -100.0 or res[key].max() > 20.0:
+                raise AssertionError(f"results.npz {key}")
+        launches[(T, chunk)] = got[W.KERNELS[torch.float32]]
+    return launches[(2, 8)]
+
+
 def main(argv):
     full = "--full" in argv
     try:
@@ -896,6 +1269,10 @@ def main(argv):
         phase_train_step_vs_cpu()
         phase_train_routing(smi)
         phase_train_cli(work, ds, counts)
+        res["float32_glow"] = phase_glow_kernel()
+        phase_glow_score()
+        phase_glow_train(smi)
+        glow_launches = phase_glow_cli(work, ds, counts, full)
         if full:
             phase_cli(work, 100, "bf16")
     finally:
@@ -922,7 +1299,11 @@ def main(argv):
             # cascade's 10 dilated convs (not routed by nn.conv2d)
             "dilated_route": numbers(res[dname + "_dilated"]),
         })
-    print(f"[8] card: {smi}")
+    # the f32 kernel at the Glow coupling nets' 3x3 convs, summed over one
+    # Glow forward's 240 routed convs; launches of the Glow separation CLI
+    kernels[1]["glow_route"] = {**numbers(res["float32_glow"]),
+                                "launches": glow_launches}
+    print(f"[9] card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

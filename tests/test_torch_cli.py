@@ -2,8 +2,10 @@
 separation and inversion CLIs (audiosourcesep_tpu_torch.run_basis_sep,
 .melspec_inversion_basis) on a JAX-format checkpoint; the training chain
 (.wav_to_spec -> .train_ncsn -> .run_basis_sep and
-.ncsn_generate_samples), with checkpoints crossing to and from the JAX
-package; and the port's independence from JAX."""
+.ncsn_generate_samples) and the Glow chain (.train_glow ->
+.train_noisy_glow -> .run_basis_sep --model_type glow), with checkpoints
+crossing to and from the JAX package; and the port's independence from
+JAX."""
 
 import os
 import shutil
@@ -17,13 +19,15 @@ import torch
 import yaml
 
 from audiosourcesep_tpu.data import write_wav
+from audiosourcesep_tpu.models.flow_builder import build_glow as jbuild_glow
 from audiosourcesep_tpu.models.ncsn import RefineNetDilated as JRefineNet
 from audiosourcesep_tpu.training import CheckpointManager
 from audiosourcesep_tpu.training import init_train_state as jinit_state
 from audiosourcesep_tpu.training import setup_optimizer as jsetup_optimizer
 from audiosourcesep_tpu_torch import (melspec_inversion_basis,
                                       ncsn_generate_samples, run_basis_sep,
-                                      train_ncsn, wav_to_spec)
+                                      train_glow, train_ncsn,
+                                      train_noisy_glow, wav_to_spec)
 from audiosourcesep_tpu_torch.data import load_tf_records, read_wav
 from audiosourcesep_tpu_torch.evaluation import bss_eval
 from audiosourcesep_tpu_torch.training.checkpoint import load_flat
@@ -147,7 +151,7 @@ def test_inversion_cli_ground_truth_sdr(basis_run):
 
 
 @pytest.mark.parametrize("flag", [["--dataset", "mnist"],
-                                  ["--model_type", "glow"],
+                                  ["--dataset", "cifar10"],
                                   ["--shard_sources"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -333,7 +337,9 @@ def test_train_ncsn_with_the_repo_config(tmp_path, dataset):
 @pytest.mark.parametrize("cli,argv", [
     (wav_to_spec, ["a", "b"]),
     (train_ncsn, ["--dataset", "d", "--debug"]),
-    (ncsn_generate_samples, ["r", "--debug"])])
+    (ncsn_generate_samples, ["r", "--debug"]),
+    (train_glow, ["--dataset", "d", "--debug"]),
+    (train_noisy_glow, ["r", "--dataset", "d", "--debug"])])
 def test_training_clis_cuda_without_gpu_raise(tmp_path, monkeypatch, cli,
                                               argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -346,9 +352,101 @@ def test_training_clis_cuda_without_gpu_raise(tmp_path, monkeypatch, cli,
     (train_ncsn, ["--dataset", "mnist"]),
     (train_ncsn, ["--dataset", "cifar10"]),
     (train_ncsn, ["--dataset", "d", "--multihost"]),
-    (ncsn_generate_samples, ["r", "--dataset", "mnist"])])
+    (ncsn_generate_samples, ["r", "--dataset", "mnist"]),
+    (train_glow, ["--dataset", "cifar10"]),
+    (train_noisy_glow, ["r", "--dataset", "mnist"])])
 def test_training_clis_refuse_what_is_not_ported(tmp_path, monkeypatch, cli,
                                                  argv):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main([*argv, "--device", "cpu", "--debug"])
+
+
+# ---------------------------------------------------------------------------
+# Glow: train_glow -> train_noisy_glow -> run_basis_sep --model_type glow
+# (the JAX chain of tests/test_cli_e2e.py::TestGlowPipeline, on the port)
+# ---------------------------------------------------------------------------
+
+GLOW_TINY = ["--L", "2", "--K", "1", "--n_filters", "4", "--batch_size",
+             "2", "--learntop", "--device", "cpu"]
+GLOW_SIGMAS = ["--sigma1", "1.0", "--sigmaL", "0.1", "--num_classes", "2"]
+
+
+@pytest.fixture(scope="module")
+def glow_chain(tmp_path_factory, dataset, song_dir):
+    """The three Glow CLIs in a chain at tiny size; returns the output
+    directories."""
+    root = tmp_path_factory.mktemp("glow")
+    glow, noisy, sep = (str(root / n) for n in ("glow", "noisy", "sep"))
+    train_glow.main(["--dataset", dataset, "--output", glow, "--n_epochs",
+                     "1", *GLOW_TINY])
+    train_noisy_glow.main([glow, "--dataset", dataset, "--output", noisy,
+                           "--n_epochs", "1", "--reinit_actnorm",
+                           *GLOW_SIGMAS, *GLOW_TINY])
+    run_basis_sep.main([noisy, noisy, "--output", sep, "--song_dir",
+                        song_dir, "--model_type", "glow", "--n_mixed", "2",
+                        "--T", "2", "--winograd", "--score_chunk", "1",
+                        *GLOW_SIGMAS, *GLOW_TINY])
+    return glow, noisy, sep
+
+
+def test_glow_cli_chain_outputs(glow_chain):
+    glow, noisy, sep = glow_chain
+    with open(os.path.join(glow, "out.log")) as f:
+        log = f.read()
+    for line in ("Total Trainable Variables: ", "Epoch 001", "Training time",
+                 "Validation bits/dim: ", "Validation bits/px ([0,1]"):
+        assert line in log, line
+    _, step = load_flat(os.path.join(glow, "ckpts", "ckpt-4"))
+    assert step == 4                              # 8 windows in batches of 2
+    s = np.load(os.path.join(glow, "generated_samples",
+                             "generated_samples_1.npy"))
+    assert s.shape == (32, 96, 64, 1) and np.isfinite(s).all()
+    assert s.min() >= -100.0 and s.max() <= 20.0
+    for sig, step in (("sigma_1.0", 8), ("sigma_0.1", 12)):
+        assert latest_step(os.path.join(noisy, sig, "ckpts")) == step, sig
+    with open(os.path.join(noisy, "out.log")) as f:
+        assert f.read().count("Re-anchored ActNorm stats") == 2
+    res = np.load(os.path.join(sep, "results.npz"))
+    assert sorted(res.files) == ["gt1", "gt2", "mixed", "stft_mixture",
+                                 "x1", "x2"]
+    for key in ("x1", "x2", "mixed"):
+        assert res[key].shape == (2, 96, 64) and np.isfinite(res[key]).all()
+        assert res[key].min() >= -100.0 and res[key].max() <= 20.0
+    # data scale: the mixture is kept in dB, not rescaled to [0, 1]
+    assert res["mixed"].min() < -1.0
+    conv = np.load(os.path.join(sep, "results_convergence.npz"))
+    assert conv["x1"].shape[:2] == (3, 2)            # init + 2 levels
+    with open(os.path.join(sep, "out.log")) as f:
+        log = f.read()
+    assert log.count("Model at noise level") == 4 and "Duration:" in log
+
+
+def latest_step(ckpt_dir):
+    from audiosourcesep_tpu_torch.training import CheckpointManager as M
+    return load_flat(M(ckpt_dir).latest())[1]
+
+
+def test_port_glow_checkpoints_restore_strictly_in_jax(glow_chain, dataset):
+    """The JAX package restores the port's Glow train states (train_glow's
+    and each noise level's) strictly into its own template, and its
+    run_basis_sep restore reads each level's params."""
+    from audiosourcesep_tpu.training import init_train_state as jinit
+    from audiosourcesep_tpu.training import restore_pytree as jrestore
+    sys.path.insert(0, REPO)
+    from run_basis_sep import restore_ncsn_params as jrestore_params
+    glow, noisy, _ = glow_chain
+    mb = jax.numpy.zeros((2, 96, 64, 1)) - 50.0
+    _, jp = jbuild_glow(jax.random.PRNGKey(0), mb, (96, 64, 1), L=2, K=1,
+                        n_filters=4, learntop=True, data_type="melspec")
+    template = jinit(jp, jsetup_optimizer("adamax", 1e-3))
+    flat, _ = load_flat(os.path.join(glow, "ckpts", "ckpt-4"))
+    state, step = jrestore(os.path.join(glow, "ckpts", "ckpt-4"), template,
+                           strict=True)
+    assert step == 4
+    key = "['prior']['loc']"
+    np.testing.assert_array_equal(np.asarray(state["params"]["prior"]["loc"]),
+                                  flat["['params']" + key])
+    for sig in ("sigma_1.0", "sigma_0.1"):
+        p = jrestore_params(os.path.join(noisy, sig, "ckpts"), jp)
+        assert np.isfinite(np.asarray(p["prior"]["log_scale"])).all()

@@ -12,12 +12,14 @@ import torch
 import torch.nn.functional as F
 
 from audiosourcesep_tpu_torch import nn
+from audiosourcesep_tpu_torch.models import build_glow
 from audiosourcesep_tpu_torch.models.ncsn import (dsm_loss, get_score_model,
                                                   get_sigmas)
 from audiosourcesep_tpu_torch.ops import inversion
 from audiosourcesep_tpu_torch.ops import winograd as W
 from audiosourcesep_tpu_torch.ops.stft import istft, stft
 from audiosourcesep_tpu_torch.training import (init_train_state,
+                                               make_flow_train_step,
                                                make_ncsn_train_step,
                                                setup_optimizer)
 
@@ -348,3 +350,72 @@ def test_cached_u_follows_the_optimizer_step(cuda, monkeypatch):
                                                     dtype)
     monkeypatch.setattr(nn, "_winograd_weights", stale)
     assert routed_vs_cudnn() > 1e-3
+
+
+def _glow_pair(cuda, n_filters=64):
+    """A Glow (L=3, K=4) initialised on the CPU, each coupling's last conv
+    drawn small so the couplings do work, and its copy on the card."""
+    g = torch.Generator().manual_seed(0)
+    mb = torch.rand(4, 96, 64, 1, generator=g) * 120.0 - 100.0
+    cfg = dict(L=3, K=4, n_filters=n_filters, learntop=True,
+               data_type="melspec")
+    cpu = build_glow((96, 64, 1), minibatch=mb, generator=g, **cfg)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "conv3.kernel" in name:
+                p.copy_(1e-3 * torch.randn(p.shape, generator=g))
+    gpu = build_glow((96, 64, 1), device=cuda, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def test_glow_score_on_the_card_matches_the_cpu_routed_or_not(cuda):
+    """log p and the score of 2 frames (f32, TF32 off) to 1e-4 (L2
+    relative), with routing off and on; routed, each forward launches the
+    f32 kernel once per coupling 3x3 conv (2 per step)."""
+    cpu, gpu = _glow_pair(cuda)
+    x = torch.rand(2, 96, 64, 1, generator=torch.Generator().manual_seed(1)
+                   ) * 120.0 - 100.0
+    lp, score = cpu.log_prob(x).detach(), cpu.score(x)
+    for routed in (False, True):
+        try:
+            nn.set_winograd(routed)
+            before = dict(W.launch_counts)
+            lp_g, score_g = gpu.log_prob(x.to(cuda)), gpu.score(x.to(cuda))
+            launched = {k: W.launch_counts[k] - before[k] for k in before}
+        finally:
+            nn.set_winograd(False)
+        assert launched[W.KERNELS[torch.float32]] == (2 * 2 * 3 * 4
+                                                      if routed else 0)
+        assert (lp_g.detach().cpu() - lp).norm() <= 1e-4 * lp.norm()
+        assert (score_g.cpu() - score).norm() <= 1e-4 * score.norm()
+
+
+def test_glow_train_step_on_the_card_matches_the_cpu(cuda):
+    """One Adamax step at batch 2: the loss to 1e-5, the gradients and the
+    params after the step to 1e-3 (L2 over all tensors, relative, as
+    chip_smoke.TRAIN_TOL: Adamax's first step moves each weight by about
+    lr in the sign of its gradient, so an element whose gradient sits at
+    the f32 noise floor can move differently by up to 2 lr)."""
+    cpu, gpu = _glow_pair(cuda, 16)
+    step, _ = make_flow_train_step()
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(2, 96, 64, 1, generator=g) * 120.0 - 100.0
+    dq = torch.rand(2, 96, 64, 1, generator=g)
+    losses, states = [], []
+    for model in (cpu, gpu):
+        dev = next(model.parameters()).device
+        state = init_train_state(model, setup_optimizer("adamax", 1e-3))
+        _, loss = step(state, x.to(dev), dequant=dq.to(dev))
+        losses.append(float(loss))
+        states.append(state)
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+
+    def rel(get):
+        cpu, gpu = (torch.cat([get(p).detach().cpu().reshape(-1)
+                               for p in st.params.values()])
+                    for st in states)
+        return float((gpu - cpu).norm() / cpu.norm())
+
+    assert rel(lambda p: p.grad) <= 1e-3
+    assert rel(lambda p: p) <= 1e-3

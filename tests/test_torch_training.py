@@ -1,9 +1,10 @@
-"""NCSN training in the port (audiosourcesep_tpu_torch.models.ncsn.utils,
+"""Training in the port (audiosourcesep_tpu_torch.models.ncsn.utils,
 .training) against audiosourcesep_tpu on the CPU: the DSM loss and its
-gradients, the optimizers' update rule, the train step with EMA,
+gradients, the optimizers' update rule, the NCSN train step with EMA,
 annealed Langevin dynamics, train-state checkpoints in both directions,
-and the training loop's behaviour. JAX's draws (sigma indices, noise) are
-recomputed from its keys and passed to the port."""
+the training loop's behaviour, the flow train step and the noisy-Glow
+chain. JAX's draws (sigma indices, noise) are recomputed from its keys
+and passed to the port."""
 
 import os
 
@@ -14,6 +15,8 @@ import optax
 import pytest
 import torch
 
+from audiosourcesep_tpu.data.loaders import ArrayDataset as JArrayDataset
+from audiosourcesep_tpu.models.flow_builder import build_glow as jbuild_glow
 from audiosourcesep_tpu.models.ncsn import RefineNetDilated as JRefineNet
 from audiosourcesep_tpu.models.ncsn import \
     anneal_langevin_dynamics as janneal
@@ -21,8 +24,15 @@ from audiosourcesep_tpu.models.ncsn import dsm_loss as jdsm_loss
 from audiosourcesep_tpu.models.ncsn import get_sigmas
 from audiosourcesep_tpu.training import CheckpointManager as JManager
 from audiosourcesep_tpu.training import init_train_state as jinit_state
+from audiosourcesep_tpu.training import \
+    make_flow_train_step as jmake_flow_step
 from audiosourcesep_tpu.training import make_ncsn_train_step as jmake_step
+from audiosourcesep_tpu.training import restore_pytree as jrestore_pytree
 from audiosourcesep_tpu.training import setup_optimizer as jsetup_optimizer
+from audiosourcesep_tpu.training import \
+    train_noisy_glow_chain as jnoisy_chain
+from audiosourcesep_tpu_torch.data import ArrayDataset
+from audiosourcesep_tpu_torch.models import build_glow
 from audiosourcesep_tpu_torch.models.ncsn import (RefineNetDilated,
                                                   anneal_langevin_dynamics,
                                                   dsm_loss)
@@ -31,9 +41,11 @@ from audiosourcesep_tpu_torch.training import (CheckpointManager,
                                                clip_by_global_norm_,
                                                init_train_state,
                                                latest_checkpoint,
+                                               make_flow_train_step,
                                                make_ncsn_train_step,
                                                restore_pytree, run_training,
-                                               setup_optimizer)
+                                               setup_optimizer,
+                                               train_noisy_glow_chain)
 from audiosourcesep_tpu_torch.training.checkpoint import (_flatten,
                                                           params_from_jax,
                                                           params_to_jax)
@@ -180,9 +192,13 @@ def test_clip_keeps_gradients_under_the_norm_bit_exact():
 # after one step); first moments to 1e-3 of their tensor's max after one
 # step (the gradients' agreement) and 2e-2 after three, when the params
 # have drifted apart that much (measured 9e-3); loss to 1e-5.
-# Each case compiles JAX's step (~40 s on a CPU core), so plain adam, the
-# inner part of adam + clip, is held to optax only by the update-rule test.
-@pytest.mark.parametrize("name,clipnorm", OPTIMIZERS[1:])
+# Plain adam, the train_ncsn default (configs/melspec_ncsnv1.yml): without
+# the clip's down-scaling, eps no longer damps the noise-floor elements, one
+# of which moves 1.9e-4 apart in the third step (still under 2e-4); the
+# first moments of an InstanceNorm beta then land 2.1e-2 apart (measured),
+# so this case holds them to 3e-2 after three steps.
+# Each case compiles JAX's step (~40 s on a CPU core).
+@pytest.mark.parametrize("name,clipnorm", OPTIMIZERS)
 def test_train_steps_match_jax(jax_net, name, clipnorm):
     jm, jp = jax_net
     opt = jsetup_optimizer(name, 1e-3, clipnorm=clipnorm)
@@ -206,7 +222,9 @@ def test_train_steps_match_jax(jax_net, name, clipnorm):
         assert int(got["['step']"]) == int(want["['step']"]) == s + 1
         for k, w in want.items():
             if "].mu[" in k:
-                assert _max_rel(w, got[k]) < (1e-3 if s == 0 else 2e-2), k
+                drifted = 3e-2 if clipnorm is None and name == "adam" \
+                    else 2e-2
+                assert _max_rel(w, got[k]) < (1e-3 if s == 0 else drifted), k
             elif k.startswith(("['params']", "['ema_params']")):
                 np.testing.assert_allclose(got[k], w, rtol=0, atol=2e-4,
                                            err_msg=k)
@@ -469,3 +487,130 @@ def test_routed_train_step_matches_unrouted():
     for k in off:
         np.testing.assert_allclose(on[k], off[k], rtol=0, atol=2e-4,
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# flows: the train step and the noisy-Glow chain
+# ---------------------------------------------------------------------------
+
+GLOW_SHAPE = (8, 8, 1)
+GLOW_CFG = dict(L=2, K=1, n_filters=4, learntop=True)
+
+
+def _glow_pair(data_type="melspec", seed=0):
+    """A tiny JAX Glow, its params with every coupling's last conv (zero
+    at init) perturbed so the couplings do work, and the port's Glow with
+    those params."""
+    scale = (120.0, -100.0) if data_type == "melspec" else (255.0, 0.0)
+    mb = (np.random.default_rng(seed).uniform(size=(8, *GLOW_SHAPE))
+          * scale[0] + scale[1]).astype(np.float32)
+    jm, jp = jbuild_glow(jax.random.PRNGKey(seed), jnp.asarray(mb),
+                         GLOW_SHAPE, data_type=data_type, **GLOW_CFG)
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, a: a + 0.05 * jnp.asarray(np.random.default_rng(
+            a.size).standard_normal(a.shape), jnp.float32)
+        if "conv3" in jax.tree_util.keystr(path) else a, jp)
+    tm = build_glow(GLOW_SHAPE, data_type=data_type, **GLOW_CFG)
+    tm.load_state_dict(params_from_jax(_flatten(jp)))
+    return jm, jp, tm, mb
+
+
+# Adamax's first steps move each weight by about lr (1e-3) in the sign of
+# its gradient: params to 2e-4 absolute as for NCSN above (an element
+# whose gradient sits at the f32 noise floor can move differently); loss
+# to 1e-5 relative
+@pytest.mark.parametrize("data_type,noise_sigma", [("melspec", 0.5),
+                                                   ("image", None)])
+def test_flow_train_steps_match_jax(data_type, noise_sigma):
+    """Two Adamax steps of the flow step with JAX's draws passed in: the
+    noise of ``noise_sigma`` (normal from the step key's first half) and
+    the dequantisation (uniform from the first key of the chain's split of
+    its second half; it only moves the image flow)."""
+    jm, jp, tm, mb = _glow_pair(data_type)
+    opt = jsetup_optimizer("adamax", 1e-3)
+    jstate = jinit_state(jp, opt)
+    jstep, jeval = jmake_flow_step(jm, opt, noise_sigma=noise_sigma)
+    state = init_train_state(tm, setup_optimizer("adamax", 1e-3))
+    step, eval_loss = make_flow_train_step(noise_sigma)
+    x = mb[:4]
+
+    def draws(key):
+        k_noise, k_deq = jax.random.split(key)
+        noise = np.array(jax.random.normal(k_noise, x.shape))
+        u = np.array(jax.random.uniform(jax.random.split(k_deq, 2)[0],
+                                        x.shape))
+        return torch.from_numpy(noise), torch.from_numpy(u)
+
+    for s in range(2):
+        key = jax.random.PRNGKey(40 + s)
+        jstate, jl = jstep(jstate, jnp.asarray(x), key)
+        noise, dq = draws(key)
+        state, loss = step(state, torch.from_numpy(x), noise=noise,
+                           dequant=dq)
+        assert abs(float(loss) - float(jl)) <= 1e-5 * abs(float(jl))
+    want, got = _flatten(jstate), _flatten(state.tree())
+    assert set(want) == set(got)
+    for k, w in want.items():
+        if k.startswith("['params']"):
+            np.testing.assert_allclose(got[k], w, rtol=0, atol=2e-4,
+                                       err_msg=k)
+    assert int(got["['opt_state'][0].count"]) == 2
+    key = jax.random.PRNGKey(99)
+    noise, dq = draws(key)
+    je = float(jeval(jstate, jnp.asarray(x), key))
+    te = float(eval_loss(state, torch.from_numpy(x), noise=noise,
+                         dequant=dq))
+    assert abs(te - je) <= 1e-5 * abs(je)
+    # without the draws, the step takes them from its generator
+    g = torch.Generator().manual_seed(0)
+    a = float(eval_loss(state, torch.from_numpy(x), g))
+    assert np.isfinite(a)
+
+
+def test_noisy_glow_chain_matches_jax(tmp_path):
+    """Two levels with reinit_actnorm from the same Glow in both packages:
+    the same layout (``sigma_{round(s, 2)}/ckpts``), the same batches (the
+    numpy draws of RandomState(1000 + level), (2000 + level), (3000 +
+    level)) and so, to f32 rounding, the same trained params; each
+    package restores the other's checkpoints strictly."""
+    jm, jp, tm, _ = _glow_pair("melspec", seed=1)
+    data = (np.random.default_rng(2).uniform(size=(6, *GLOW_SHAPE)) * 120.0
+            - 100.0).astype(np.float32)
+    sigmas = get_sigmas(1.0, 0.1, 2, "logarithmic")
+    common = dict(n_epochs_per_sigma=1, batch_size=2, reinit_actnorm=True,
+                  reinit_minibatch=data[:4])
+    jdirs = jnoisy_chain(jm, jp, sigmas, JArrayDataset(data, 2, seed=3),
+                         JArrayDataset(data[:3], 2, seed=4,
+                                       drop_remainder=False),
+                         output_dir=str(tmp_path / "jax"), **common)
+    tdirs = train_noisy_glow_chain(
+        tm, sigmas, ArrayDataset(data, 2, seed=3),
+        ArrayDataset(data[:3], 2, seed=4, drop_remainder=False),
+        output_dir=str(tmp_path / "port"),
+        generator=torch.Generator().manual_seed(0), **common)
+    assert [os.path.relpath(d, tmp_path / "port") for d in tdirs.values()] \
+        == [os.path.relpath(d, tmp_path / "jax") for d in jdirs.values()] \
+        == ["sigma_1.0/ckpts", "sigma_0.1/ckpts"]
+    template = jinit_state(jp, jsetup_optimizer("adamax", 1e-3))
+    # 3 steps a level, counted on from the restored step
+    for level, n in (("sigma_1.0", 3), ("sigma_0.1", 6)):
+        assert _ckpts(tmp_path / "port" / level / "ckpts") == \
+            _ckpts(tmp_path / "jax" / level / "ckpts") == [n]
+        # port -> JAX, strict: every leaf of JAX's train state
+        jlatest = str(tmp_path / "jax" / level / "ckpts" / f"ckpt-{n}")
+        tlatest = str(tmp_path / "port" / level / "ckpts" / f"ckpt-{n}")
+        from_port, step = jrestore_pytree(tlatest, template, strict=True)
+        from_jax, _ = jrestore_pytree(jlatest, template, strict=True)
+        assert step == n
+        want, got = _flatten(from_jax), _flatten(from_port)
+        for k, w in want.items():
+            if k.startswith("['params']"):
+                # 6 Adamax steps of lr 1e-3 and two re-anchors
+                np.testing.assert_allclose(got[k], w, rtol=1e-3, atol=1e-3,
+                                           err_msg=k)
+        # JAX -> port, strict
+        fresh = init_train_state(build_glow(GLOW_SHAPE, **GLOW_CFG),
+                                 setup_optimizer("adamax", 1e-3))
+        tree, tstep = restore_pytree(jlatest, fresh.tree())
+        fresh.load_tree(tree)
+        assert tstep == fresh.step == n
