@@ -69,12 +69,28 @@ class LearnableDiagNormalPrior(torch.nn.Module):
 class FlowModel(torch.nn.Module):
     """A normalizing flow: ``bijector`` (data -> latent) and ``prior``
     over the latent. Its parameters are named as the JAX package's params
-    pytree, ``{"bijector": ..., "prior": ...}``."""
+    pytree, ``{"bijector": ..., "prior": ...}``.
 
-    def __init__(self, bijector: Bijector, prior: torch.nn.Module):
+    ``noise`` names the draw that :meth:`log_prob` hands the bijector
+    (:meth:`draw_noise`): ``"uniform"`` on ``[0, 1)`` for uniform
+    dequantisation (``ImgPreprocessing``), ``"normal"`` for Flow++'s
+    variational dequantisation.
+    """
+
+    def __init__(self, bijector: Bijector, prior: torch.nn.Module,
+                 noise: str = "uniform"):
         super().__init__()
+        if noise not in ("uniform", "normal"):
+            raise ValueError("noise should be 'uniform' or 'normal'")
         self.bijector = bijector
         self.prior = prior
+        self.noise = noise
+
+    def draw_noise(self, shape, generator: Optional[torch.Generator] = None,
+                   device=None) -> torch.Tensor:
+        """A draw of this model's ``noise`` of ``shape``."""
+        draw = torch.randn if self.noise == "normal" else torch.rand
+        return draw(tuple(shape), generator=generator, device=device)
 
     @torch.no_grad()
     def init(self, minibatch: torch.Tensor,

@@ -18,7 +18,7 @@ from typing import Iterable
 
 import torch
 
-from .data import load_melspec_ds
+from .data import load_melspec_ds, load_toydata
 from .training.train_utils import get_config
 
 # run-level flags a --config YAML never overrides
@@ -59,16 +59,12 @@ def add_multihost_flags(parser: argparse.ArgumentParser) -> None:
 
 
 def refuse_not_ported(args, script: str) -> None:
-    """Raise ``NotImplementedError`` for the image datasets and
-    ``--multihost``, which wait for later slices of the port."""
-    for flag, hit in ((f"--dataset {getattr(args, 'dataset', None)}",
-                       getattr(args, "dataset", None) in ("mnist",
-                                                          "cifar10")),
-                      ("--multihost", getattr(args, "multihost", False))):
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to audiosourcesep_tpu_torch; "
-                f"use the JAX {script}")
+    """Raise ``NotImplementedError`` for ``--multihost``, which waits for
+    the multi-GPU slice of the port."""
+    if getattr(args, "multihost", False):
+        raise NotImplementedError(
+            "--multihost is not yet ported to audiosourcesep_tpu_torch; "
+            f"use the JAX {script}")
 
 
 @contextlib.contextmanager
@@ -83,11 +79,21 @@ def setup_output_dir(output: str, debug: bool):
 
 
 def resolve_dataset(args) -> dict:
-    """Load a melspec dataset: ``args.dataset`` is a directory with
-    ``train/`` and ``test/`` TFRecord subdirectories (reference layout).
-    Returns ``ds_train, ds_test, minibatch, n_train, n_test, data_shape,
-    data_type, minval, maxval``; the scale limits are those of ``--scale``
-    (dB: [-100, 20], power: [1e-10, 100])."""
+    """Load a training dataset. ``args.dataset`` is ``mnist`` or
+    ``cifar10`` (:func:`~.data.load_toydata`: images in [0, 256),
+    ``data_type`` ``image``) or a directory with ``train/`` and ``test/``
+    TFRecord subdirectories (mel spectrograms, whose scale limits are
+    those of ``--scale``: dB [-100, 20], power [1e-10, 100]). Returns
+    ``ds_train, ds_test, minibatch, n_train, n_test, data_shape,
+    data_type, minval, maxval``."""
+    if args.dataset in ("mnist", "cifar10"):
+        ds_train, ds_test, minibatch = load_toydata(args.dataset,
+                                                    args.batch_size)
+        return dict(ds_train=ds_train, ds_test=ds_test, minibatch=minibatch,
+                    n_train=ds_train.n_examples,
+                    n_test=ds_test.n_examples,
+                    data_shape=tuple(minibatch.shape[1:]),
+                    data_type="image", minval=0.0, maxval=256.0)
     ds_train, ds_test, minibatch, n_train, n_test = load_melspec_ds(
         os.path.join(args.dataset, "train"),
         os.path.join(args.dataset, "test"), batch_size=args.batch_size)

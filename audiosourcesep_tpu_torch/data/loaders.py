@@ -1,9 +1,9 @@
-"""Datasets: wav windows, melspec TFRecord datasets, npy spectrograms, song extracts for separation (port of ``audiosourcesep_tpu/data/loaders.py``).
+"""Datasets: wav windows, melspec TFRecord datasets, the MNIST / CIFAR-10 image sets, npy spectrograms, song extracts for separation (port of ``audiosourcesep_tpu/data/loaders.py``).
 
-Host-side data is plain numpy (thousands of 96x64 patches); batches are
-drawn by :class:`ArrayDataset` with the JAX package's shuffle, so the
-same seed gives the same batch order. The image datasets (MNIST,
-CIFAR-10) and per-host sharding are not ported yet.
+Host-side data is plain numpy (thousands of 96x64 patches or 32x32
+images); batches are drawn by :class:`ArrayDataset` with the JAX
+package's shuffle, so the same seed gives the same batch order.
+Per-host sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -125,6 +125,86 @@ def load_melspec_ds(train_dirpath: str, test_dirpath: str,
                            drop_remainder=False)
     minibatch = next(iter(ds_train))
     return ds_train, ds_test, minibatch, len(train), len(test)
+
+
+# ---------------------------------------------------------------------------
+# toy images: MNIST / CIFAR-10 (data_loader.py:10-66)
+# ---------------------------------------------------------------------------
+
+def load_toydata(dataset: str = "mnist", batch_size: int = 256,
+                 seed: int = 0, data_dir: Optional[str] = None):
+    """MNIST (zero-padded 28 -> 32) or CIFAR-10 as float32 NHWC arrays in
+    [0, 256). Returns ``(ds_train, ds_test, minibatch)``.
+
+    The data come from an npz with ``x_train`` and ``x_test`` (uint8):
+    ``data_dir``, else ``ASR_MNIST_NPZ`` / ``ASR_CIFAR10_NPZ``, else the
+    Keras cache (``~/.keras/datasets/mnist.npz`` / ``cifar10.npz``).
+    Nothing is downloaded. ``scripts/build_mnist_cache.py --idx-dir``
+    builds the MNIST npz from the raw IDX files, and
+    ``scripts/build_cifar10_cache.py`` the CIFAR-10 one from the python
+    batches. ``scripts/build_mnist_cache.py --synthetic-digits`` writes a
+    stand-in that is NOT MNIST: sklearn's 8x8 digits upsampled to 28x28
+    (its npz says so under ``provenance``, and this loader prints it), so
+    no bits/dim or PSNR measured on it is an MNIST number.
+
+    Training batches drop the remainder; the evaluation set is iterated
+    in batches of up to 5,000 images, its remainder kept. The minibatch
+    for data-dependent init is the first training batch.
+    """
+    if dataset == "mnist":
+        path = (data_dir or os.environ.get("ASR_MNIST_NPZ")
+                or os.path.expanduser("~/.keras/datasets/mnist.npz"))
+        hint = ("build it with scripts/build_mnist_cache.py (nothing is "
+                "downloaded)")
+    elif dataset == "cifar10":
+        path = (data_dir or os.environ.get("ASR_CIFAR10_NPZ")
+                or os.path.expanduser("~/.keras/datasets/cifar10.npz"))
+        hint = ("build it from the python batches with "
+                "scripts/build_cifar10_cache.py (nothing is downloaded)")
+    else:
+        raise ValueError("dataset should be mnist or cifar10")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{dataset} cache not found at {path}; "
+                                f"{hint}")
+    with np.load(path) as d:
+        x_train, x_test = d["x_train"], d["x_test"]
+        if "provenance" in d.files:
+            print(f"{dataset} cache {path}: provenance {d['provenance']}")
+    if dataset == "mnist":
+        x_train = np.pad(x_train, ((0, 0), (2, 2), (2, 2)))[..., None]
+        x_test = np.pad(x_test, ((0, 0), (2, 2), (2, 2)))[..., None]
+    x_train = x_train.astype(np.float32)
+    x_test = x_test.astype(np.float32)
+    ds_train = ArrayDataset(x_train, batch_size, True, seed)
+    ds_test = ArrayDataset(x_test, max(min(5000, len(x_test)), 1), False,
+                           seed, drop_remainder=False)
+    minibatch = next(iter(ds_train))
+    return ds_train, ds_test, minibatch
+
+
+def get_mixture_toydata(dataset: str = "mnist", n_mixed: int = 10,
+                        seed: int = 0, data_dir: Optional[str] = None,
+                        dequant: Optional[Tuple[np.ndarray, np.ndarray]]
+                        = None,
+                        generator: Optional[torch.Generator] = None):
+    """Two dequantised image batches and their mean mixture. Returns
+    ``(mixed, gt1, gt2, minibatch)`` as float32 numpy arrays.
+
+    The sources are the first two ``n_mixed`` batches of the shuffled
+    training set, each plus a uniform draw on [0, 1) in the raw [0, 256)
+    scale (the separation CLI rescales per model type). ``dequant``
+    gives the two draws (the JAX package's, in the tests); without it
+    they are drawn from ``generator`` on the CPU.
+    """
+    ds, _, minibatch = load_toydata(dataset, n_mixed, seed, data_dir)
+    it = iter(ds)
+    gt1, gt2 = next(it), next(it)
+    if dequant is None:
+        dequant = [torch.rand(gt1.shape, generator=generator).numpy()
+                   for _ in range(2)]
+    gt1 = (gt1 + dequant[0]).astype(np.float32)
+    gt2 = (gt2 + dequant[1]).astype(np.float32)
+    return (gt1 + gt2) / 2.0, gt1, gt2, minibatch
 
 
 def get_song_extract(mix_path: str, piano_path: str, violin_path: str,

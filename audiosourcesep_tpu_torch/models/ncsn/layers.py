@@ -223,7 +223,7 @@ class CRPBlock(torch.nn.Module):
                 path = self._modules[f"norm_{i}"](path, y)
                 path = nn.avg_pool_same(path, 5)
             else:
-                path = F.max_pool2d(path, 5, 1, 2)
+                path = nn.max_pool_same(path, 5)
             path = self._modules[f"conv_{i}"](path)
             x = x + path
         return x

@@ -5,14 +5,16 @@ ncsn_generate_samples.py:24-117): restore the prior from ``RESTORE`` (a
 JAX-layout checkpoint or a directory of them; ``--ema`` takes the EMA
 weights), anneal ``--n_samples`` uniform draws over the sigma schedule,
 map them back to the data scale, and write ``generated_samples.npy``
-(``[n, H, W, 1]``, or the ``[L+1, n, H, W, 1]`` trajectory with
-``--return_arr``) and ``out.log`` in ``--output``.
+(``[n, H, W, C]``, or the ``[L+1, n, H, W, C]`` trajectory with
+``--return_arr``) and ``out.log`` in ``--output``. ``--dataset melspec``
+samples ``[--height, --width, 1]`` patches in the ``--scale`` range,
+``mnist`` ``[32, 32, 1]`` and ``cifar10`` ``[32, 32, 3]`` images in the
+[0, 1] scale they were trained in.
 
     python -m audiosourcesep_tpu_torch.ncsn_generate_samples CKPT_DIR \\
         --ema --T 100 --device cuda
 
-``--device`` defaults to ``cuda`` and never falls back to the CPU;
-``--dataset mnist|cifar10`` is not ported yet and raises.
+``--device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device; cuda raises when no GPU is "
                              "present")
     parser.add_argument("--dataset", type=str, default="melspec",
-                        help="melspec (mnist | cifar10 not ported yet)")
+                        help="melspec | mnist | cifar10")
     parser.add_argument("--version", type=str, default="v1")
     parser.add_argument("--ema", action="store_true",
                         help="restore EMA weights (reference "
@@ -66,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> None:
     device = cli.resolve_device(args.device)
-    data_shape = [args.height, args.width, 1]
+    data_shape = {"mnist": [32, 32, 1], "cifar10": [32, 32, 3]}.get(
+        args.dataset, [args.height, args.width, 1])
     sigmas = get_sigmas(args.sigma1, args.sigmaL, args.num_classes,
                         args.progression)
     model = get_score_model(args.version, data_shape, args.n_filters,
@@ -114,7 +117,6 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     args.RESTORE = os.path.abspath(args.RESTORE)
     args = cli.apply_config_override(args)
-    cli.refuse_not_ported(args, "ncsn_generate_samples.py")
     with cli.setup_output_dir(args.output, args.debug):
         run(args)
 

@@ -1,11 +1,14 @@
-"""NN primitives of the NCSN score network and the Glow coupling nets (port of ``audiosourcesep_tpu/nn.py``).
+"""NN primitives of the NCSN score network and the flows' coupling nets (port of ``audiosourcesep_tpu/nn.py``).
 
 Inside the models activations are NCHW tensors kept in
 ``torch.channels_last`` memory, which is physically NHWC: a
 ``.permute(0, 2, 3, 1)`` of one is a contiguous NHWC view, so the Winograd
-kernel (NHWC in and out) needs no copy. Conv kernels are stored OIHW
-(PyTorch's layout); ``training.checkpoint`` converts from the JAX
-package's HWIO.
+kernel (NHWC in and out) needs no copy. Conv kernels (and the
+weight-normalised convs' ``v``) are stored OIHW (PyTorch's layout);
+``training.checkpoint`` converts from the JAX package's HWIO. Dense
+kernels keep the JAX layout ``[in, out]``; :func:`dense` and
+:func:`layer_norm` act on the last axis, the channels of the flows' NHWC
+tensors.
 
 Initialisation follows the JAX package (Keras defaults: Glorot-uniform
 kernels, zero biases), drawn from an explicit ``torch.Generator``.
@@ -141,6 +144,84 @@ class Conv2d(torch.nn.Module):
                       self._winograd_cache)
 
 
+def wnconv2d(x: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weight-normalised SAME stride-1 conv of NCHW ``x``: the kernel is
+    ``g / ||v|| * v`` with the norm over each output channel's
+    ``(C_in, kh, kw)`` (OIHW ``v``, ``+1e-12`` under the root). Always
+    ``F.conv2d``: the JAX ``wnconv2d`` calls the XLA conv directly and
+    never routes to the Winograd kernel."""
+    norm = torch.sqrt(torch.sum(v * v, dim=(1, 2, 3)) + 1e-12)
+    kernel = (g / norm)[:, None, None, None] * v
+    return F.conv2d(x, kernel.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype),
+                    padding=kernel.shape[-1] // 2)
+
+
+class WNConv2d(torch.nn.Module):
+    """:func:`wnconv2d` with parameters named as the JAX param dict:
+    ``v`` (stored OIHW), ``g`` and an optional ``bias``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 use_bias: bool = True, device=None):
+        super().__init__()
+        self.v = torch.nn.Parameter(torch.empty(
+            out_ch, in_ch, kernel_size, kernel_size, device=device))
+        self.g = torch.nn.Parameter(torch.empty(out_ch, device=device))
+        self.bias = (torch.nn.Parameter(torch.empty(out_ch, device=device))
+                     if use_bias else None)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None,
+                         zero_init: bool = False):
+        """Glorot-uniform ``v`` (zeros with ``zero_init``), ``g = ||v||``,
+        so the initial kernel is ``v``."""
+        if zero_init:
+            self.v.zero_()
+        else:
+            self.v.copy_(glorot_uniform(self.v.shape, generator))
+        self.g.copy_(torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2, 3))
+                                + 1e-12))
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return wnconv2d(x, self.v, self.g, self.bias)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ kernel + bias`` over the last axis; ``kernel`` is ``[in,
+    out]``, the JAX package's layout."""
+    y = x @ kernel.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+class Dense(torch.nn.Module):
+    """:func:`dense` with parameters ``kernel`` (``[in, out]``) and an
+    optional ``bias``."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.kernel = torch.nn.Parameter(torch.empty(in_dim, out_dim,
+                                                     device=device))
+        self.bias = (torch.nn.Parameter(torch.empty(out_dim, device=device))
+                     if use_bias else None)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        # Glorot over [in, out]: the limit is symmetric in the two fans
+        self.kernel.copy_(glorot_uniform(self.kernel.shape, generator))
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.kernel, self.bias)
+
+
 def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """1x1 conv of NCHW ``x`` with an OIHW ``[C_out, C_in, 1, 1]``
@@ -189,6 +270,66 @@ class FrozenBatchNorm(torch.nn.Module):
         return frozen_batchnorm(x, self.gamma, self.beta)
 
 
+def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                  beta: Optional[torch.Tensor] = None,
+                  eps: float = 1e-3) -> torch.Tensor:
+    """Per-sample, per-channel normalisation of NCHW ``x`` over H, W
+    (tfa's default eps 1e-3), statistics in float32 whatever ``x``'s
+    dtype; then the optional affine ``gamma``, ``beta``."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = xf.var(dim=(2, 3), keepdim=True, correction=0)
+    h = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    if gamma is not None:
+        h = h * gamma.to(x.dtype)[:, None, None] \
+            + beta.to(x.dtype)[:, None, None]
+    return h
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-3) -> torch.Tensor:
+    """Normalisation over the last axis (the channels of an NHWC tensor),
+    eps 1e-3 inside the root, then ``gamma``, ``beta``."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    h = (x - mean) * torch.rsqrt(var + eps)
+    return h * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
+class LayerNorm(torch.nn.Module):
+    """:func:`layer_norm` with parameters ``gamma`` and ``beta``
+    (initialised to 1 and 0 by :meth:`reset_parameters`)."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__()
+        self.gamma = torch.nn.Parameter(torch.empty(num_features,
+                                                    device=device))
+        self.beta = torch.nn.Parameter(torch.empty(num_features,
+                                                   device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        self.gamma.fill_(1.0)
+        self.beta.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.gamma, self.beta)
+
+
+def embedding(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of ``table`` (``[num_embeddings, dim]``)."""
+    return table[idx]
+
+
+def embedding_init(num_embeddings: int, dim: int,
+                   generator: Optional[torch.Generator] = None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """A table drawn uniformly from [-0.05, 0.05), as the JAX package
+    draws it."""
+    u = torch.rand((num_embeddings, dim), generator=generator, dtype=dtype)
+    return 0.1 * u - 0.05
+
+
 # ---------------------------------------------------------------------------
 # pooling / resize
 # ---------------------------------------------------------------------------
@@ -234,6 +375,22 @@ def avg_pool_same(x: torch.Tensor, window: int) -> torch.Tensor:
     """Stride-1 average pooling with SAME padding that counts only valid
     elements (JAX ``avg_pool_same``, odd ``window``)."""
     return _AvgPoolSame.apply(x, window)
+
+
+def max_pool_same(x: torch.Tensor, window: int,
+                  stride: int = 1) -> torch.Tensor:
+    """Max pooling of NCHW ``x`` with SAME padding (padding never wins:
+    it is -inf), odd ``window``. At stride s the output is ``ceil(H /
+    s)`` x ``ceil(W / s)`` with XLA's SAME split of the padding (the
+    smaller half before)."""
+    if stride == 1:
+        return F.max_pool2d(x, window, 1, window // 2)
+    h, w = x.shape[2:]
+    pad = []
+    for n in (w, h):
+        total = max((-(-n // stride) - 1) * stride + window - n, 0)
+        pad += [total // 2, total - total // 2]
+    return F.max_pool2d(F.pad(x, pad, value=float("-inf")), window, stride)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

@@ -14,15 +14,19 @@ inverts the two separated sources, frames concatenated, to ``sep1.wav`` and
     python -m audiosourcesep_tpu_torch.run_basis_sep CKPT1 CKPT2 \\
         --song_dir SONG --device cuda --compute_dtype bf16 --winograd
 
+``--dataset mnist|cifar10`` separates the mean of two dequantised
+``--n_mixed`` image batches (``data.get_mixture_toydata``) instead of a
+song: ``results.npz`` then holds 32x32 images rounded to [0, 255] and
+``stft_mixture`` is None; no wav is written.
+
 NCSN priors separate the mixture rescaled to ``[0, 1]``; Glow priors,
-trained on data-scale patches, separate it in data scale (uniform init
+trained on data-scale inputs, separate it in data scale (uniform init
 over ``[minval, maxval]``, outputs only clipped), with the score
 ``grad_x log p(x)`` taken through each level's flow, ``--score_chunk``
 frames at a time.
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
-``--shard_sources`` and ``--dataset mnist|cifar10`` are not ported yet
-and raise.
+``--shard_sources`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 
 from . import nn as nn_mod
 from .cli import apply_config_override, resolve_device
-from .data import get_song_extract, write_wav
+from .data import get_mixture_toydata, get_song_extract, write_wav
 from .models import build_glow
 from .models.ncsn import get_score_model, get_sigmas
 from .ops.inversion import mel_to_audio
@@ -68,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--debug", action="store_true",
                         help="print to stdout instead of out.log")
     parser.add_argument("--dataset", type=str, default="melspec",
-                        help="melspec (mnist | cifar10 not ported yet)")
+                        help="mnist | cifar10 | melspec")
     parser.add_argument("--song_dir", type=str, default=None,
                         help="dir with mix.wav, piano.wav, violin.wav")
     parser.add_argument("--inverse", action="store_true",
@@ -131,13 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args) -> None:
-    for flag, hit in (("--shard_sources", args.shard_sources),
-                      (f"--dataset {args.dataset}",
-                       args.dataset != "melspec")):
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to audiosourcesep_tpu_torch; "
-                "use the JAX run_basis_sep.py")
+    if args.shard_sources:
+        raise NotImplementedError(
+            "--shard_sources is not yet ported to audiosourcesep_tpu_torch; "
+            "use the JAX run_basis_sep.py")
 
 
 def _restore_ncsn_models(args, data_shape, sigmas, device):
@@ -160,8 +161,8 @@ def _restore_ncsn_models(args, data_shape, sigmas, device):
     return models
 
 
-def _restore_glow(root, sigma, args, data_shape, minval, maxval, alpha,
-                  device):
+def _restore_glow(root, sigma, args, data_shape, data_type, minval, maxval,
+                  alpha, device):
     """The Glow prior of noise level ``sigma``, built on ``meta`` and
     loaded strictly from the newest checkpoint in
     ``root/sigma_{round(sigma, 2)}/ckpts``; its parameters take no
@@ -169,7 +170,7 @@ def _restore_glow(root, sigma, args, data_shape, minval, maxval, alpha,
     path = os.path.join(root, f"sigma_{round(float(sigma), 2)}", "ckpts")
     model = build_glow(data_shape, L=args.L, K=args.K,
                        n_filters=args.n_filters, learntop=args.learntop,
-                       data_type="melspec", use_logit=args.use_logit,
+                       data_type=data_type, use_logit=args.use_logit,
                        alpha=alpha, minval=minval, maxval=maxval,
                        device="meta")
     sd = restore_ncsn_params(path, model.state_dict())
@@ -184,16 +185,21 @@ def run(args: argparse.Namespace) -> None:
     device = resolve_device(args.device)
     sigmas = get_sigmas(args.sigma1, args.sigmaL, int(args.num_classes),
                         args.progression)
-    if args.song_dir is None:
-        raise ValueError("song_dir is None")
-    song_dir = os.path.abspath(args.song_dir)
-    data_shape = [args.height, args.width, 1]
-    if args.scale == "power":
-        minval, maxval = 1e-10, 100.0
-    elif args.scale == "dB":
-        minval, maxval = -100.0, 20.0
+    if args.dataset in ("mnist", "cifar10"):
+        data_shape = [32, 32, 1 if args.dataset == "mnist" else 3]
+        data_type = "image"
+        minval, maxval = 0.0, 256.0
     else:
-        raise ValueError("scale should be 'power' or 'dB'")
+        if args.song_dir is None:
+            raise ValueError("song_dir is None")
+        data_shape = [args.height, args.width, 1]
+        data_type = "melspec"
+        if args.scale == "power":
+            minval, maxval = 1e-10, 100.0
+        elif args.scale == "dB":
+            minval, maxval = -100.0, 20.0
+        else:
+            raise ValueError("scale should be 'power' or 'dB'")
     alpha = args.alpha or 1e-6
     out_dir = args.output
     # Glow priors are trained on data-scale patches (their preprocessing
@@ -205,30 +211,37 @@ def run(args: argparse.Namespace) -> None:
     t0 = time.time()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     spec = dict(SPEC_PARAMS, use_dB=(args.scale == "dB"), n_mels=args.height)
-    duration = spec["length_sec"] * args.n_mixed
-    mel_spec, raw_audio, stft_mixture = get_song_extract(
-        os.path.join(song_dir, "mix.wav"),
-        os.path.join(song_dir, "piano.wav"),
-        os.path.join(song_dir, "violin.wav"), duration, **spec)
-    mixed = torch.as_tensor(mel_spec[0], device=device)
-    gt1, gt2 = mel_spec[1], mel_spec[2]
+    if data_type == "image":
+        mixed, gt1, gt2, _ = get_mixture_toydata(
+            args.dataset, args.n_mixed, args.seed,
+            generator=torch.Generator().manual_seed(args.seed))
+        stft_mixture = None
+    else:
+        song_dir = os.path.abspath(args.song_dir)
+        mel_spec, raw_audio, stft_mixture = get_song_extract(
+            os.path.join(song_dir, "mix.wav"),
+            os.path.join(song_dir, "piano.wav"),
+            os.path.join(song_dir, "violin.wav"),
+            spec["length_sec"] * args.n_mixed, **spec)
+        mixed, gt1, gt2 = mel_spec
+        for name, audio in zip(("mix.wav", "ground_truth1.wav",
+                                "ground_truth2.wav"), raw_audio):
+            write_wav(os.path.join(out_dir, name), audio, spec["sr"])
+    mixed = torch.as_tensor(mixed, device=device)
     x_init = torch.rand((2, *mixed.shape), generator=gen, device=device)
     if model_scale:
         x_init = x_init * (maxval - minval) + minval
     else:
         mixed = preprocess_mixture(mixed, minval, maxval, args.use_logit,
                                    alpha)
-    for name, audio in zip(("mix.wav", "ground_truth1.wav",
-                            "ground_truth2.wav"), raw_audio):
-        write_wav(os.path.join(out_dir, name), audio, spec["sr"])
     print(f"Data Loaded in {round(time.time() - t0, 3)} seconds")
 
     # ---------------- models ----------------------------------------------
     nn_mod.set_winograd(args.winograd)
     if model_scale:
         score_fn = glow_score_fn(
-            [[_restore_glow(root, sigma, args, data_shape, minval, maxval,
-                            alpha, device)
+            [[_restore_glow(root, sigma, args, data_shape, data_type,
+                            minval, maxval, alpha, device)
               for root in (args.RESTORE1, args.RESTORE2)]
              for sigma in sigmas], frame_chunk=args.score_chunk or None)
     else:
@@ -238,7 +251,7 @@ def run(args: argparse.Namespace) -> None:
                                        for k, v in vars(args).items()))
 
     # ---------------- separation ------------------------------------------
-    cfg = BasisConfig(T=args.T, delta=args.step_lr, data_type="melspec",
+    cfg = BasisConfig(T=args.T, delta=args.step_lr, data_type=data_type,
                       scale=args.scale, collect_trajectory=True,
                       score_clip=args.score_clip)
 
@@ -255,7 +268,7 @@ def run(args: argparse.Namespace) -> None:
     # ---------------- save results ----------------------------------------
     def post(x):
         return postprocess(x, minval, maxval, args.use_logit, alpha,
-                           "melspec", rescale=not model_scale).cpu().numpy()
+                           data_type, rescale=not model_scale).cpu().numpy()
 
     def squeeze_ch(a):
         # drop only the trailing channel axis (a plain squeeze would also
@@ -270,7 +283,7 @@ def run(args: argparse.Namespace) -> None:
     np.savez(os.path.join(out_dir, "results_convergence"),
              x1=post(traj[:, 0]), x2=post(traj[:, 1]))
 
-    if args.inverse:
+    if args.inverse and data_type == "melspec":
         t0 = time.time()
         # the separated frames concatenated along time, as one spectrogram
         mels = torch.as_tensor(np.stack([np.concatenate(list(x), axis=-1)

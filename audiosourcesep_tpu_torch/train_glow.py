@@ -9,14 +9,16 @@ checkpoints that the JAX package restores, and the reverse),
 ``tensorboard_logs/`` and ``out.log``, which ends with the test set's
 ``Validation bits/dim`` (and, for mel spectrograms, the bits per pixel
 of the ``[0, 1]``-rescaled variable). ``--dataset`` is a directory with
-``train/`` and ``test/`` TFRecords (``wav_to_spec --tfrecords``).
+``train/`` and ``test/`` TFRecords (``wav_to_spec --tfrecords``), or
+``mnist`` / ``cifar10`` (32x32 images in [0, 256), dequantised by the
+flow's ``ImgPreprocessing``).
 
     python -m audiosourcesep_tpu_torch.train_glow --dataset DATA \\
         --config configs/melspec_glow.yml --device cuda
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU. A
-``--config`` YAML overlays the flags. ``--dataset mnist|cifar10`` and
-``--multihost`` are not ported yet and raise.
+``--config`` YAML overlays the flags. ``--multihost`` is not ported yet
+and raises.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from .training import (CheckpointManager, LoopConfig, NullWriter,
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Train Glow")
     parser.add_argument("--dataset", type=str, default="mnist",
-                        help="melspec dataset directory (train/ and test/ "
-                             "TFRecords); mnist | cifar10 not ported yet")
+                        help="mnist | cifar10 | a melspec dataset "
+                             "directory (train/ and test/ TFRecords)")
     parser.add_argument("--output", type=str, default="trained_flow")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--restore", type=str, default=None,

@@ -7,7 +7,9 @@ outputs in ``--output``: ``ckpts/`` (JAX-layout train-state checkpoints
 that the JAX package restores, and the reverse), ``ckpts_issues/``,
 ``generated_samples/generated_samples_{epoch}.npy``,
 ``tensorboard_logs/`` and ``out.log``. ``--dataset`` is a directory with
-``train/`` and ``test/`` TFRecords (``wav_to_spec --tfrecords``).
+``train/`` and ``test/`` TFRecords (``wav_to_spec --tfrecords``), or
+``mnist`` / ``cifar10`` (``data.load_toydata``: 32x32 images from a local
+npz, rescaled to [0, 1] for training like the spectrograms).
 
     python -m audiosourcesep_tpu_torch.train_ncsn --dataset DATA \\
         --config configs/melspec_ncsnv1.yml --ema --device cuda
@@ -15,8 +17,7 @@ that the JAX package restores, and the reverse), ``ckpts_issues/``,
 ``--device`` defaults to ``cuda`` and never falls back to the CPU. A
 ``--config`` YAML overlays the flags: the keys it names replace them, the
 others (``seed``, ``sample_every``, ...) keep their values.
-``--dataset mnist|cifar10`` and ``--multihost`` are not ported yet and
-raise.
+``--multihost`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ from .training import (CheckpointManager, LoopConfig, NullWriter,
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Train NCSN")
     parser.add_argument("--dataset", type=str, default="mnist",
-                        help="melspec dataset directory (train/ and test/ "
-                             "TFRecords); mnist | cifar10 not ported yet")
+                        help="mnist | cifar10 | a melspec dataset "
+                             "directory (train/ and test/ TFRecords)")
     parser.add_argument("--output", type=str, default="trained_ncsn")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--restore", type=str, default=None)

@@ -11,9 +11,9 @@ draws, so the chain's batches equal its batches bit for bit.
     python -m audiosourcesep_tpu_torch.train_noisy_glow RESTORE \\
         --dataset DATA --config configs/melspec_noisy_glow.yml --device cuda
 
-``--device`` defaults to ``cuda`` and never falls back to the CPU.
-``--dataset mnist|cifar10`` and ``--multihost`` are not ported yet and
-raise.
+``--dataset`` is a melspec TFRecord directory or ``mnist`` /
+``cifar10``. ``--device`` defaults to ``cuda`` and never falls back to
+the CPU. ``--multihost`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("RESTORE", type=str, nargs="?", default=None,
                         help="directory of the trained clean Glow model")
     parser.add_argument("--dataset", type=str, default="mnist",
-                        help="melspec dataset directory (train/ and test/ "
-                             "TFRecords); mnist | cifar10 not ported yet")
+                        help="mnist | cifar10 | a melspec dataset "
+                             "directory (train/ and test/ TFRecords)")
     parser.add_argument("--output", type=str, default="trained_noisy_glow")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--config", type=str)

@@ -192,7 +192,9 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 # ---------------------------------------------------------------------------
 
 def _is_conv_kernel(name: str, ndim: int) -> bool:
-    return ndim == 4 and name.rsplit(".", 1)[-1] == "kernel"
+    """A conv kernel, or a weight-normalised conv's ``v``: HWIO in the
+    JAX package, OIHW in the port."""
+    return ndim == 4 and name.rsplit(".", 1)[-1] in ("kernel", "v")
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray]

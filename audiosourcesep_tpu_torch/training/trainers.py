@@ -134,8 +134,9 @@ def make_flow_train_step(noise_sigma: Optional[float] = None
     (state, loss)``: one gradient step on the mean NLL of ``batch``.
     ``noise_sigma`` set -> the batch is ``X + noise_sigma * noise``
     (noisy-Glow fine-tuning), ``noise`` standard normal of the batch's
-    shape; ``dequant`` (uniform on ``[0, 1)``) is the dequantisation draw
-    the flow's preprocessing reads (image data only). Both are drawn from
+    shape; ``dequant`` is the dequantisation draw the flow reads (image
+    data only; :meth:`~..bijectors.FlowModel.draw_noise`: uniform on ``[0,
+    1)``, or standard normal for Flow++). Both are drawn from
     ``generator`` unless given, as the JAX step draws both from its key.
     ``eval_loss`` is the same loss without a gradient. ``loss`` stays on
     the device.
@@ -147,8 +148,7 @@ def make_flow_train_step(noise_sigma: Optional[float] = None
                                     device=batch.device)
             batch = batch + noise_sigma * noise
         if dequant is None:
-            dequant = torch.rand(batch.shape, generator=generator,
-                                 device=batch.device)
+            dequant = model.draw_noise(batch.shape, generator, batch.device)
         return -torch.mean(model.log_prob(batch, dequant))
 
     def step(state: TrainState, batch: torch.Tensor,

@@ -66,6 +66,23 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    ``run_basis_sep --model_type glow --winograd`` (T=2) at
    ``--score_chunk 8`` and ``0``, with the f32 kernel's launches,
    ``Duration`` and the peak memory (``--full`` adds T=100 at ``0``).
+9. the image path, on random uint8 images written in the MNIST and
+   CIFAR-10 npz layouts (``ASR_MNIST_NPZ`` / ``ASR_CIFAR10_NPZ``): (a) both
+   kernels at the image NCSN's conv classes (32x32 and 16x16, batch 50)
+   and at Flow++'s (32x16, 16x16, 16x8, batch 64) against their plain
+   version and F.conv2d, with times and bounds; (b) ``train_ncsn
+   --dataset mnist`` (v1, 192 filters, routing on) ->
+   ``ncsn_generate_samples`` -> ``run_basis_sep --dataset mnist
+   --winograd`` at 50 mixtures, T=2, in bf16 and f32 (``--full`` adds
+   T=100), each launching its kernel 64 times a forward; (c) RealNVP (32
+   filters, 4 blocks): log p card vs CPU, the Adam step at batch 256
+   against its bound, one epoch of ``train_realnvp``; (d) Flow++ at
+   ``build_flowpp``'s defaults on [32, 32, 3]: log p card vs CPU and routed
+   vs cuDNN (131 launches a forward), the bisection inverse on the card,
+   the train step (Adam, clip 1) at batch 64 routing off and on, with
+   peak memory and bound; (e) ``train_glow --dataset mnist`` (L=3, K=32,
+   512 filters) -> ``train_noisy_glow`` -> ``run_basis_sep --model_type
+   glow --dataset mnist --winograd`` at 50 mixtures.
 
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -154,6 +171,51 @@ GLOW_TOL = 1e-4
 # the identity): phase 8 draws it from N(0, GLOW_CONV3_STD^2) so that the
 # couplings, and the routed conv3, do work (|log_s| ~ 0.03)
 GLOW_CONV3_STD = 1e-3
+# phase 9, the image path. The image NCSN (v1, 192 filters, 10 levels) on
+# [32, 32, 1] separates n_mixed 50 (benchmarks/bench_image_basis.py:82);
+# its routed classes, (H, W, C_in, C_out) -> convs per forward
+IMG_BATCH = 50
+IMAGE_CLASSES = {
+    (32, 32, 1, 192): 1, (32, 32, 192, 192): 18, (32, 32, 192, 384): 1,
+    (32, 32, 192, 1): 1, (16, 16, 384, 384): 32, (16, 16, 384, 192): 2,
+    (16, 16, 192, 192): 9,
+}
+# Flow++ at build_flowpp's defaults (Ho et al.'s CIFAR-10 configuration),
+# [32, 32, 3], batch 64: the routed 3x3 convs of one forward: the
+# dequantisation's processor (its conv and 3 gated convs, whose GLUs are
+# convs), then per coupling net conv_in, each block's gated conv1 and
+# conv_out (4 dequantisation couplings of 2 blocks, then 4 + 2 + 3 flow
+# couplings of 10)
+FLOWPP = {"n_components": 32, "n_blocks_flow": 10, "n_blocks_dequant": 2,
+          "filters": 96, "heads": 4}
+FLOWPP_BATCH = 64
+FLOWPP_CLASSES = {
+    (32, 16, 6, 32): 1, (32, 16, 64, 32): 3, (32, 16, 64, 64): 3,
+    (32, 16, 3, 96): 8, (32, 16, 192, 96): 48, (32, 16, 96, 294): 8,
+    (16, 16, 6, 96): 2, (16, 16, 192, 96): 20, (16, 16, 96, 588): 2,
+    (16, 8, 12, 96): 3, (16, 8, 192, 96): 30, (16, 8, 96, 1176): 3,
+}
+FLOWPP_ROUTED = sum(FLOWPP_CLASSES.values())             # 131 per forward
+# ||diff|| / ||ref|| of Flow++'s log p at build_flowpp's own init: card vs
+# CPU in f32, where f32 log p lands 1e-7 from float64 on both devices
+# (phase 9d prints it); routed vs cuDNN, where the Winograd transforms'
+# f32 rounding over 131 convs gave 5.3e-5 (6.5e-5 to 8.6e-5 at a scaled
+# init, from run to run); card vs CPU in float64 (summation order only)
+FLOWPP_TOL = 1e-4
+FLOWPP_ROUTED_TOL = 2e-4
+FLOWPP_F64_TOL = 1e-9
+# RealNVP at train_realnvp's defaults, and its batch
+REALNVP = {"n_filters": 32, "n_blocks": 4}
+REALNVP_BATCH = 256
+# the image Glow of train_glow's defaults, trained at batch 64
+IMAGE_GLOW = {"L": 3, "K": 32, "n_filters": 512}
+IMAGE_GLOW_BATCH = 64
+IMAGE_GLOW_ROUTED = 2 * IMAGE_GLOW["L"] * IMAGE_GLOW["K"]  # 192 a forward
+# image-scale noise levels (span 256) and the step of the [0, 1] schedule
+# scaled to it (2e-5 * 256^2)
+IMAGE_SIGMAS = ["--sigma1", "256.0", "--sigmaL", "2.56", "--progression",
+                "logarithmic"]
+IMAGE_STEP_LR = str(2e-5 * 256.0 ** 2)
 
 
 def fail(msg: str, code: int = 2):
@@ -207,15 +269,15 @@ def phase_build():
                   f"shared memory per block")
 
 
-def conv_bound(h, w, cin, cout, dname):
-    """Least time (ms) of one routed conv at batch BATCH, and what sets it:
+def conv_bound(h, w, cin, cout, dname, batch=BATCH):
+    """Least time (ms) of one routed conv at ``batch``, and what sets it:
     the transform-domain work (16 * tiles * C_in * C_out multiply-adds) at
     the dtype's peak, or x, y and U moved once at the HBM rate. A dilated
     conv of the same shape has the same tiles (on its phase grids), so the
     same bound."""
     item = 2 if dname == "bfloat16" else 4
-    flops = 2 * 16 * BATCH * (h // 2) * (w // 2) * cin * cout
-    nbytes = item * (BATCH * h * w * (cin + cout) + 16 * cin * cout)
+    flops = 2 * 16 * batch * (h // 2) * (w // 2) * cin * cout
+    nbytes = item * (batch * h * w * (cin + cout) + 16 * cin * cout)
     t_ops, t_bytes = flops / PEAK[dname], nbytes / HBM
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
@@ -227,7 +289,7 @@ def _new_result():
 
 
 def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
-          tag="[3]"):
+          tag="[3]", batch=BATCH):
     """Run one conv class through the kernel, its plain version and
     F.conv2d on the same inputs; check the kernel's agreement, time all
     three, and add ``n`` times each to the route's result ``r``."""
@@ -245,7 +307,7 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
     ms_k = cuda_ms(run_kernel, 20, 2)
     ms_p = cuda_ms(run_plain, 3)
     ms_c = cuda_ms(run_conv, 20, 2)
-    bound, by = conv_bound(*shape, dname)
+    bound, by = conv_bound(*shape, dname, batch)
     r["ms"] += n * ms_k
     r["plain_ms"] += n * ms_p
     r["library_ms"] += n * ms_c
@@ -262,8 +324,8 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
         raise AssertionError(f"kernel disagrees at {label} {dname}")
 
 
-def _summary(r, what, dname, tag="[3]"):
-    print(f"{tag} {dname}: {what} (batch {BATCH}): kernel {r['ms']:.3f} ms, "
+def _summary(r, what, dname, tag="[3]", batch=BATCH):
+    print(f"{tag} {dname}: {what} (batch {batch}): kernel {r['ms']:.3f} ms, "
           f"plain {r['plain_ms']:.3f} ms, F.conv2d {r['library_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.1f}%"
           f" of it reached)")
@@ -1242,6 +1304,546 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
     return launches[(2, 8)]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the image path (MNIST / CIFAR-10 stand-ins, RealNVP, Flow++)
+# ---------------------------------------------------------------------------
+
+def phase_image_data(work: str):
+    """9: random uint8 images in the MNIST (28x28) and CIFAR-10 (32x32x3)
+    npz layouts, named by ASR_MNIST_NPZ / ASR_CIFAR10_NPZ (the test set
+    one eval batch). Returns the training-set size."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    n_train, n_test = 512, 64
+    for name, shape in (("MNIST", (28, 28)), ("CIFAR10", (32, 32, 3))):
+        path = os.path.join(work, f"{name.lower()}.npz")
+        np.savez(path, x_train=rng.integers(0, 256, (n_train, *shape),
+                                            np.uint8),
+                 x_test=rng.integers(0, 256, (n_test, *shape), np.uint8))
+        os.environ[f"ASR_{name}_NPZ"] = path
+    print(f"[9] wrote random uint8 MNIST-layout and CIFAR-10-layout npz "
+          f"caches: {n_train} train, {n_test} test images each")
+    return n_train
+
+
+def phase_image_kernel():
+    """9a: both kernels at the image NCSN's classes (batch IMG_BATCH) and
+    at Flow++'s (batch FLOWPP_BATCH), against their plain version and
+    F.conv2d; returns the result of each route by name."""
+    import torch
+    import torch.nn.functional as F
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    g = torch.Generator(device="cuda").manual_seed(9)
+    res = {}
+    for route, classes, batch in (("image", IMAGE_CLASSES, IMG_BATCH),
+                                  ("flowpp", FLOWPP_CLASSES, FLOWPP_BATCH)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            r = res[f"{dname}_{route}"] = _new_result()
+            for (h, w, cin, cout), n in classes.items():
+                x = torch.randn(batch, h, w, cin, device="cuda",
+                                generator=g).to(dtype)
+                k = torch.randn(3, 3, cin, cout, device="cuda",
+                                generator=g) * (1.0 / (9 * cin)) ** 0.5
+                u = W.transform_weights(k).to(dtype)
+                xc, kc = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).to(
+                    dtype)
+                _hold(r, f"{route} {h}x{w} {cin:3d}->{cout:4d}", dname, n,
+                      (h, w, cin, cout), lambda: W._winograd_cuda(x, u),
+                      lambda: W.winograd_conv2d_reference(x, k),
+                      lambda: F.conv2d(xc, kc, padding=1).permute(0, 2, 3,
+                                                                  1),
+                      tag="[9a]", batch=batch)
+                del x, k, u, xc, kc
+            _summary(r, f"routed convs of one {route} forward", dname,
+                     tag="[9a]", batch=batch)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_image_ncsn(work: str, n_train: int, full: bool):
+    """9b: train_ncsn --dataset mnist at full width (routing on),
+    ncsn_generate_samples, and run_basis_sep --dataset mnist --winograd at
+    n_mixed IMG_BATCH in bf16 and f32; returns each separation's kernel
+    launches by dtype name."""
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch import (nn, ncsn_generate_samples,
+                                          run_basis_sep, train_ncsn)
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    f32, bf16 = W.KERNELS[torch.float32], W.KERNELS[torch.bfloat16]
+    out, gen = os.path.join(work, "ncsn_img"), os.path.join(work,
+                                                            "ncsn_img_gen")
+    L, T = 10, 1
+    per_fwd = sum(IMAGE_CLASSES.values())
+    width = ["--version", "v1", "--n_filters", "192", "--num_classes",
+             str(L), "--device", "cuda"]
+    steps = n_train // TRAIN_BATCH
+    forwards = steps + 1 + L * T            # steps, one eval batch, sampling
+    try:
+        nn.set_winograd(True)
+        _reset_counts()
+        t0 = time.time()
+        train_ncsn.main(["--dataset", "mnist", "--output", out,
+                         "--batch_size", str(TRAIN_BATCH), "--ema",
+                         "--n_epochs", "1", "--T", str(T), "--sample_every",
+                         "1", *width])
+        wall = time.time() - t0
+        train_launches = dict(W.launch_counts)
+        _reset_counts()
+        ncsn_generate_samples.main([out, "--dataset", "mnist", "--output",
+                                    gen, "--ema", "--T", str(T),
+                                    "--n_samples", "8", *width])
+        gen_launches = dict(W.launch_counts)
+    finally:
+        nn.set_winograd(False)
+    with open(os.path.join(out, "out.log")) as f:
+        log = [ln.strip() for ln in f if ln.startswith(
+            ("Total Trainable", "Epoch", "Training time"))]
+    samples = np.load(os.path.join(gen, "generated_samples.npy"))
+    print(f"[9b] train_ncsn --dataset mnist, v1 192 filters, batch "
+          f"{TRAIN_BATCH}, 1 epoch ({steps} steps), routing on: {wall:.2f} "
+          f"s; out.log: {log}; launches {train_launches}; "
+          f"ncsn_generate_samples: {samples.shape}, launches "
+          f"{gen_launches}")
+    if train_launches != {f32: forwards * per_fwd, bf16: 0} \
+            or gen_launches != {f32: L * T * per_fwd, bf16: 0}:
+        raise AssertionError(f"the image NCSN's training did not launch "
+                             f"the f32 kernel {per_fwd} times a forward")
+    if samples.shape != (8, 32, 32, 1) or not np.isfinite(samples).all():
+        raise AssertionError("image NCSN samples")
+    launches = {}
+    runs = [(2, "bf16"), (2, "f32")] + ([(100, "bf16")] if full else [])
+    for T_sep, dtype in runs:
+        sep = os.path.join(work, f"sep_img_T{T_sep}_{dtype}")
+        _reset_counts()
+        t0 = time.time()
+        run_basis_sep.main([out, out, "--dataset", "mnist", "--output", sep,
+                            "--ema", "--n_mixed", str(IMG_BATCH), "--T",
+                            str(T_sep), "--compute_dtype", dtype,
+                            "--winograd", *width])
+        wall = time.time() - t0
+        got = dict(W.launch_counts)
+        mine = f32 if dtype == "f32" else bf16
+        want = {name: 2 * L * T_sep * per_fwd if name == mine else 0
+                for name in got}
+        with open(os.path.join(sep, "out.log")) as f:
+            dur = [ln.strip() for ln in f if ln.startswith(
+                ("Data Loaded", "Duration"))]
+        res = np.load(os.path.join(sep, "results.npz"), allow_pickle=True)
+        print(f"[9b] run_basis_sep --dataset mnist --winograd --T {T_sep} "
+              f"--compute_dtype {dtype}, {IMG_BATCH} mixtures: {dur}, "
+              f"wall-clock {wall:.2f} s; launches {got}, expected {want}; "
+              f"results.npz {sorted(res.files)}, x1 {res['x1'].shape}")
+        if got != want:
+            raise AssertionError("the image separation did not launch its "
+                                 "dtype's kernel for every routed conv")
+        for key in ("x1", "x2", "mixed"):
+            a = res[key]
+            if a.shape != (IMG_BATCH, 32, 32) or a.min() < 0 \
+                    or a.max() > 255 or not np.array_equal(a, np.round(a)):
+                raise AssertionError(f"results.npz {key}")
+        if (T_sep, dtype) in ((2, "bf16"), (2, "f32")):
+            launches[dtype] = got[mine]
+    return launches
+
+
+def forward_flop(model, run) -> float:
+    """FLOPs of the products of one forward ``run()`` of ``model``: its
+    convs (2 k^2 C_in C_out per output pixel), dense layers and the
+    attention's two products (4 T^2 C per image), from the shapes that
+    reach them (forward pre-hooks)."""
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.bijectors.flowpp_nets import GatedAttn
+    total = [0.0]
+
+    def conv(m, args):
+        w = m.kernel if isinstance(m, nn.Conv2d) else m.v
+        x = args[0]
+        total[0] += 2.0 * x.shape[0] * x.shape[2] * x.shape[3] * w.numel()
+
+    def dense(m, args):
+        total[0] += 2.0 * args[0].numel() * m.kernel.shape[1]
+
+    def attn(m, args):
+        n, h, w, c = args[0].shape
+        total[0] += 4.0 * n * (h * w) ** 2 * c
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.WNConv2d)):
+            hooks.append(m.register_forward_pre_hook(conv))
+        elif isinstance(m, nn.Dense):
+            hooks.append(m.register_forward_pre_hook(dense))
+        elif isinstance(m, GatedAttn):
+            hooks.append(m.register_forward_pre_hook(attn))
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _flow_step_times(state, step, x, noise):
+    """ms of the loss (forward), of its backward, of the optimizer (with
+    its clip) and of the whole step (CUDA events), and the peak memory
+    (GiB) over them."""
+    import torch
+    from audiosourcesep_tpu_torch.training.train_utils import \
+        clip_by_global_norm_
+
+    def fwd():
+        return -state.model.log_prob(x, noise).mean()
+
+    def fwd_bwd():
+        state.optimizer.zero_grad(set_to_none=True)
+        fwd().backward()
+
+    def update():
+        if state.spec.clipnorm is not None:
+            clip_by_global_norm_([p.grad for p in state.params.values()],
+                                 state.spec.clipnorm)
+        state.optimizer.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    t_fwd = cuda_ms(fwd, 3)
+    t_fb = cuda_ms(fwd_bwd, 3)
+    t_opt = cuda_ms(update, 3)
+    t_step = cuda_ms(lambda: step(state, x, dequant=noise), 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (t_fwd, t_fb - t_fwd, t_opt, t_step), peak
+
+
+def _print_step(tag, what, times, peak, flop, smi):
+    t_fwd, t_bwd, t_opt, t_step = times
+    bound = 1e3 * 3 * flop / PEAK["float32"]
+    print(f"{tag} {what}: step {t_step:.2f} ms (forward {t_fwd:.2f}, "
+          f"backward {t_bwd:.2f}, optimizer {t_opt:.2f}); peak memory "
+          f"{peak:.2f} GiB; bound {bound:.2f} ms ({3 * flop / 1e12:.3f} "
+          f"TFLOP, 3 forwards, at 67 TFLOP/s f32), {100 * bound / t_step:.1f}"
+          f"% of it reached; card {smi}")
+
+
+def phase_realnvp(work: str, smi: str):
+    """9c: RealNVP at train_realnvp's defaults: log p card vs CPU, the
+    train step at batch REALNVP_BATCH against its bound, then one epoch of
+    train_realnvp --dataset mnist."""
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch import train_realnvp
+    from audiosourcesep_tpu_torch.models import build_realnvp
+    from audiosourcesep_tpu_torch.training import (init_train_state,
+                                                   make_flow_train_step,
+                                                   setup_optimizer)
+    shape = (32, 32, 1)
+    g = torch.Generator().manual_seed(90)
+    x = torch.randint(0, 256, (8, *shape), generator=g).float()
+    u = torch.rand(x.shape, generator=g)
+    gpu = build_realnvp(shape, learntop=True, minibatch=x.cuda(),
+                        generator=g, device="cuda", **REALNVP)
+    with torch.no_grad():
+        # the zero-init output convs drawn small, so the couplings work
+        for name, p in gpu.named_parameters():
+            if "conv_out.v" in name:
+                p.copy_(1e-2 * torch.randn(p.shape, generator=g))
+    cpu = build_realnvp(shape, learntop=True, **REALNVP)
+    cpu.load_state_dict(gpu.state_dict())
+    with torch.no_grad():
+        lp_c, lp_g = cpu.log_prob(x, u), gpu.log_prob(x.cuda(), u.cuda())
+    err = _rel(lp_g, lp_c)
+    n_params = sum(p.numel() for p in gpu.parameters())
+    print(f"[9c] RealNVP {REALNVP['n_filters']} filters, "
+          f"{REALNVP['n_blocks']} blocks, learntop, {n_params:,} parameters; "
+          f"log p of 8 images card vs CPU: rel diff {err:.2e} (tol "
+          f"{GLOW_TOL:g}); mean {lp_c.mean().item():.2f}")
+    if not torch.isfinite(lp_g).all() or err > GLOW_TOL:
+        raise AssertionError("RealNVP on the card disagrees with the CPU")
+    del cpu
+    xb = torch.randint(0, 256, (REALNVP_BATCH, *shape), device="cuda").float()
+    ub = torch.rand(xb.shape, device="cuda")
+    flop = forward_flop(gpu, lambda: gpu.log_prob(xb, ub))
+    state = init_train_state(gpu, setup_optimizer("adam", 1e-3))
+    step, _ = make_flow_train_step()
+    times, peak = _flow_step_times(state, step, xb, ub)
+    _print_step("[9c]", f"RealNVP train step, Adam, batch {REALNVP_BATCH}, "
+                f"f32, TF32 off (convs on cuDNN)", times, peak, flop, smi)
+    del state, gpu
+    torch.cuda.empty_cache()
+    out = os.path.join(work, "realnvp")
+    t0 = time.time()
+    train_realnvp.main(["--dataset", "mnist", "--output", out, "--learntop",
+                        "--n_epochs", "1", "--batch_size",
+                        str(REALNVP_BATCH), "--device", "cuda"])
+    with open(os.path.join(out, "out.log")) as f:
+        log = [ln.strip() for ln in f if ln.startswith(
+            ("Total Trainable", "Epoch", "Validation"))]
+    print(f"[9c] train_realnvp --dataset mnist (random images), 1 epoch: "
+          f"{time.time() - t0:.2f} s; out.log: {log}")
+    bpd = [float(ln.split()[-1]) for ln in log if ln.startswith("Valid")]
+    if len(bpd) != 1 or not np.isfinite(bpd[0]):
+        raise AssertionError("train_realnvp: no finite Validation bits/dim")
+    return times
+
+
+def _flowpp_precision(gpu, cpu, x, eps) -> dict:
+    """log p of ``x`` (with ``eps``) by the Flow++ ``gpu`` on the card and
+    by ``cpu`` (the same weights) on the CPU, each in f32 and in float64,
+    routing off; ``{(device, dtype): log p}`` on the CPU in float64. Both
+    models are left in f32."""
+    import torch
+    lps = {}
+    with torch.no_grad():
+        for dev, m in (("card", gpu), ("CPU", cpu)):
+            where = next(m.parameters()).device
+            for dtype in (torch.float32, torch.float64):
+                m.to(dtype)
+                lps[dev, dtype] = m.log_prob(
+                    x.to(where, dtype), eps.to(where, dtype)).cpu().double()
+            m.float()
+    return lps
+
+
+def phase_flowpp(smi: str):
+    """9d: Flow++ at build_flowpp's defaults and own init on [32, 32, 3]:
+    log p card vs CPU (in f32 and float64) and routed vs cuDNN, the
+    bisection inverse on the card, and the
+    train step (Adam, clip 1) at batch FLOWPP_BATCH, routing off and on;
+    returns every kernel's launches in the routed step."""
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.bijectors.mixlogcdf import (
+        mixlog_inv_cdf, mixlog_logcdf)
+    from audiosourcesep_tpu_torch.models import build_flowpp
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.training import (init_train_state,
+                                                   make_flow_train_step,
+                                                   setup_optimizer)
+    shape = (32, 32, 3)
+    g = torch.Generator().manual_seed(91)
+    t0 = time.time()
+    mb = torch.randint(0, 256, (8, *shape), generator=g).float()
+    gpu = build_flowpp(shape, minibatch=mb.cuda(), generator=g,
+                       device="cuda", **FLOWPP)
+    cpu = build_flowpp(shape, **FLOWPP)
+    cpu.load_state_dict(gpu.state_dict())
+    n_params = sum(p.numel() for p in gpu.parameters())
+    print(f"[9d] Flow++ {FLOWPP}: {n_params:,} parameters, built and "
+          f"initialised on the card in {time.time() - t0:.2f} s")
+    x = torch.randint(0, 256, (2, *shape), generator=g).float()
+    eps = torch.randn(x.shape, generator=g)
+    # at build_flowpp's own init (where training starts): log p in f32 and
+    # float64 on both devices. In float64 card and CPU must agree; f32's
+    # distance from float64 on each device is its rounding, which the
+    # mixture CDFs' clip amplifies where they saturate
+    lps = _flowpp_precision(gpu, cpu, x, eps)
+    f64 = _rel(lps["card", torch.float64], lps["CPU", torch.float64])
+    f32 = {d: _rel(lps[d, torch.float32], lps[d, torch.float64])
+           for d in ("card", "CPU")}
+    print(f"[9d] log p of 2 images, routing off: card vs CPU in float64 "
+          f"{f64:.2e} (tol {FLOWPP_F64_TOL:g}); f32 vs float64 on the card "
+          f"{f32['card']:.2e}, on the CPU {f32['CPU']:.2e}; float64 "
+          f"{lps['CPU', torch.float64].tolist()}")
+    if not f64 <= FLOWPP_F64_TOL:
+        raise AssertionError("Flow++ in float64 on the card disagrees with "
+                             "the CPU")
+    lp_g, lp_c = lps["card", torch.float32], lps["CPU", torch.float32]
+    err = _rel(lp_g, lp_c)
+    print(f"[9d] log p of 2 images in f32 card vs CPU: {lp_g.tolist()} vs "
+          f"{lp_c.tolist()}; rel diff {err:.2e} (tol {FLOWPP_TOL:g})")
+    if not torch.isfinite(lp_g).all() or err > FLOWPP_TOL:
+        raise AssertionError("Flow++ on the card disagrees with the CPU")
+    del cpu
+    xb = torch.randint(0, 256, (FLOWPP_BATCH, *shape), device="cuda").float()
+    eb = torch.randn(xb.shape, device="cuda")
+    lps = {}
+    try:
+        for routed in (False, True):
+            nn.set_winograd(routed)
+            _reset_counts()
+            with torch.no_grad():
+                lps[routed] = gpu.log_prob(xb, eb)
+            torch.cuda.synchronize()
+            want = {name: FLOWPP_ROUTED if routed and dt == torch.float32
+                    else 0 for dt, name in W.KERNELS.items()}
+            if dict(W.launch_counts) != want:
+                raise AssertionError(f"Flow++ log p launches "
+                                     f"{W.launch_counts}, expected {want}")
+    finally:
+        nn.set_winograd(False)
+    err = _rel(lps[True], lps[False])
+    print(f"[9d] log p of {FLOWPP_BATCH} images routed vs cuDNN: rel diff "
+          f"{err:.2e} (tol {FLOWPP_ROUTED_TOL:g}); {FLOWPP_ROUTED} f32 "
+          f"launches per forward")
+    if err > FLOWPP_ROUTED_TOL:
+        raise AssertionError("routed Flow++ log p disagrees with cuDNN's")
+    # the bisection inverse at one coupling's size: the checkerboard split
+    # at 32x16, 3 channels, 32 components
+    k = FLOWPP["n_components"]
+    gc = torch.Generator(device="cuda").manual_seed(92)
+    size = (FLOWPP_BATCH, 32, 16, 3)
+    logits = torch.randn(*size, k, device="cuda", generator=gc)
+    means = 2.0 * torch.randn(*size, k, device="cuda", generator=gc)
+    log_scales = -torch.rand(*size, k, device="cuda", generator=gc) - 0.2
+    xs = 6.0 * torch.rand(size, device="cuda", generator=gc) - 3.0
+    ys = torch.exp(mixlog_logcdf(xs, logits, means, log_scales))
+    ms_inv = cuda_ms(lambda: mixlog_inv_cdf(ys, logits, means, log_scales),
+                     3)
+    x_rec = mixlog_inv_cdf(ys, logits, means, log_scales)
+    # where a mixture's CDF is flat to f32's resolution (its tails) x is
+    # not determined by cdf(x): the round trip is held in CDF space, and
+    # the error in x is printed
+    cdf_err = (torch.exp(mixlog_logcdf(x_rec, logits, means, log_scales))
+               - ys).abs().max().item()
+    x_err = (x_rec - xs).abs().flatten()
+    print(f"[9d] mixlog_inv_cdf (64 bisection steps) on the card at "
+          f"{list(size)} x {k} components, x in [-3, 3]: max|cdf(inv(y)) "
+          f"- y| {cdf_err:.2e} (tol 1e-6); |x - inv(cdf(x))| median "
+          f"{x_err.median().item():.2e}, max {x_err.max().item():.2e}; "
+          f"{ms_inv:.2f} ms")
+    if not cdf_err <= 1e-6:
+        raise AssertionError("the bisection inverse on the card")
+    del logits, means, log_scales, xs, ys, x_rec, x_err
+    flop = forward_flop(gpu, lambda: gpu.log_prob(xb, eb))
+    step, _ = make_flow_train_step()
+    times, launches = {}, None
+    for routed in (False, True):
+        state = init_train_state(gpu, setup_optimizer("adam", 1e-3,
+                                                      clipnorm=1.0))
+        try:
+            nn.set_winograd(routed)
+            if routed:
+                _reset_counts()
+                step(state, xb, dequant=eb)
+                torch.cuda.synchronize()
+                launches = dict(W.launch_counts)
+                want = {name: FLOWPP_ROUTED if dt == torch.float32 else 0
+                        for dt, name in W.KERNELS.items()}
+                if launches != want:
+                    raise AssertionError(f"the routed Flow++ step launched "
+                                         f"{launches}, expected {want}")
+            times[routed], peak = _flow_step_times(state, step, xb, eb)
+        finally:
+            nn.set_winograd(False)
+        _print_step("[9d]", f"Flow++ train step, Adam + clip 1, batch "
+                    f"{FLOWPP_BATCH}, f32, TF32 off, routing "
+                    f"{'on' if routed else 'off'}", times[routed], peak,
+                    flop, smi)
+        del state
+    del gpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_image_glow(work: str, n_train: int, full: bool):
+    """9e: train_glow -> train_noisy_glow -> run_basis_sep --model_type
+    glow --dataset mnist --winograd at train_glow's width; returns the f32
+    kernel's launches in the separation."""
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch import (run_basis_sep, train_glow,
+                                          train_noisy_glow)
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    width = ["--L", str(IMAGE_GLOW["L"]), "--K", str(IMAGE_GLOW["K"]),
+             "--n_filters", str(IMAGE_GLOW["n_filters"]), "--learntop",
+             "--device", "cuda"]
+    glow, noisy = (os.path.join(work, n) for n in ("glow_img", "noisy_img"))
+    L = 10 if full else 2
+    sig = [*IMAGE_SIGMAS, "--num_classes", str(L)]
+    # lr 1e-6 and the score clip as in phase 8e: a 512-filter Glow two
+    # steps from its init separates to NaN at the configs' lr
+    lr = ["--learning_rate", "1e-6"]
+    t0 = time.time()
+    train_glow.main(["--dataset", "mnist", "--output", glow, "--n_epochs",
+                     "1", "--batch_size", str(IMAGE_GLOW_BATCH), *lr,
+                     *width])
+    with open(os.path.join(glow, "out.log")) as f:
+        log = [ln.strip() for ln in f if ln.startswith(
+            ("Total Trainable", "Epoch", "Training time", "Validation"))]
+    print(f"[9e] train_glow --dataset mnist, L={IMAGE_GLOW['L']} "
+          f"K={IMAGE_GLOW['K']} {IMAGE_GLOW['n_filters']} filters, batch "
+          f"{IMAGE_GLOW_BATCH}, 1 epoch ({n_train // IMAGE_GLOW_BATCH} "
+          f"steps): {time.time() - t0:.2f} s; out.log: {log}")
+    if not any(ln.startswith("Validation bits/dim") for ln in log):
+        raise AssertionError("train_glow --dataset mnist: no bits/dim")
+    t0 = time.time()
+    train_noisy_glow.main([glow, "--dataset", "mnist", "--output", noisy,
+                           "--n_epochs", "1", "--batch_size",
+                           str(IMAGE_GLOW_BATCH), *lr, *sig, *width])
+    levels = sorted(d for d in os.listdir(noisy) if d.startswith("sigma_"))
+    print(f"[9e] train_noisy_glow --dataset mnist, {L} levels: "
+          f"{time.time() - t0:.2f} s; {levels}")
+    if len(levels) != L:
+        raise AssertionError("train_noisy_glow sigma directories")
+    out, chunk, T = os.path.join(work, "sep_glow_img"), 8, 2
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    run_basis_sep.main([noisy, noisy, "--dataset", "mnist", "--model_type",
+                        "glow", "--winograd", "--output", out, "--n_mixed",
+                        str(IMG_BATCH), "--T", str(T), "--score_chunk",
+                        str(chunk), "--score_clip", "1", "--step_lr",
+                        IMAGE_STEP_LR, *sig, *width])
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = dict(W.launch_counts)
+    chunks = -(-IMG_BATCH // chunk)
+    want = {name: L * T * 2 * chunks * IMAGE_GLOW_ROUTED
+            if dt == torch.float32 else 0 for dt, name in W.KERNELS.items()}
+    with open(os.path.join(out, "out.log")) as f:
+        dur = [ln.strip() for ln in f if ln.startswith("Duration")]
+    res = np.load(os.path.join(out, "results.npz"), allow_pickle=True)
+    print(f"[9e] run_basis_sep --model_type glow --dataset mnist --winograd "
+          f"--T {T} --score_chunk {chunk}, {IMG_BATCH} mixtures: {dur}, "
+          f"wall-clock {wall:.2f} s, peak memory {peak:.2f} GiB; launches "
+          f"{got}, expected {want}; x1 {res['x1'].shape} in "
+          f"[{res['x1'].min():.0f}, {res['x1'].max():.0f}]")
+    if got != want:
+        raise AssertionError("the image Glow separation did not launch the "
+                             "f32 kernel for every routed conv")
+    for key in ("x1", "x2"):
+        a = res[key]
+        if a.shape != (IMG_BATCH, 32, 32) or a.min() < 0 or a.max() > 255 \
+                or not np.array_equal(a, np.round(a)):
+            raise AssertionError(f"results.npz {key}")
+    return got[W.KERNELS[torch.float32]]
+
+
+def kernels_line(res, routes):
+    """The ``kernels`` entries of the JSON line, one per kernel of
+    ``ops.winograd.KERNELS``. ``res[dname]`` holds a kernel's numbers over
+    one v1 forward's 64 routed convs (batch 30) and ``res[f"{dname}_{r}"]``
+    those of its route ``r`` (``dilated``: the cascade's 10 dilated convs;
+    ``glow``, ``image``, ``flowpp``: the routed convs of one such forward);
+    ``routes[dname][r]`` the launches of route ``r``'s main-path run (``""``
+    for the NCSN separation CLI), which the dilated route has none of."""
+    from audiosourcesep_tpu_torch.ops.winograd import KERNELS
+
+    def numbers(r):
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": max(r["by"], key=r["by"].get),
+                "library_ms": r["library_ms"]}      # cuDNN F.conv2d
+
+    kernels = []
+    for dtype, name in KERNELS.items():
+        dname = str(dtype).split(".")[1]
+        entry = {"name": name, "route": "cuda", "source": SOURCES[dname],
+                 "replaces": "audiosourcesep_tpu/ops/winograd.py:136",
+                 "launches": routes[dname][""], **numbers(res[dname])}
+        for key in sorted(res):
+            if key.startswith(dname + "_"):
+                route = key[len(dname) + 1:]
+                entry[f"{route}_route"] = numbers(res[key])
+                if route in routes[dname]:
+                    entry[f"{route}_route"]["launches"] = \
+                        routes[dname][route]
+        kernels.append(entry)
+    return kernels
+
+
 def main(argv):
     full = "--full" in argv
     try:
@@ -1275,35 +1877,38 @@ def main(argv):
         glow_launches = phase_glow_cli(work, ds, counts, full)
         if full:
             phase_cli(work, 100, "bf16")
+        n_train = phase_image_data(work)
+        res.update(phase_image_kernel())
+        image_launches = phase_image_ncsn(work, n_train, full)
+        phase_realnvp(work, smi)
+        flowpp_launches = phase_flowpp(smi)
+        image_glow_launches = phase_image_glow(work, n_train, full)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     from audiosourcesep_tpu_torch.ops.winograd import KERNELS
-    def numbers(r):
-        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": max(r["by"], key=r["by"].get),
-                "library_ms": r["library_ms"]}      # cuDNN F.conv2d
-
-    kernels = []
-    for dtype, name in KERNELS.items():
-        dname = str(dtype).split(".")[1]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[dname],
-            "replaces": "audiosourcesep_tpu/ops/winograd.py:136",
-            # the CLI run of this dtype (phase 5)
-            "launches": launches[dname][name],
-            # batch 30, summed over one v1 forward's 64 routed convs
-            **numbers(res[dname]),
-            # the same kernel on the d*d phase grids, summed over the
-            # cascade's 10 dilated convs (not routed by nn.conv2d)
-            "dilated_route": numbers(res[dname + "_dilated"]),
-        })
-    # the f32 kernel at the Glow coupling nets' 3x3 convs, summed over one
-    # Glow forward's 240 routed convs; launches of the Glow separation CLI
-    kernels[1]["glow_route"] = {**numbers(res["float32_glow"]),
-                                "launches": glow_launches}
-    print(f"[9] card: {smi}")
+    f32, bf16 = "float32", "bfloat16"
+    name = {str(dt).split(".")[1]: n for dt, n in KERNELS.items()}
+    routes = {
+        # the CLI separation of this dtype (phase 5)
+        f32: {"": launches[f32][name[f32]],
+              # the Glow separation CLI (phase 8e)
+              "glow": glow_launches,
+              # the image separation of this dtype (phase 9b)
+              "image": image_launches["f32"],
+              # one routed Flow++ train step (phase 9d)
+              "flowpp": flowpp_launches[name[f32]]},
+        bf16: {"": launches[bf16][name[bf16]],
+               "image": image_launches["bf16"],
+               # the same step: the flows run in f32, so phase 9d holds
+               # this to 0
+               "flowpp": flowpp_launches[name[bf16]]},
+    }
+    kernels = kernels_line(res, routes)
+    # the image Glow separation's f32 launches (its classes not timed)
+    next(k for k in kernels if k["name"] == name[f32])[
+        "image_glow_launches"] = image_glow_launches
+    print(f"[10] card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

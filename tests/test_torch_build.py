@@ -29,3 +29,35 @@ def test_digest_follows_sources_and_flags(monkeypatch):
     before = build._digest(build._sources())
     monkeypatch.setattr(build, "NVCC_FLAGS", [*build.NVCC_FLAGS, "-lineinfo"])
     assert build._digest(build._sources()) != before
+
+
+def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
+    """Each route's numbers and launches sit under the kernel of its
+    dtype (the f32 kernel's Glow route once landed under the bf16 entry,
+    which followed the f32 one in ``ops.winograd.KERNELS``)."""
+    import chip_smoke
+
+    def result(ms):
+        return {"ms": ms, "plain_ms": 0.0, "library_ms": 0.0,
+                "bound_ms": 1.0, "max_abs_err": 0.0,
+                "by": {"operations": 1.0, "bytes": 0.0}}
+
+    res = {"float32": result(1), "float32_dilated": result(2),
+           "float32_glow": result(3), "float32_image": result(4),
+           "bfloat16": result(11), "bfloat16_dilated": result(12),
+           "bfloat16_image": result(14)}
+    routes = {"float32": {"": 100, "glow": 300, "image": 400},
+              "bfloat16": {"": 110, "image": 410}}
+    line = {k["name"]: k for k in chip_smoke.kernels_line(res, routes)}
+    f32, bf16 = line["winograd_f23_fwd_f32"], line["winograd_f23_fwd_bf16"]
+    assert f32["source"].endswith("csrc/winograd.cu")
+    assert bf16["source"].endswith("csrc/winograd_mma.cu")
+    assert (f32["ms"], f32["launches"]) == (1, 100)
+    assert (f32["glow_route"]["ms"], f32["glow_route"]["launches"]) == \
+        (3, 300)
+    assert (f32["image_route"]["ms"], f32["image_route"]["launches"]) == \
+        (4, 400)
+    assert f32["dilated_route"]["ms"] == 2
+    assert "launches" not in f32["dilated_route"]
+    assert "glow_route" not in bf16
+    assert (bf16["ms"], bf16["image_route"]["launches"]) == (11, 410)

@@ -12,7 +12,10 @@ import torch
 import torch.nn.functional as F
 
 from audiosourcesep_tpu_torch import nn
-from audiosourcesep_tpu_torch.models import build_glow
+from audiosourcesep_tpu_torch.bijectors.mixlogcdf import (mixlog_inv_cdf,
+                                                          mixlog_logcdf)
+from audiosourcesep_tpu_torch.models import (build_flowpp, build_glow,
+                                             build_realnvp)
 from audiosourcesep_tpu_torch.models.ncsn import (dsm_loss, get_score_model,
                                                   get_sigmas)
 from audiosourcesep_tpu_torch.ops import inversion
@@ -63,7 +66,22 @@ def _inputs(shape, cout, dtype, seed=0):
                                         ((2, 10, 2, 24), 200),
                                         ((2, 16, 12, 192), 192),
                                         ((1, 8, 8, 384), 384),
-                                        ((2, 8, 8, 192), 384)])
+                                        ((2, 8, 8, 192), 384),
+                                        # the image NCSN's classes at
+                                        # 32x32 and 16x16 (192 filters)
+                                        ((2, 32, 32, 1), 192),
+                                        ((2, 32, 32, 192), 384),
+                                        ((2, 16, 16, 384), 192),
+                                        ((2, 32, 32, 192), 1),
+                                        # Flow++'s at 32x16, 16x16, 16x8
+                                        # (96 filters, CIFAR-10)
+                                        ((2, 32, 16, 3), 96),
+                                        ((2, 32, 16, 192), 96),
+                                        ((2, 32, 16, 96), 294),
+                                        ((2, 32, 16, 64), 64),
+                                        ((2, 16, 16, 96), 588),
+                                        ((2, 16, 8, 12), 96),
+                                        ((2, 16, 8, 96), 1176)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, cout, dtype):
     x, k = _inputs(shape, cout, dtype)
@@ -419,3 +437,111 @@ def test_glow_train_step_on_the_card_matches_the_cpu(cuda):
 
     assert rel(lambda p: p.grad) <= 1e-3
     assert rel(lambda p: p) <= 1e-3
+
+
+def _to_card(cpu, build, cuda):
+    gpu = build(device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    return gpu
+
+
+def test_realnvp_log_prob_on_the_card_matches_the_cpu(cuda):
+    """RealNVP (32 filters, 4 blocks, [32, 32, 1]; its convs stay on
+    cuDNN): log p and the inverse of its latent to 1e-4 (L2 relative)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 256, (4, 32, 32, 1), generator=g).float()
+    u = torch.rand(x.shape, generator=g)
+    cpu = build_realnvp((32, 32, 1), minibatch=x, generator=g)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "conv_out.v" in name:
+                p.copy_(1e-2 * torch.randn(p.shape, generator=g))
+    gpu = _to_card(cpu, lambda device: build_realnvp((32, 32, 1),
+                                                     device=device), cuda)
+    with torch.no_grad():
+        lp, lp_g = cpu.log_prob(x, u), gpu.log_prob(x.to(cuda), u.to(cuda))
+        z = cpu.bijector(x + u)[0]
+        back = gpu.sample(z.to(cuda)).cpu()
+    assert (lp_g.cpu() - lp).norm() <= 1e-4 * lp.norm()
+    assert (back - (x + u)).norm() <= 1e-4 * (x + u).norm()
+
+
+def test_flowpp_on_the_card_matches_the_cpu_routed_or_not(cuda):
+    """A narrow Flow++ on [8, 8, 1] (8 filters, 2 components, one block a
+    net, the output convs at 0.1 of their init, where f32 log p is 4.5e-7
+    from float64 on the CPU; at this narrow width the unscaled init
+    saturates more of the mixture CDFs, where f32 loses accuracy, as the
+    next test bounds): log p with the same eps
+    to 1e-4 (L2 relative), routing off and on; routed, each log p launches
+    the f32 kernel once per 3x3 conv of the flow."""
+    cfg = dict(n_components=2, n_blocks_flow=1, n_blocks_dequant=1,
+               filters=8, heads=2)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randint(0, 256, (4, 8, 8, 1), generator=g).float()
+    eps = torch.randn(x.shape, generator=g)
+    cpu = build_flowpp((8, 8, 1), minibatch=x, generator=g, **cfg)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "conv_out" in name:
+                p.mul_(0.1)
+    gpu = _to_card(cpu, lambda device: build_flowpp((8, 8, 1),
+                                                    device=device, **cfg),
+                   cuda)
+    n_convs = sum(1 for m in gpu.modules() if isinstance(m, nn.Conv2d))
+    with torch.no_grad():
+        lp = cpu.log_prob(x, eps)
+        for routed in (False, True):
+            try:
+                nn.set_winograd(routed)
+                before = W.launch_counts[W.KERNELS[torch.float32]]
+                lp_g = gpu.log_prob(x.to(cuda), eps.to(cuda))
+                launched = W.launch_counts[W.KERNELS[torch.float32]] - before
+            finally:
+                nn.set_winograd(False)
+            assert launched == (n_convs if routed else 0)
+            assert (lp_g.cpu() - lp).norm() <= 1e-4 * lp.norm()
+
+
+def test_flowpp_in_float64_on_the_card_matches_the_cpu_at_its_own_init(cuda):
+    """The narrow Flow++ above at build_flowpp's own init (output convs
+    unscaled, where training starts), routing off: in float64 card and
+    CPU agree to 1e-10 (L2 relative), and each device's f32 log p stays
+    within 1e-3 of its float64 one, so what f32 loses
+    at the mixture CDFs' clip is rounding, not the card's path."""
+    cfg = dict(n_components=2, n_blocks_flow=1, n_blocks_dequant=1,
+               filters=8, heads=2)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randint(0, 256, (4, 8, 8, 1), generator=g).float()
+    eps = torch.randn(x.shape, generator=g)
+    cpu = build_flowpp((8, 8, 1), minibatch=x, generator=g, **cfg)
+    gpu = _to_card(cpu, lambda device: build_flowpp((8, 8, 1),
+                                                    device=device, **cfg),
+                   cuda)
+    lps = {}
+    with torch.no_grad():
+        for dev, m in (("card", gpu), ("cpu", cpu)):
+            where = torch.device(cuda if dev == "card" else "cpu")
+            for dtype in (torch.float32, torch.float64):
+                m.to(dtype)
+                lps[dev, dtype] = m.log_prob(
+                    x.to(where, dtype), eps.to(where, dtype)).cpu().double()
+
+    def rel(a, b):
+        return float((lps[a] - lps[b]).norm() / lps[b].norm())
+
+    assert rel(("card", torch.float64), ("cpu", torch.float64)) <= 1e-10
+    for dev in ("card", "cpu"):
+        assert rel((dev, torch.float32), (dev, torch.float64)) <= 1e-3
+
+
+def test_mixlog_inv_cdf_round_trip_on_the_card(cuda):
+    """The 64-step bisection on the card: x back from its CDF to 1e-3."""
+    g = torch.Generator().manual_seed(2)
+    logits, means = torch.randn(4096, 32, generator=g), \
+        2 * torch.randn(4096, 32, generator=g)
+    log_scales = -torch.rand(4096, 32, generator=g) - 0.2
+    x = torch.linspace(-3, 3, 4096)
+    y = torch.exp(mixlog_logcdf(x, logits, means, log_scales))
+    got = mixlog_inv_cdf(*(t.to(cuda) for t in (y, logits, means,
+                                                log_scales)))
+    assert (got.cpu() - x).abs().max() <= 1e-3
