@@ -2,8 +2,9 @@
 
 Host-side data is plain numpy (thousands of 96x64 patches or 32x32
 images); batches are drawn by :class:`ArrayDataset` with the JAX
-package's shuffle, so the same seed gives the same batch order.
-Per-host sharding is not ported yet.
+package's shuffle, so the same seed gives the same batch order. Under
+data parallelism each process holds its shard of the examples
+(``num_hosts`` / ``host_id``), the JAX package's shards exactly.
 """
 
 from __future__ import annotations
@@ -58,11 +59,20 @@ class ArrayDataset:
     """Shuffled, batched iteration over a numpy array: drop_remainder by
     default, like the reference's training batches; ``drop_remainder=False``
     keeps the final partial batch (the reference's eval batching). Each
-    pass draws a new permutation from ``np.random.RandomState(seed)``."""
+    pass draws a new permutation from ``np.random.RandomState(seed)``.
+
+    ``num_hosts > 1``: this process keeps examples ``host_id::num_hosts``,
+    cut to ``len(data) // num_hosts`` so that every process runs the same
+    number of batches (a process with one batch more would wait alone in
+    the step's collective). ``n_global`` is the count before the cut."""
 
     def __init__(self, data: np.ndarray, batch_size: Optional[int],
                  shuffle: bool = True, seed: int = 0,
+                 num_hosts: int = 1, host_id: int = 0,
                  drop_remainder: bool = True):
+        self.n_global = len(data)
+        if num_hosts > 1:
+            data = data[host_id::num_hosts][:len(data) // num_hosts]
         self.data = data
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -106,24 +116,34 @@ def _find_tfrecords(dirpath: str) -> List[str]:
 
 def load_melspec_ds(train_dirpath: str, test_dirpath: str,
                     batch_size: Optional[int] = 256, shuffle: bool = True,
-                    seed: int = 0):
+                    seed: int = 0, num_hosts: int = 1, host_id: int = 0):
     """Load train/test melspec TFRecords.
 
     Returns ``(ds_train, ds_test, minibatch, n_train, n_test)``
     (data_loader.py:69-110): arrays get a trailing channel axis, training
-    batches drop the remainder, evaluation batches keep it (a test split
-    smaller than a batch would otherwise give no validation batch), and
-    ``minibatch`` is the first training batch (drawn from ``ds_train``, so
-    its shuffle advances as in the JAX package).
+    batches drop the remainder, evaluation batches keep it in a single
+    process (a test split smaller than a batch would otherwise give no
+    validation batch), and ``minibatch`` is the first training batch
+    (drawn from ``ds_train``, so its shuffle advances as in the JAX
+    package). ``num_hosts > 1``: each process holds its shard
+    (:class:`ArrayDataset`) at the local ``batch_size``, evaluation drops
+    its remainder too (every process must run the same batches), and
+    ``minibatch`` is the first ``batch_size`` examples before sharding,
+    the same on every process (a data-dependent init must not differ).
+    ``n_train`` and ``n_test`` count every process's examples.
     """
     train = np.stack(load_tf_records(_find_tfrecords(train_dirpath)))
     test = np.stack(load_tf_records(_find_tfrecords(test_dirpath)))
     train = train[..., None].astype(np.float32)
     test = test[..., None].astype(np.float32)
-    ds_train = ArrayDataset(train, batch_size, shuffle, seed)
-    ds_test = ArrayDataset(test, batch_size, shuffle, seed + 1,
-                           drop_remainder=False)
-    minibatch = next(iter(ds_train))
+    ds_train = ArrayDataset(train, batch_size, shuffle, seed, num_hosts,
+                            host_id)
+    ds_test = ArrayDataset(test, batch_size, shuffle, seed + 1, num_hosts,
+                           host_id, drop_remainder=num_hosts > 1)
+    if num_hosts > 1:
+        minibatch = train[:max(batch_size, 1)]
+    else:
+        minibatch = next(iter(ds_train))
     return ds_train, ds_test, minibatch, len(train), len(test)
 
 
@@ -132,7 +152,8 @@ def load_melspec_ds(train_dirpath: str, test_dirpath: str,
 # ---------------------------------------------------------------------------
 
 def load_toydata(dataset: str = "mnist", batch_size: int = 256,
-                 seed: int = 0, data_dir: Optional[str] = None):
+                 seed: int = 0, data_dir: Optional[str] = None,
+                 num_hosts: int = 1, host_id: int = 0):
     """MNIST (zero-padded 28 -> 32) or CIFAR-10 as float32 NHWC arrays in
     [0, 256). Returns ``(ds_train, ds_test, minibatch)``.
 
@@ -149,7 +170,11 @@ def load_toydata(dataset: str = "mnist", batch_size: int = 256,
 
     Training batches drop the remainder; the evaluation set is iterated
     in batches of up to 5,000 images, its remainder kept. The minibatch
-    for data-dependent init is the first training batch.
+    for data-dependent init is the first training batch. ``num_hosts >
+    1``: each process holds its shard of both sets (:class:`ArrayDataset`),
+    evaluates in batches of ``min(5000, n_test) // num_hosts`` with the
+    remainder dropped, and takes the first ``batch_size`` training images
+    before sharding as the minibatch, the same on every process.
     """
     if dataset == "mnist":
         path = (data_dir or os.environ.get("ASR_MNIST_NPZ")
@@ -175,10 +200,17 @@ def load_toydata(dataset: str = "mnist", batch_size: int = 256,
         x_test = np.pad(x_test, ((0, 0), (2, 2), (2, 2)))[..., None]
     x_train = x_train.astype(np.float32)
     x_test = x_test.astype(np.float32)
-    ds_train = ArrayDataset(x_train, batch_size, True, seed)
-    ds_test = ArrayDataset(x_test, max(min(5000, len(x_test)), 1), False,
-                           seed, drop_remainder=False)
-    minibatch = next(iter(ds_train))
+    ds_train = ArrayDataset(x_train, batch_size, True, seed, num_hosts,
+                            host_id)
+    # the evaluation batch is per process, bounded by the shard
+    ds_test = ArrayDataset(x_test,
+                           max(min(5000, len(x_test)) // num_hosts, 1),
+                           False, seed, num_hosts, host_id,
+                           drop_remainder=num_hosts > 1)
+    if num_hosts > 1:
+        minibatch = x_train[:max(batch_size, 1)]
+    else:
+        minibatch = next(iter(ds_train))
     return ds_train, ds_test, minibatch
 
 

@@ -13,7 +13,6 @@ from fractions import Fraction
 from typing import Optional, Tuple
 
 import numpy as np
-from scipy.signal import resample_poly
 
 
 def read_wav(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
@@ -122,6 +121,9 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     quality to librosa's default kaiser_best path for these rates)."""
     if orig_sr == target_sr:
         return audio
+    # imported here: scipy.signal takes seconds to import, and only a
+    # resampling load needs it
+    from scipy.signal import resample_poly
     frac = Fraction(target_sr, orig_sr).limit_denominator(1000)
     return resample_poly(audio, frac.numerator, frac.denominator
                          ).astype(np.float32)

@@ -26,22 +26,35 @@ over ``[minval, maxval]``, outputs only clipped), with the score
 frames at a time.
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
-``--shard_sources`` is not ported yet and raises.
+
+Under torchrun (``WORLD_SIZE`` > 1) the separation runs over the ranks,
+as the JAX script runs over the devices: by default each rank holds both
+priors and its shard of the frames; with ``--shard_sources`` (an even
+number of ranks) each rank holds ONE prior (for Glow, one source's chain
+of noise levels) and its source's frames, JAX's ``(source, data)`` mesh,
+and the mixing gathers the other source's frames each step. Ranks that
+share a card use gloo. Rank 0 gathers the result and alone writes the
+outputs; ``Duration`` is its wall-clock between barriers.
+
+    torchrun --nproc_per_node 2 -m audiosourcesep_tpu_torch.run_basis_sep \
+        CKPT1 CKPT2 --song_dir SONG --shard_sources --compute_dtype bf16
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import nn as nn_mod
-from .cli import apply_config_override, resolve_device
+from .cli import (apply_config_override, describe_multihost, multihost,
+                  setup_output_dir)
+from .parallel import is_main_process, make_layout, world_size
 from .data import get_mixture_toydata, get_song_extract, write_wav
 from .models import build_glow
 from .models.ncsn import get_score_model, get_sigmas
@@ -49,7 +62,8 @@ from .ops.inversion import mel_to_audio
 from .ops.mel import db_to_power
 from .separation import (BasisConfig, basis_separate_per_level,
                          glow_score_fn, ncsn_score_fn, postprocess,
-                         preprocess_mixture)
+                         preprocess_mixture, source_sharded_glow_score,
+                         source_sharded_ncsn_score)
 from .training.checkpoint import restore_ncsn_params
 
 SPEC_PARAMS = {"length_sec": 2.04, "dbmin": -100.0, "dbmax": 20.0,
@@ -94,7 +108,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device; cuda raises when no GPU is "
                              "present")
     parser.add_argument("--shard_sources", action="store_true",
-                        help="not ported yet: raises")
+                        help="over an even number of ranks (torchrun): "
+                             "each rank holds ONE prior and its source's "
+                             "frames (JAX's (source, data) mesh); for "
+                             "Glow priors, one source's chain of noise "
+                             "levels")
     parser.add_argument("--score_chunk", type=int, default=8,
                         help="Glow priors only: take the score's gradient "
                              "through the flow over this many frames at a "
@@ -134,18 +152,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _not_ported(args) -> None:
-    if args.shard_sources:
-        raise NotImplementedError(
-            "--shard_sources is not yet ported to audiosourcesep_tpu_torch; "
-            "use the JAX run_basis_sep.py")
-
-
-def _restore_ncsn_models(args, data_shape, sigmas, device):
-    """The two NCSN priors, built on ``meta`` and loaded strictly."""
+def _restore_ncsn_models(args, data_shape, sigmas, device, sources):
+    """The NCSN priors of ``sources`` (a slice of the two), built on
+    ``meta`` and loaded strictly."""
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bf16" else None
     models = []
-    for i, path in enumerate((args.RESTORE1, args.RESTORE2)):
+    for i, path in list(enumerate((args.RESTORE1, args.RESTORE2)))[sources]:
         model = get_score_model(args.version, data_shape, args.n_filters,
                                 int(args.num_classes), sigmas=sigmas,
                                 logit_transform=args.use_logit,
@@ -180,9 +192,8 @@ def _restore_glow(root, sigma, args, data_shape, data_type, minval, maxval,
     return model.eval().requires_grad_(False)
 
 
-def run(args: argparse.Namespace) -> None:
-    _not_ported(args)
-    device = resolve_device(args.device)
+def run(args: argparse.Namespace, device: torch.device) -> None:
+    describe_multihost()
     sigmas = get_sigmas(args.sigma1, args.sigmaL, int(args.num_classes),
                         args.progression)
     if args.dataset in ("mnist", "cifar10"):
@@ -226,7 +237,8 @@ def run(args: argparse.Namespace) -> None:
         mixed, gt1, gt2 = mel_spec
         for name, audio in zip(("mix.wav", "ground_truth1.wav",
                                 "ground_truth2.wav"), raw_audio):
-            write_wav(os.path.join(out_dir, name), audio, spec["sr"])
+            if is_main_process():
+                write_wav(os.path.join(out_dir, name), audio, spec["sr"])
     mixed = torch.as_tensor(mixed, device=device)
     x_init = torch.rand((2, *mixed.shape), generator=gen, device=device)
     if model_scale:
@@ -237,16 +249,29 @@ def run(args: argparse.Namespace) -> None:
     print(f"Data Loaded in {round(time.time() - t0, 3)} seconds")
 
     # ---------------- models ----------------------------------------------
+    n_ranks = world_size()
+    shard_sources = args.shard_sources and n_ranks > 1 and n_ranks % 2 == 0
+    if args.shard_sources and not shard_sources:
+        print("--shard_sources ignored (needs an even device count > 1)")
+    # every rank: its frame shard of both sources, or with --shard_sources
+    # JAX's (source, data) layout, one source (and one prior) per rank
+    layout = make_layout(2 if shard_sources else 1) if n_ranks > 1 else None
+    sources = layout.sources if layout is not None else slice(None)
     nn_mod.set_winograd(args.winograd)
     if model_scale:
-        score_fn = glow_score_fn(
-            [[_restore_glow(root, sigma, args, data_shape, data_type,
-                            minval, maxval, alpha, device)
-              for root in (args.RESTORE1, args.RESTORE2)]
-             for sigma in sigmas], frame_chunk=args.score_chunk or None)
+        chains = [[_restore_glow(root, sigma, args, data_shape, data_type,
+                                 minval, maxval, alpha, device)
+                   for root in (args.RESTORE1, args.RESTORE2)[sources]]
+                  for sigma in sigmas]
+        score_fn = (source_sharded_glow_score if shard_sources
+                    else glow_score_fn)(
+            chains, *([layout] if shard_sources else []),
+            frame_chunk=args.score_chunk or None)
     else:
-        score_fn = ncsn_score_fn(_restore_ncsn_models(args, data_shape,
-                                                      sigmas, device))
+        models = _restore_ncsn_models(args, data_shape, sigmas, device,
+                                      sources)
+        score_fn = (source_sharded_ncsn_score(models, layout)
+                    if shard_sources else ncsn_score_fn(models))
     print("Parameters \n\t " + "".join(f"{k} = {v} \n\t "
                                        for k, v in vars(args).items()))
 
@@ -258,12 +283,22 @@ def run(args: argparse.Namespace) -> None:
     def progress(level, x):
         print(f"Sigma = {sigmas[level]} ({level + 1} / {len(sigmas)}) done")
 
+    if layout is not None:
+        print(f"Layout: rank {layout.rank} of {layout.world_size} holds "
+              f"source(s) {list(range(2))[sources]}, frame shard "
+              f"{layout.data_index} of {layout.data_size}")
+        dist.barrier()
     t0 = time.time()
     x_final, traj = basis_separate_per_level(
-        score_fn, mixed, x_init, sigmas, gen, cfg, callback=progress)
+        score_fn, mixed, x_init, sigmas, gen, cfg, callback=progress,
+        layout=layout)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if layout is not None:
+        dist.barrier()
     print(f"Duration: {round(time.time() - t0, 3)} seconds")
+    if not is_main_process():
+        return      # rank 0 holds the gathered result and writes it
 
     # ---------------- save results ----------------------------------------
     def post(x):
@@ -304,22 +339,23 @@ def main(argv=None) -> None:
     """Parse ``argv`` (default ``sys.argv[1:]``) and run the separation.
 
     Outputs go to ``--output``; unless ``--debug``, stdout is written to
-    ``out.log`` there for the duration of the call.
+    ``out.log`` there (``out_rank{r}.log`` on rank ``r > 0``) for the
+    duration of the call. With ``WORLD_SIZE`` > 1 in the environment
+    (torchrun) it joins the process group first and leaves it at the end.
     """
     args = build_parser().parse_args(argv)
     args.RESTORE1 = os.path.abspath(args.RESTORE1)
     args.RESTORE2 = os.path.abspath(args.RESTORE2)
     args = apply_config_override(args, _KEEP)
-    os.makedirs(args.output, exist_ok=True)
+    # as the JAX script uses every device: every rank torchrun started
+    args.multihost = int(os.environ.get("WORLD_SIZE", "1")) > 1
     winograd_was = nn_mod.winograd_enabled()
-    with open(os.path.join(args.output, "out.log"), "w") as log_file:
-        redirect = (contextlib.nullcontext() if args.debug
-                    else contextlib.redirect_stdout(log_file))
-        try:
-            with redirect:
-                run(args)
-        finally:
-            nn_mod.set_winograd(winograd_was)
+    try:
+        with multihost(args) as device, \
+                setup_output_dir(args.output, args.debug):
+            run(args, device)
+    finally:
+        nn_mod.set_winograd(winograd_was)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,16 @@ with ``eta = delta * (sigma / sigma_L)^2`` and ``lambda = 1 / sigma^2``.
 PyTorch runs eagerly, so the JAX package's jitted per-level scan becomes a
 Python loop over steps, and its single L*T program (``basis_separate``)
 the same loop over all levels in one call.
+
+Over several ranks (a :class:`~..parallel.Layout`) each rank anneals its
+block of the sources: its frame shard of both sources (the frames are
+independent, so this needs no collective), or on JAX's ``(source, data)``
+layout one source's frames, whose model it alone holds
+(:func:`source_sharded_ncsn_score`, :func:`source_sharded_glow_score`);
+the mixing then gathers the other source's block each step. Every draw
+is made over the global sources and sliced, so a layout changes no
+draw; a model that sees fewer frames a forward (frames sharded) rounds
+otherwise.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import Layout
 from .mixing import mixing_process
 
 
@@ -77,17 +88,69 @@ def glow_score_fn(models_per_level: Sequence[Sequence[torch.nn.Module]],
     return score
 
 
+def _one_model_per_rank(n_models: int, x: torch.Tensor, what: str) -> None:
+    # the local eval takes x[0] with the one model: valid only when this
+    # rank holds exactly one source's model and one source's frames; any
+    # mismatch would evaluate the wrong model on the wrong source
+    if n_models != 1 or x.shape[0] != 1:
+        raise ValueError(
+            f"source-sharded {what}: a rank holds {n_models} models and "
+            f"{x.shape[0]} sources; each rank must hold exactly one "
+            "source and its model")
+
+
+def source_sharded_ncsn_score(models: Sequence[torch.nn.Module],
+                              layout: Layout) -> Callable:
+    """NCSN score on JAX's ``(source, data)`` layout: this rank holds ONE
+    model (``models``, of length 1: its source's, ``layout.source``) and
+    runs it as a plain forward on its frames, ``score(x [1, n_local,
+    ...], sigma_idx, level) -> [1, n_local, ...]``. Raises unless the rank
+    holds exactly one model and one source."""
+    if layout.n_sources != 2:
+        raise ValueError("source-sharded score needs a layout of 2 sources")
+
+    def score(x: torch.Tensor, sigma_idx: torch.Tensor,
+              level: int) -> torch.Tensor:
+        del level
+        _one_model_per_rank(len(models), x, "score")
+        return models[0](x[0], sigma_idx)[None]
+
+    return score
+
+
+def source_sharded_glow_score(
+        models_per_level: Sequence[Sequence[torch.nn.Module]],
+        layout: Layout, frame_chunk: Optional[int] = None) -> Callable:
+    """Glow score on JAX's ``(source, data)`` layout: this rank holds ONE
+    source's chain of flows, ``models_per_level[level]`` of length 1, and
+    differentiates its flow on its frames (``frame_chunk`` at a time, as
+    :func:`glow_score_fn`). Raises unless the rank holds exactly one
+    source's flows and one source."""
+    if layout.n_sources != 2:
+        raise ValueError("source-sharded score needs a layout of 2 sources")
+    local = glow_score_fn(models_per_level, frame_chunk)
+
+    def score(x: torch.Tensor, sigma_idx: torch.Tensor,
+              level: int) -> torch.Tensor:
+        _one_model_per_rank(len(models_per_level[level]), x, "glow score")
+        return local(x, sigma_idx, level)
+
+    return score
+
+
 @torch.no_grad()
 def basis_separate_per_level(score_fn: Callable, mixed: torch.Tensor,
                              x_init: torch.Tensor, sigmas,
                              generator: Optional[torch.Generator] = None,
                              config: BasisConfig = BasisConfig(),
                              callback: Optional[Callable] = None,
-                             noise_fn: Optional[Callable] = None):
+                             noise_fn: Optional[Callable] = None,
+                             layout: Optional[Layout] = None):
     """Annealed BASIS separation, one noise level at a time.
 
     Args:
-        score_fn: ``(x [K, N, ...], sigma_idx [N], level) -> scores``.
+        score_fn: ``(x [K, N, ...], sigma_idx [N], level) -> scores``, on
+            this rank's block of ``x`` with a ``layout``.
         mixed: ``[N, ...]`` preprocessed mixture.
         x_init: ``[K, N, ...]`` initial sources (not modified).
         sigmas: ``[L]`` noise schedule.
@@ -96,19 +159,32 @@ def basis_separate_per_level(score_fn: Callable, mixed: torch.Tensor,
         noise_fn: optional ``(level, step) -> standard-normal tensor`` of
             ``x_init``'s shape, used instead of ``generator`` (tests feed
             the JAX package's exact draws through it).
-        callback: ``callback(level, x)`` after each level.
+        callback: ``callback(level, x)`` after each level (``x`` this
+            rank's block).
+        layout: anneal over its ranks. ``mixed`` and ``x_init`` are the
+            global tensors, the same on every rank; the frames are padded
+            by wrapping to a multiple of the frame shards (padding frames
+            are copies of real ones and drawn alike, so they change
+            nothing). Every rank draws every noise over the global
+            ``x_init`` shape and keeps its block.
     Returns:
-        ``(x_final [K, N, ...], trajectory [L+1, K, N, ...] or None)``.
+        ``(x_final [K, N, ...], trajectory [L+1, K, N, ...] or None)``,
+        with a ``layout`` gathered on rank 0 (``(None, None)`` on the
+        other ranks).
     """
     g, grad_g = mixing_process(config.data_type, config.scale)
     sig = np.asarray(sigmas, np.float32)
     L = sig.shape[0]
-    N = x_init.shape[1]
+    layout = layout or Layout()
+    n_frames = x_init.shape[1]
+    rows = layout.sources
+    mixed = layout.local(mixed, frame_axis=0, source_axis=None)
     # x is updated in place: the port's stand-in for the JAX package's
     # buffer donation into the per-level program. The caller's x_init is
     # copied first and each trajectory entry is a snapshot copy.
-    x = x_init.clone()
-    traj = [x_init.clone()] if config.collect_trajectory else None
+    x = layout.local(x_init).clone()
+    N = x.shape[1]
+    traj = [x.clone()] if config.collect_trajectory else None
     for level in range(L):
         sigma = sig[level]
         eta = np.float32(config.delta) * np.square(sigma / sig[-1])
@@ -121,17 +197,23 @@ def basis_separate_per_level(score_fn: Callable, mixed: torch.Tensor,
                 noise = noise_fn(level, step).to(device=x.device,
                                                  dtype=x.dtype)
             else:
-                noise = torch.randn(x.shape, generator=generator,
+                noise = torch.randn(x_init.shape, generator=generator,
                                     device=x.device, dtype=x.dtype)
+            noise = layout.local(noise)
             scores = _clip_scores(score_fn(x, labels, level), sigma,
                                   config.score_clip)
-            recon = lam * grad_g(x) * (mixed - g(x))
+            # the mixing over every source of this rank's frames
+            xs = layout.gather_sources(x)
+            recon = lam * grad_g(xs)[rows] * (mixed - g(xs))
             x.add_(eta * (scores + recon)).add_(noise * noise_scale)
         if callback is not None:
             callback(level, x)
         if config.collect_trajectory:
             traj.append(x.clone())
-    return x, (torch.stack(traj) if config.collect_trajectory else None)
+    x = layout.gather(x, n_frames)
+    if traj is not None:
+        traj = layout.gather(torch.stack(traj), n_frames, frame_axis=2)
+    return x, traj
 
 
 # The full annealed separation in one call (all L levels x T steps): in

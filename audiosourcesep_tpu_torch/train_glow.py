@@ -17,8 +17,9 @@ flow's ``ImgPreprocessing``).
         --config configs/melspec_glow.yml --device cuda
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU. A
-``--config`` YAML overlays the flags. ``--multihost`` is not ported yet
-and raises.
+``--config`` YAML overlays the flags. ``--multihost`` trains
+data-parallel, one rank per process, as ``train_ncsn --multihost`` does
+(the bits/dim is averaged over the ranks' test shards).
 """
 
 from __future__ import annotations
@@ -30,13 +31,16 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import cli
 from .models import build_glow
+from .parallel import is_main_process, make_mesh_for_batch
 from .training import (CheckpointManager, LoopConfig, NullWriter,
                        image_grid, init_train_state, make_flow_train_step,
                        plot_to_image, run_training, setup_optimizer,
                        setup_tensorboard)
+from .utils import total_trainable_variables
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,7 +96,7 @@ def build_model(args, data: dict, device: torch.device):
         minibatch=torch.as_tensor(data["minibatch"], device=device),
         generator=torch.Generator().manual_seed(args.seed), device=device)
     print(f"Total Trainable Variables: "
-          f"{sum(p.numel() for p in model.parameters()):,}")
+          f"{total_trainable_variables(model):,}")
     return model
 
 
@@ -104,20 +108,23 @@ def output_name(args) -> str:
             f"_{args.n_filters}_{getattr(args, 'scale', 'img')}")
 
 
-def run(args: argparse.Namespace) -> None:
-    device = cli.resolve_device(args.device)
+def run(args: argparse.Namespace, device: torch.device) -> None:
+    cli.describe_multihost()
     out = args.output
     data = cli.resolve_dataset(args)
     samples_dir = os.path.join(out, "generated_samples")
     os.makedirs(samples_dir, exist_ok=True)
-    train_writer, test_writer = setup_tensorboard(
-        os.path.join(out, "tensorboard_logs"))
+    is_main = is_main_process()
+    train_writer, test_writer = (setup_tensorboard(
+        os.path.join(out, "tensorboard_logs")) if is_main
+        else (NullWriter(), NullWriter()))
 
     model = build_model(args, data, device)
     optimizer = setup_optimizer(args.optimizer, args.learning_rate,
                                 clipnorm=getattr(args, "clipnorm", None))
     state = init_train_state(model, optimizer)
-    step, eval_loss = make_flow_train_step()
+    layout = make_mesh_for_batch(args.batch_size)
+    step, eval_loss = make_flow_train_step(layout=layout)
 
     if args.restore is not None:
         mgr = CheckpointManager(os.path.join(args.restore, "ckpts"))
@@ -137,6 +144,10 @@ def run(args: argparse.Namespace) -> None:
         samples = model.sample(z).reshape(32, *data["data_shape"])
         samples = torch.clamp(samples, data["minval"], data["maxval"])
         samples = samples.cpu().numpy()
+        # every rank samples (its generator stays in step with its peers')
+        # and rank 0 writes
+        if not is_main:
+            return
         np.save(os.path.join(samples_dir, f"generated_samples_{epoch}"),
                 samples)
         if draw:
@@ -167,6 +178,12 @@ def run(args: argparse.Namespace) -> None:
             bpds.append(float(model.bits_per_dim(x, dequant).mean()))
     if bpds:
         bits_raw = float(np.mean(bpds))
+        if layout is not None:
+            # every rank holds as many test batches: the mean of the means
+            bits = torch.tensor([bits_raw], dtype=torch.float64,
+                                device=device)
+            dist.all_reduce(bits)
+            bits_raw = float(bits) / layout.data_size
         print(f"Validation bits/dim: {bits_raw:.4f}")
         if data["data_type"] == "melspec":
             # bits of the [0,1]-rescaled variable y = (x - minval) / span:
@@ -184,10 +201,10 @@ def main(argv=None) -> None:
     ``--output``; unless ``--debug``, stdout is written to ``out.log``
     there for the duration of the call."""
     args = cli.apply_config_override(build_parser().parse_args(argv))
-    cli.refuse_not_ported(args, "train_glow.py")
     args.output = output_name(args)
-    with cli.setup_output_dir(args.output, args.debug):
-        run(args)
+    with cli.multihost(args) as device:
+        with cli.setup_output_dir(args.output, args.debug):
+            run(args, device)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,17 @@ npz, rescaled to [0, 1] for training like the spectrograms).
 ``--device`` defaults to ``cuda`` and never falls back to the CPU. A
 ``--config`` YAML overlays the flags: the keys it names replace them, the
 others (``seed``, ``sample_every``, ...) keep their values.
-``--multihost`` is not ported yet and raises.
+
+``--multihost`` trains data-parallel, one rank per process
+(``cli.multihost``): each rank takes its shard of the data and its slice
+of the global ``--batch_size``, the gradients are averaged over the ranks
+each step, and only rank 0 writes checkpoints, samples and ``out.log``::
+
+    torchrun --nproc_per_node 4 -m audiosourcesep_tpu_torch.train_ncsn \
+        --dataset DATA --multihost --ema
+    python -m audiosourcesep_tpu_torch.train_ncsn --dataset DATA \
+        --multihost --coordinator_address HOST:PORT --num_processes 2 \
+        --process_id 0          # and 1 in a second process
 """
 
 from __future__ import annotations
@@ -31,12 +41,14 @@ import numpy as np
 import torch
 
 from . import cli
+from .parallel import is_main_process, make_mesh_for_batch
 from .models.ncsn import (anneal_langevin_dynamics, get_score_model,
                           get_sigmas)
 from .training import (CheckpointManager, LoopConfig, NullWriter,
                        image_grid, init_train_state, make_ncsn_train_step,
                        plot_to_image, run_training, setup_optimizer,
                        setup_tensorboard)
+from .utils import total_trainable_variables
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,16 +115,18 @@ def output_name(args) -> str:
             f"_{getattr(args, 'scale', 'img')}")
 
 
-def run(args: argparse.Namespace) -> None:
-    device = cli.resolve_device(args.device)
+def run(args: argparse.Namespace, device: torch.device) -> None:
+    cli.describe_multihost()
     out = args.output
     data = cli.resolve_dataset(args)
     sigmas = get_sigmas(args.sigma1, args.sigmaL, args.num_classes,
                         args.progression)
     samples_dir = os.path.join(out, "generated_samples")
     os.makedirs(samples_dir, exist_ok=True)
-    train_writer, test_writer = setup_tensorboard(
-        os.path.join(out, "tensorboard_logs"))
+    is_main = is_main_process()
+    train_writer, test_writer = (setup_tensorboard(
+        os.path.join(out, "tensorboard_logs")) if is_main
+        else (NullWriter(), NullWriter()))
 
     alpha = args.alpha or 1e-6
     for split in ("ds_train", "ds_test"):
@@ -123,13 +137,15 @@ def run(args: argparse.Namespace) -> None:
                             args.num_classes, sigmas=sigmas,
                             logit_transform=args.use_logit, device=device)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
-    print(f"Total Trainable Variables: {model.count_params():,}")
+    print(f"Total Trainable Variables: "
+          f"{total_trainable_variables(model):,}")
 
     optimizer = setup_optimizer(args.optimizer, args.learning_rate,
                                 clipnorm=getattr(args, "clipnorm", None))
     state = init_train_state(model, optimizer, ema=args.ema)
     step, eval_loss = make_ncsn_train_step(
-        sigmas, ema_decay=0.999 if args.ema else None)
+        sigmas, ema_decay=0.999 if args.ema else None,
+        layout=make_mesh_for_batch(args.batch_size))
 
     if args.restore is not None:
         mgr = CheckpointManager(os.path.join(args.restore, "ckpts"))
@@ -156,6 +172,10 @@ def run(args: argparse.Namespace) -> None:
         samples = anneal_langevin_dynamics(
             score_fn, x_mod, sigmas, generator, n_steps_each=args.T,
             step_lr=args.step_lr, return_arr=True).cpu().numpy()
+        # every rank samples (its generator stays in step with its peers')
+        # and rank 0 writes
+        if not is_main:
+            return
         np.save(os.path.join(samples_dir, f"generated_samples_{epoch}"),
                 samples)
         if not draw:
@@ -192,10 +212,10 @@ def main(argv=None) -> None:
     ``--output``; unless ``--debug``, stdout is written to ``out.log``
     there for the duration of the call."""
     args = cli.apply_config_override(build_parser().parse_args(argv))
-    cli.refuse_not_ported(args, "train_ncsn.py")
     args.output = output_name(args)
-    with cli.setup_output_dir(args.output, args.debug):
-        run(args)
+    with cli.multihost(args) as device:
+        with cli.setup_output_dir(args.output, args.debug):
+            run(args, device)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ draws, so the chain's batches equal its batches bit for bit.
 
 ``--dataset`` is a melspec TFRecord directory or ``mnist`` /
 ``cifar10``. ``--device`` defaults to ``cuda`` and never falls back to
-the CPU. ``--multihost`` is not ported yet and raises.
+the CPU. ``--multihost`` fine-tunes data-parallel, one rank per process,
+as ``train_ncsn --multihost`` does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from . import cli
 from .models.ncsn import get_sigmas
+from .parallel import make_mesh_for_batch
 from .train_glow import add_glow_flags, build_model
 from .training import train_noisy_glow_chain
 
@@ -65,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def run(args: argparse.Namespace) -> None:
-    device = cli.resolve_device(args.device)
+def run(args: argparse.Namespace, device: torch.device) -> None:
+    cli.describe_multihost()
     data = cli.resolve_dataset(args)
     sigmas = get_sigmas(args.sigma1, args.sigmaL, args.num_classes,
                         args.progression)
@@ -82,7 +84,8 @@ def run(args: argparse.Namespace) -> None:
                       if args.RESTORE else None),
         generator=torch.Generator(device=device).manual_seed(args.seed),
         reinit_actnorm=getattr(args, "reinit_actnorm", False),
-        reinit_minibatch=data["minibatch"])
+        reinit_minibatch=data["minibatch"],
+        layout=make_mesh_for_batch(args.batch_size))
     print(f"Noise-conditioned checkpoints: {dirs}")
 
 
@@ -94,9 +97,9 @@ def main(argv=None) -> None:
     if args.RESTORE:
         args.RESTORE = os.path.abspath(args.RESTORE)
     args = cli.apply_config_override(args)
-    cli.refuse_not_ported(args, "train_noisy_glow.py")
-    with cli.setup_output_dir(args.output, args.debug):
-        run(args)
+    with cli.multihost(args) as device:
+        with cli.setup_output_dir(args.output, args.debug):
+            run(args, device)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ from . import cli
 from .models import build_realnvp
 from .training import (LoopConfig, init_train_state, make_flow_train_step,
                        run_training, setup_optimizer, setup_tensorboard)
+from .utils import total_trainable_variables
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +61,7 @@ def run(args: argparse.Namespace) -> None:
         minibatch=torch.as_tensor(data["minibatch"], device=device),
         generator=torch.Generator().manual_seed(args.seed), device=device)
     print(f"Total Trainable Variables: "
-          f"{sum(p.numel() for p in model.parameters()):,}")
+          f"{total_trainable_variables(model):,}")
     state = init_train_state(model, setup_optimizer(args.optimizer,
                                                     args.learning_rate))
     step, eval_loss = make_flow_train_step()

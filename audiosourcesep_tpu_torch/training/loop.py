@@ -7,6 +7,12 @@ last epoch, the best-validation state kept as a device-side copy and
 written at most every ``ckpt_min_interval_s`` (and once at the end), the
 sampling cadence, TensorBoard's step axis, and a final save. Checkpoints
 are written in the JAX package's layout (:meth:`TrainState.tree`).
+
+Under ``torch.distributed`` every rank runs this loop on its shard of
+the data and only rank 0 writes checkpoints. The data-parallel steps
+return losses averaged over the ranks, so every rank takes the same NaN,
+loss-jump and best-validation branches: a rank that broke away alone
+would leave its peers waiting in their next collective.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel import is_main_process
 from .checkpoint import CheckpointManager
 from .train_utils import is_bad
 
@@ -77,8 +84,10 @@ def run_training(state, train_step: Callable, eval_loss: Callable,
     def put(batch):
         return torch.as_tensor(batch, device=device)
 
-    # TB step axis: the reference's batch over its example count
-    n_train = max(ds_train.n_examples, 1)
+    is_main = is_main_process()
+    # TB step axis: the reference's global batch over its global example
+    # count (a rank's shard would advance it once per rank too fast)
+    n_train = max(getattr(ds_train, "n_global", ds_train.n_examples), 1)
     steps_per_epoch = max(len(ds_train), 1)
     log_every = max(steps_per_epoch // config.losses_per_epoch, 1)
 
@@ -124,8 +133,9 @@ def run_training(state, train_step: Callable, eval_loss: Callable,
                         and curr_avg - prev_history_avg
                         > config.loss_jump_threshold):
                     print("Huge gap in the loss")
-                    path = manager_issues.save(state.tree(), count_step)
-                    print(f"Model weights saved at {path}")
+                    if is_main:
+                        path = manager_issues.save(state.tree(), count_step)
+                        print(f"Model weights saved at {path}")
                 prev_history_avg = curr_avg
         epoch_losses.extend(float(l) for l in window_losses)
 
@@ -153,7 +163,8 @@ def run_training(state, train_step: Callable, eval_loss: Callable,
                 # tensors in place
                 best_state = state.snapshot()
                 best_step = count_step
-                if time.time() - last_ckpt_write >= config.ckpt_min_interval_s:
+                if is_main and (time.time() - last_ckpt_write
+                                >= config.ckpt_min_interval_s):
                     save_path = manager.save(best_state, best_step)
                     written_best_step = best_step
                     last_ckpt_write = time.time()
@@ -165,11 +176,12 @@ def run_training(state, train_step: Callable, eval_loss: Callable,
             sample_fn(state, epoch, generator)
 
     state.step = count_step
-    if best_state is not None and written_best_step != best_step:
-        path = manager.save(best_state, best_step)
-        print(f"Model Saved at {path}")
-    save_path = manager.save(state.tree(), count_step)
-    print(f"Model Saved at {save_path}")
+    if is_main:
+        if best_state is not None and written_best_step != best_step:
+            path = manager.save(best_state, best_step)
+            print(f"Model Saved at {path}")
+        save_path = manager.save(state.tree(), count_step)
+        print(f"Model Saved at {save_path}")
     return LoopResult(state=state, training_time=time.time() - t0,
                       save_path=save_path, aborted_nan=is_nan_loss,
                       history=history)

@@ -5,8 +5,15 @@ that a jitted step replaces. Here :class:`TrainState` holds the same
 fields as PyTorch objects (the model's parameters, the ``torch.optim``
 optimizer's state, the step count, the EMA tensors), which the step
 updates in place, and converts to and from the JAX pytree, key for key,
-for checkpoints. One device; data parallelism waits for the multi-GPU
-port.
+for checkpoints.
+
+Data parallelism (``layout`` from :func:`~..parallel.make_mesh_for_batch`):
+each rank takes its slice of the global batch, draws every noise of the
+step over the *global* batch from a generator seeded alike on every rank
+and keeps its own rows (the order in which the JAX package assembles the
+process shards of a global batch), and averages the gradients and the
+loss over the ranks before the clip, as XLA's psum precedes optax's clip.
+A step on ``n`` ranks is then the one-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.ncsn.utils import dsm_loss
 from .checkpoint import (CheckpointManager, _flatten, _to_numpy,
@@ -110,23 +118,79 @@ def init_train_state(model: torch.nn.Module, optimizer: OptimizerSpec,
     return TrainState(model, optimizer, ema)
 
 
-def _optimize(state: TrainState, loss: torch.Tensor) -> None:
-    """Backward of ``loss``, the optional global-norm clip and the
-    optimizer step (the gradients were zeroed before the forward)."""
+# gradients are all-reduced in buckets of this many elements (64 MB of
+# f32): Glow has 6,128 tensors, and one collective each would dominate
+_BUCKET = 1 << 24
+
+
+def _draw(layout, b: int, given: Optional[torch.Tensor],
+          draw: Callable[[int], torch.Tensor]) -> torch.Tensor:
+    """A draw over the batch (``given``, else ``draw(n)``): with a
+    data-parallel ``layout`` over the global batch of ``n = b * ranks``
+    examples, of which this rank keeps its ``b`` rows."""
+    if layout is None:
+        return given if given is not None else draw(b)
+    if given is None:
+        given = draw(b * layout.data_size)
+    return given[layout.data_index * b:(layout.data_index + 1) * b]
+
+
+@torch.no_grad()
+def _mean_over_ranks_(tensors, layout) -> None:
+    """Average ``tensors`` (float32) over the data group in place, as
+    all-reduces of flattened buckets."""
+    tensors = list(tensors)
+    bucket, size = [], 0
+    for i, t in enumerate(tensors):
+        bucket.append(t)
+        size += t.numel()
+        if size < _BUCKET and i < len(tensors) - 1:
+            continue
+        flat = torch.cat([b.reshape(-1) for b in bucket])
+        dist.all_reduce(flat, group=layout.data_group)
+        flat.div_(layout.data_size)
+        for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+            b.copy_(part.view(b.shape))
+        bucket, size = [], 0
+
+
+def _optimize(state: TrainState, loss: torch.Tensor,
+              layout=None) -> torch.Tensor:
+    """Backward of ``loss``, with a ``layout`` the average of the
+    gradients and the loss over its ranks, the optional global-norm clip
+    and the optimizer step (the gradients were zeroed before the
+    forward). Returns the loss (averaged), detached."""
     loss.backward()
+    loss = loss.detach().reshape(1)
+    if layout is not None:
+        for p in state.params.values():
+            if p.grad is None:      # the same buckets on every rank
+                p.grad = torch.zeros_like(p)
+        _mean_over_ranks_([loss, *(p.grad for p in state.params.values())],
+                          layout)
     if state.spec.clipnorm is not None:
         clip_by_global_norm_([p.grad for p in state.params.values()],
                              state.spec.clipnorm)
     state.optimizer.step()
     state.step += 1
+    return loss[0]
+
+
+def _eval_mean(loss: torch.Tensor, layout) -> torch.Tensor:
+    """An evaluation loss averaged over the ranks of ``layout``."""
+    if layout is None:
+        return loss
+    loss = loss.reshape(1).clone()
+    _mean_over_ranks_([loss], layout)
+    return loss[0]
 
 
 # ---------------------------------------------------------------------------
 # flows (train_glow.py:29-44; train_noisy_glow.py:30-38)
 # ---------------------------------------------------------------------------
 
-def make_flow_train_step(noise_sigma: Optional[float] = None
-                         ) -> Tuple[Callable, Callable]:
+def make_flow_train_step(noise_sigma: Optional[float] = None,
+                         layout=None) -> Tuple[Callable, Callable]:
     """Returns ``(step, eval_loss)`` for a :class:`~..bijectors.FlowModel`
     held by the state.
 
@@ -139,16 +203,18 @@ def make_flow_train_step(noise_sigma: Optional[float] = None
     1)``, or standard normal for Flow++). Both are drawn from
     ``generator`` unless given, as the JAX step draws both from its key.
     ``eval_loss`` is the same loss without a gradient. ``loss`` stays on
-    the device.
+    the device. With a data-parallel ``layout``, ``batch`` is this rank's
+    slice, ``noise`` and ``dequant`` (given or drawn) span the global
+    batch, and the loss is the global batch's.
     """
     def loss_fn(model, batch, generator, noise, dequant):
+        b, shape = batch.shape[0], batch.shape[1:]
         if noise_sigma is not None:
-            if noise is None:
-                noise = torch.randn(batch.shape, generator=generator,
-                                    device=batch.device)
+            noise = _draw(layout, b, noise, lambda n: torch.randn(
+                (n, *shape), generator=generator, device=batch.device))
             batch = batch + noise_sigma * noise
-        if dequant is None:
-            dequant = model.draw_noise(batch.shape, generator, batch.device)
+        dequant = _draw(layout, b, dequant, lambda n: model.draw_noise(
+            (n, *shape), generator, batch.device))
         return -torch.mean(model.log_prob(batch, dequant))
 
     def step(state: TrainState, batch: torch.Tensor,
@@ -157,15 +223,15 @@ def make_flow_train_step(noise_sigma: Optional[float] = None
              dequant: Optional[torch.Tensor] = None):
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.model, batch, generator, noise, dequant)
-        _optimize(state, loss)
-        return state, loss.detach()
+        return state, _optimize(state, loss, layout)
 
     @torch.no_grad()
     def eval_loss(state: TrainState, batch: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None,
                   dequant: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return loss_fn(state.model, batch, generator, noise, dequant)
+        return _eval_mean(loss_fn(state.model, batch, generator, noise,
+                                  dequant), layout)
 
     return step, eval_loss
 
@@ -175,7 +241,7 @@ def make_flow_train_step(noise_sigma: Optional[float] = None
 # ---------------------------------------------------------------------------
 
 def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
-                         per_sample_sigma: bool = True
+                         per_sample_sigma: bool = True, layout=None
                          ) -> Tuple[Callable, Callable]:
     """Returns ``(step, eval_loss)``.
 
@@ -186,7 +252,10 @@ def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
     set and the state keeps EMA weights. ``eval_loss(state, batch, ...)``
     is the DSM loss without a gradient, on the EMA weights when they are
     used. The draws come from ``generator`` unless given (see
-    :func:`dsm_loss`). ``loss`` stays on the device.
+    :func:`dsm_loss`). ``loss`` stays on the device. With a data-parallel
+    ``layout``, ``batch`` is this rank's slice, ``sigma_idx`` and
+    ``noise`` (given or drawn) span the global batch, and the loss is the
+    global batch's.
     """
     sigmas_np = np.asarray(sigmas, np.float32)
     on_device = {}
@@ -197,7 +266,15 @@ def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
         return on_device[device]
 
     def loss_fn(score_fn, batch, generator, sigma_idx, noise):
-        return dsm_loss(score_fn, batch, _sigmas(batch.device), generator,
+        b, dev = batch.shape[0], batch.device
+        # dsm_loss's draws, in its order: the levels, then the noise
+        sigma_idx = _draw(layout, b, sigma_idx, lambda n: torch.randint(
+            len(sigmas_np), (n,) if per_sample_sigma else (1,),
+            generator=generator, device=dev).expand(n))
+        noise = _draw(layout, b, noise, lambda n: torch.randn(
+            (n, *batch.shape[1:]), generator=generator, device=dev,
+            dtype=batch.dtype))
+        return dsm_loss(score_fn, batch, _sigmas(dev), generator,
                         per_sample_sigma, sigma_idx, noise)
 
     def step(state: TrainState, batch: torch.Tensor,
@@ -205,12 +282,12 @@ def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
              sigma_idx: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.model, batch, generator, sigma_idx, noise)
-        _optimize(state, loss)
+        loss = _optimize(state, loss_fn(state.model, batch, generator,
+                                        sigma_idx, noise), layout)
         if ema_decay is not None and state.ema_params is not None:
             ema_update(state.ema_params.values(), state.params.values(),
                        ema_decay)
-        return state, loss.detach()
+        return state, loss
 
     @torch.no_grad()
     def eval_loss(state: TrainState, batch: torch.Tensor,
@@ -222,7 +299,8 @@ def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
             def score_fn(x, idx):
                 return torch.func.functional_call(state.model,
                                                   state.ema_params, (x, idx))
-        return loss_fn(score_fn, batch, generator, sigma_idx, noise)
+        return _eval_mean(loss_fn(score_fn, batch, generator, sigma_idx,
+                                  noise), layout)
 
     return step, eval_loss
 
@@ -233,10 +311,12 @@ def make_ncsn_train_step(sigmas, ema_decay: Optional[float] = None,
 
 class _NoisyView:
     """A dataset's batches plus ``sigma * eps``, ``eps`` drawn in numpy
-    from ``RandomState(seed)`` (the JAX package's draws, bit for bit)."""
+    from ``RandomState(seed)`` (the JAX package's draws, bit for bit).
+    With a data-parallel ``layout`` ``eps`` is drawn over the global batch
+    and this rank keeps its rows."""
 
-    def __init__(self, ds, sigma: float, seed: int):
-        self.ds, self.sigma = ds, float(sigma)
+    def __init__(self, ds, sigma: float, seed: int, layout=None):
+        self.ds, self.sigma, self.layout = ds, float(sigma), layout
         self._rng = np.random.RandomState(seed)
         self.batch_size = ds.batch_size
 
@@ -247,10 +327,15 @@ class _NoisyView:
     def n_examples(self):
         return self.ds.n_examples
 
+    @property
+    def n_global(self):
+        return getattr(self.ds, "n_global", self.ds.n_examples)
+
     def __iter__(self):
         for batch in self.ds:
-            yield (batch + self.sigma * self._rng.randn(*batch.shape)
-                   ).astype(batch.dtype)
+            eps = _draw(self.layout, len(batch), None,
+                        lambda n: self._rng.randn(n, *batch.shape[1:]))
+            yield (batch + self.sigma * eps).astype(batch.dtype)
 
 
 def train_noisy_glow_chain(model: torch.nn.Module, sigmas, ds_train,
@@ -262,21 +347,26 @@ def train_noisy_glow_chain(model: torch.nn.Module, sigmas, ds_train,
                            restore_path: Optional[str] = None,
                            generator: Optional[torch.Generator] = None,
                            reinit_actnorm: bool = False,
-                           reinit_minibatch: Optional[np.ndarray] = None
-                           ) -> Dict[float, str]:
+                           reinit_minibatch: Optional[np.ndarray] = None,
+                           layout=None) -> Dict[float, str]:
     """Serially fine-tune the Glow ``model`` (its parameters updated in
     place) at each noise level.
 
-    For each sigma (descending): restore the previous level's train state
-    (``restore_path``, a ``ckpts`` directory, for the first), not
-    strictly, as the JAX package does; optionally re-anchor the ActNorm
-    statistics on ``reinit_minibatch`` (or a batch of ``ds_train``) plus
-    ``sigma * RandomState(3000 + level)`` noise; train on ``X + sigma *
-    eps`` (``RandomState(1000 + level)`` for the training batches,
-    ``2000 + level`` for the validation ones); and save under
+    For each sigma (descending): start from the previous level's final
+    train state, carried in memory (the JAX package restores the
+    checkpoint that level saved last, the same state), and the first
+    level from ``restore_path``'s latest (a ``ckpts`` directory),
+    restored not strictly, as the JAX package does; optionally re-anchor
+    the ActNorm statistics on ``reinit_minibatch`` (or a batch of
+    ``ds_train``) plus ``sigma * RandomState(3000 + level)`` noise; train
+    on ``X + sigma * eps`` (``RandomState(1000 + level)`` for the training
+    batches, ``2000 + level`` for the validation ones); and save under
     ``output_dir/sigma_{round(sigma, 2)}/ckpts``, the layout
     ``run_basis_sep --model_type glow`` reads. ``generator`` (on the
-    model's device) draws the steps' remaining noise. Returns ``{sigma:
+    model's device) draws the steps' remaining noise. A data-parallel
+    ``layout`` trains on each rank's shard of the data (see
+    :func:`make_flow_train_step`); the re-anchor minibatch must then be
+    the same on every rank (``reinit_minibatch``). Returns ``{sigma:
     ckpts directory}``.
     """
     from .loop import LoopConfig, run_training
@@ -287,19 +377,25 @@ def train_noisy_glow_chain(model: torch.nn.Module, sigmas, ds_train,
     spec = setup_optimizer(optimizer_name, learning_rate, clipnorm=clipnorm)
     # one step for every level: the perturbation is applied to the batches
     # outside the step
-    step, eval_loss = make_flow_train_step()
-    prev_ckpt_dir = restore_path
+    step, eval_loss = make_flow_train_step(layout=layout)
+    state = init_train_state(model, spec)
+    if restore_path is not None:
+        tree, _ = CheckpointManager(restore_path).restore_latest(
+            state.tree(), strict=False)
+        state.load_tree(tree)
+        print(f"Restored previous level weights from {restore_path}")
     save_dirs = {}
     for li, sigma in enumerate(np.asarray(sigmas)):
         sigma_dir = os.path.join(output_dir,
                                  f"sigma_{round(float(sigma), 2)}")
         os.makedirs(sigma_dir, exist_ok=True)
-        state = init_train_state(model, spec)
-        if prev_ckpt_dir is not None:
-            tree, _ = CheckpointManager(prev_ckpt_dir).restore_latest(
-                state.tree(), strict=False)
-            state.load_tree(tree)
-            print(f"Restored previous level weights from {prev_ckpt_dir}")
+        if li:
+            # the previous level's final state, the latest checkpoint it
+            # saved, carried in memory: only rank 0 writes checkpoints, so
+            # a rank that read them back would wait for rank 0's write,
+            # or find none in its own --output
+            print(f"Carried over the previous level's weights "
+                  f"({prev_ckpt_dir})")
         if reinit_actnorm:
             if reinit_minibatch is not None:
                 clean = np.asarray(reinit_minibatch)
@@ -313,8 +409,9 @@ def train_noisy_glow_chain(model: torch.nn.Module, sigmas, ds_train,
         cfg = LoopConfig(n_epochs=n_epochs_per_sigma, batch_size=batch_size,
                          output_dir=sigma_dir, ckpt_dir="ckpts")
         run_training(state, step, eval_loss,
-                     _NoisyView(ds_train, sigma, 1000 + li),
-                     _NoisyView(ds_test, sigma, 2000 + li), cfg, generator)
+                     _NoisyView(ds_train, sigma, 1000 + li, layout),
+                     _NoisyView(ds_test, sigma, 2000 + li, layout), cfg,
+                     generator)
         prev_ckpt_dir = os.path.join(sigma_dir, "ckpts")
         save_dirs[float(sigma)] = prev_ckpt_dir
         print(f"sigma={float(sigma):.4f} done -> {prev_ckpt_dir}")

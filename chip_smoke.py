@@ -83,6 +83,23 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    peak memory and bound; (e) ``train_glow --dataset mnist`` (L=3, K=32,
    512 filters) -> ``train_noisy_glow`` -> ``run_basis_sep --model_type
    glow --dataset mnist --winograd`` at 50 mixtures.
+10. several processes on the one card (gloo, since NCCL refuses two ranks
+   on one device; every rank of a phase on ``cuda:0``): (a)
+   ``run_basis_sep --shard_sources`` under ``torchrun --nproc_per_node 2``
+   with phase 5's priors (NCSN v1, 192 filters, 30 frames, 10 levels,
+   T=2, bf16, ``--winograd``): the ranks launch the bf16 kernel 2 x 10 x 2
+   x 64 times between them, as phase 5, and its ``results.npz`` holds to
+   phase 5's; (b) the same with the frames sharded (each rank both priors,
+   15 frames), and, in this process, each 15-frame half of phase 5's
+   separation alone with the draws of the whole, which the ranks hold to;
+   (c) ``train_ncsn --multihost``: with ``--num_processes 1``
+   over NCCL as phase 7d (the same losses), and on 2 processes over gloo
+   against one process on the same global batches, rank 0 alone writing
+   checkpoints; (d) ``dryrun_multichip(2)`` on the card,
+   and ``technique1_ncsnv2`` on 2,000 synthetic spectrograms against
+   float64. 10a prints the mixing ``all_gather``'s time a step and 10c
+   the train steps' and their gradient all-reduces' (ranks sharing the
+   card).
 
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -90,9 +107,11 @@ repository around this file, it exits non-zero and prints no result.
 """
 
 import contextlib
+import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -216,6 +235,28 @@ IMAGE_GLOW_ROUTED = 2 * IMAGE_GLOW["L"] * IMAGE_GLOW["K"]  # 192 a forward
 IMAGE_SIGMAS = ["--sigma1", "256.0", "--sigmaL", "2.56", "--progression",
                 "logarithmic"]
 IMAGE_STEP_LR = str(2e-5 * 256.0 ** 2)
+# phase 10, the ranks' separations against phase 5's run, (max, mean)
+# |diff| in dB of x1 and x2 (a wrong layout is tens of dB off). The ranks
+# run with this process's CPU thread count (_worker_env), so the mixture
+# they prepare on the CPU is phase 5's bit for bit (MULTI_DATA_TOL; with
+# another thread count the f32 front end rounds otherwise, 8.4e-5 dB in
+# one run). With --shard_sources the same kernels then see the same 30
+# frames a model: 1e-3 dB max, the bound written before the first run
+# (the mean is within it too). The layout alone, on the same inputs, is
+# held to 1e-6 by tests/test_torch_cuda.py.
+MULTI_DATA_TOL = 0.0
+MULTI_SRC_TOL = (1e-3, 1e-3)
+# frames sharded: each rank's forwards see 15 frames, not 30, and a
+# forward's rounding depends on its batch (10b reads it in one process:
+# each half alone, held to the ranks at MULTI_SRC_TOL, and one forward at
+# 15 frames against the same frames at 30). The readings of that batch
+# effect, 0.048 max and 0.0033 mean (10b, 2 ranks), set this bound.
+MULTI_FRAMES_TOL = (0.2, 1e-2)
+# the train steps' times of phase 7d, beside which 10c prints its own
+STEP_TIMES = {}
+# technique 1: the f32 Gram distance on the card against float64 on the
+# CPU, relative
+TECH1_TOL = 1e-4
 
 
 def fail(msg: str, code: int = 2):
@@ -894,12 +935,14 @@ def phase_train_cli(work: str, ds: str, counts):
         nn.set_winograd(True)
         _reset_counts()
         t0 = time.time()
-        train_ncsn.main(["--dataset", ds, "--output", out, "--version", "v1",
-                         "--n_filters", "192", "--num_classes", str(L),
-                         "--batch_size", str(TRAIN_BATCH), "--ema",
-                         "--n_epochs", "1", "--T", str(T), "--sample_every",
-                         "1", "--device", "cuda"])
+        with timed_collectives() as times:
+            train_ncsn.main(["--dataset", ds, "--output", out, "--version",
+                             "v1", "--n_filters", "192", "--num_classes",
+                             str(L), "--batch_size", str(TRAIN_BATCH),
+                             "--ema", "--n_epochs", "1", "--T", str(T),
+                             "--sample_every", "1", "--device", "cuda"])
         wall = time.time() - t0
+        STEP_TIMES["7d"] = times["step"]
         train_launches = dict(W.launch_counts)
         _reset_counts()
         t0 = time.time()
@@ -916,7 +959,8 @@ def phase_train_cli(work: str, ds: str, counts):
             ("Total Trainable", "Epoch", "Training time"))]
     print(f"[7d] train_ncsn v1 192 filters, {L} levels, batch {TRAIN_BATCH}, "
           f"--ema, 1 epoch ({steps} steps), T={T} snapshot, routing on: "
-          f"wall-clock {wall:.2f} s; out.log: {log}")
+          f"wall-clock {wall:.2f} s; steps {_ms(times['step'])} ms; "
+          f"out.log: {log}")
     want = {f32: forwards * ROUTED_PER_FORWARD, bf16: 0}
     print(f"[7d] kernel launches {train_launches}, expected {want}: "
           f"({steps} steps + {forwards - steps - L * T} eval batches + "
@@ -1811,6 +1855,529 @@ def phase_image_glow(work: str, n_train: int, full: bool):
     return got[W.KERNELS[torch.float32]]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: several processes on the one card
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _worker_env():
+    """The ranks' environment: the package importable, and this process's
+    CPU thread count (torchrun would set 1), so that the data they prepare
+    on the CPU rounds as phase 5's."""
+    import torch
+    return dict(os.environ, PYTHONPATH=HERE,
+                OMP_NUM_THREADS=str(torch.get_num_threads()))
+
+
+def _run_all(cmds, tag: str, timeout: float = 600.0):
+    """Run the commands at once; every one must exit 0 in ``timeout``
+    seconds (all are killed otherwise). Returns their outputs."""
+    procs = [subprocess.Popen(c, env=_worker_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: a rank exited {p.returncode}:\n"
+                                 + out[-6000:])
+    return outs
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """While open, time every train step that ``train_ncsn`` makes, the
+    bucketed gradient all-reduces inside each (``_mean_over_ranks_``) and
+    every ``torch.distributed.all_gather`` (the BASIS mixing's), each on
+    the host clock between two ``torch.cuda.synchronize``. Yields
+    ``{"step": [s], "all_reduce": [s a step], "all_gather": [[bytes,
+    s]]}``. The syncs add no work to the card; they end each span."""
+    import torch
+    import torch.distributed as dist
+    from audiosourcesep_tpu_torch import train_ncsn
+    from audiosourcesep_tpu_torch.training import trainers
+    rec = {"step": [], "all_reduce": [], "all_gather": []}
+    make, mean, gather = (train_ncsn.make_ncsn_train_step,
+                          trainers._mean_over_ranks_, dist.all_gather)
+    in_step = []
+
+    def clocked(fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def make_timed(*a, **k):
+        step, eval_loss = make(*a, **k)
+
+        def timed_step(*sa, **sk):
+            in_step.append(0.0)
+            out, dt = clocked(step, *sa, **sk)
+            rec["step"].append(dt)
+            rec["all_reduce"].append(in_step.pop())
+            return out
+        return timed_step, eval_loss
+
+    def timed_mean(tensors, layout):
+        if not in_step:                     # an eval loss's mean
+            return mean(tensors, layout)
+        _, dt = clocked(mean, tensors, layout)
+        in_step[-1] += dt
+
+    def timed_gather(out, t, *a, **k):
+        res, dt = clocked(gather, out, t, *a, **k)
+        rec["all_gather"].append([t.numel() * t.element_size(), dt])
+        return res
+
+    train_ncsn.make_ncsn_train_step = make_timed
+    trainers._mean_over_ranks_ = timed_mean
+    dist.all_gather = timed_gather
+    try:
+        yield rec
+    finally:
+        train_ncsn.make_ncsn_train_step = make
+        trainers._mean_over_ranks_ = mean
+        dist.all_gather = gather
+
+
+def _ms(times):
+    return [round(1e3 * t, 2) for t in times]
+
+
+def rank_worker(argv):
+    """``chip_smoke.py --rank-worker OUT CLI ARGS...``: one rank of a
+    phase 10 run. TF32 off and, for ``train_ncsn``, Winograd routing on,
+    as in phases 5 and 7d; the CLI's ``main(ARGS)`` under
+    :func:`timed_collectives`; then this rank's kernel launches, peak
+    memory and times to ``OUT`` (``{rank}`` replaced by the rank)."""
+    import torch
+    from audiosourcesep_tpu_torch import nn, run_basis_sep, train_ncsn
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    out, name, args = argv[0], argv[1], argv[2:]
+    rank = os.environ.get("RANK") or args[args.index("--process_id") + 1]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nn.set_winograd(name == "train_ncsn")
+    _reset_counts()
+    with timed_collectives() as times:
+        {"run_basis_sep": run_basis_sep, "train_ncsn": train_ncsn}[
+            name].main(args)
+    with open(out.replace("{rank}", rank), "w") as f:
+        json.dump({"launches": dict(W.launch_counts),
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                   "times": times}, f)
+
+
+def _rank_reports(pattern, n):
+    reports = []
+    for r in range(n):
+        with open(pattern.replace("{rank}", str(r))) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _log_lines(path, prefixes):
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.startswith(prefixes)]
+
+
+def _one_process_halves(work: str):
+    """Phase 5's separation once more in this process, and beside it, on
+    the same inputs, each half of its 30 frames alone: rank r's 15 frames
+    of the frame-sharded run, with the draws of the whole (``x_init`` and
+    every Langevin noise drawn at 30 frames from the seed and the half
+    kept, as each rank does). Returns the 30-frame ``results.npz``, the
+    halves' x1 and x2 side by side (post-processed as it is), and the
+    score's max|diff| between one forward at 30 frames and one at 15."""
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch import run_basis_sep
+    from audiosourcesep_tpu_torch.separation import postprocess
+    real = run_basis_sep.basis_separate_per_level
+    got = {}
+
+    def with_halves(score_fn, mixed, x_init, sigmas, gen, cfg, **kw):
+        start = gen.get_state()
+        out = real(score_fn, mixed, x_init, sigmas, gen, cfg, **kw)
+        n = x_init.shape[1] // 2
+        if 2 * n != x_init.shape[1]:
+            raise AssertionError(f"{x_init.shape[1]} frames do not halve")
+        halves = []
+        for fr in (slice(0, n), slice(n, 2 * n)):
+            g = torch.Generator(device=gen.device)
+            g.set_state(start)
+            x, _ = real(score_fn, mixed[fr], x_init[:, fr], sigmas, None,
+                        cfg._replace(collect_trajectory=False),
+                        noise_fn=lambda level, step: torch.randn(
+                            x_init.shape, generator=g,
+                            device=x_init.device)[:, fr])
+            halves.append(x)
+        got["x"] = torch.cat(halves, 1)[..., 0]
+        with torch.no_grad():
+            labels = torch.zeros(2 * n, dtype=torch.long,
+                                 device=x_init.device)
+            whole = score_fn(x_init, labels, 0)[:, :n]
+            half = score_fn(x_init[:, :n], labels[:n], 0)
+        got["score"] = (float((whole - half).abs().max()),
+                        float(whole.abs().max()))
+        return out
+
+    out = os.path.join(work, "sep_halves")
+    song, p1, p2 = (os.path.join(work, n) for n in ("song", "p1", "p2"))
+    run_basis_sep.basis_separate_per_level = with_halves
+    try:
+        run_basis_sep.main([p1, p2, "--output", out, "--song_dir", song,
+                            "--model_type", "ncsn", "--version", "v1",
+                            "--n_filters", "192", "--num_classes", "10",
+                            "--scale", "dB", "--n_mixed", str(BATCH),
+                            "--T", "2", "--compute_dtype", "bf16",
+                            "--winograd", "--device", "cuda"])
+    finally:
+        run_basis_sep.basis_separate_per_level = real
+    halves = {k: postprocess(got["x"][i], -100.0, 20.0).cpu().numpy()
+              for i, k in enumerate(("x1", "x2"))}
+    return np.load(os.path.join(out, "results.npz")), halves, got["score"]
+
+
+def _diffs(a, b):
+    """(max, mean) |a - b| of x1 and x2."""
+    import numpy as np
+    return {k: (float(np.abs(a[k] - b[k]).max()),
+                float(np.abs(a[k] - b[k]).mean())) for k in ("x1", "x2")}
+
+
+def _within(diffs, tol) -> bool:
+    return all(d[0] <= tol[0] and d[1] <= tol[1] for d in diffs.values())
+
+
+def phase_multi_basis(work: str, shard_sources: bool, ref_out: str,
+                      smi: str):
+    """10a / 10b: the T=2 bf16 separation of phase 5 on 2 ranks under
+    torchrun, with 10a's mixing all_gather times; returns the bf16
+    launches of both ranks together."""
+    import statistics
+    import numpy as np
+    import torch
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    tag = "[10a]" if shard_sources else "[10b]"
+    L, T = 10, 2
+    song, p1, p2 = (os.path.join(work, n) for n in ("song", "p1", "p2"))
+    out = os.path.join(work, "sep_shard_sources" if shard_sources
+                       else "sep_frames")
+    report = os.path.join(work, f"{os.path.basename(out)}_{{rank}}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", "2", "--master_addr", "localhost",
+           "--master_port", str(_free_port()),
+           os.path.join(HERE, "chip_smoke.py"), "--rank-worker", report,
+           "run_basis_sep", p1, p2, "--output", out, "--song_dir", song,
+           "--model_type", "ncsn", "--version", "v1", "--n_filters", "192",
+           "--num_classes", str(L), "--scale", "dB", "--n_mixed",
+           str(BATCH), "--T", str(T), "--compute_dtype", "bf16",
+           "--winograd", "--device", "cuda"] + (
+               ["--shard_sources"] if shard_sources else [])
+    t0 = time.time()
+    _run_all([cmd], tag)
+    wall = time.time() - t0
+    reports = _rank_reports(report, 2)
+    bf16, f32 = W.KERNELS[torch.bfloat16], W.KERNELS[torch.float32]
+    per_rank = [r["launches"] for r in reports]
+    models = 1 if shard_sources else 2
+    want = models * L * T * ROUTED_PER_FORWARD
+    logs = [_log_lines(os.path.join(out, n), ("Multi-host", "Layout",
+                                              "Duration", "--shard"))
+            for n in ("out.log", "out_rank1.log")]
+    print(f"{tag} torchrun 2 ranks on cuda:0 (gloo), {BATCH} frames, {L} "
+          f"levels, T={T}, bf16, --winograd"
+          f"{', --shard_sources' if shard_sources else ''}: wall-clock "
+          f"{wall:.2f} s (2 process starts included); rank logs {logs}")
+    print(f"{tag} launches per rank {per_rank}, expected {bf16} {want} "
+          f"each ({models} model(s) x {L} x T={T} x {ROUTED_PER_FORWARD}); "
+          f"peak memory per rank "
+          f"{[round(r['peak_mib'], 1) for r in reports]} MiB")
+    if any(r.get(bf16) != want or r.get(f32) != 0 for r in per_rank):
+        raise AssertionError(f"{tag} kernel launches {per_rank}")
+    if shard_sources:
+        # each step gathers the other source's [1, 30, 96, 64, 1] f32
+        # iterate; the last gather of that size is the result's
+        size = BATCH * 96 * 64 * 4
+        for r, rep in enumerate(reports):
+            g = [t for b, t in rep["times"]["all_gather"] if b == size]
+            if len(g) != L * T + 1:
+                raise AssertionError(f"{tag} rank {r}: {len(g)} gathers of "
+                                     f"{size} bytes, not {L * T + 1}")
+            print(f"{tag} rank {r}: mixing all_gather of {size / 1e6:.2f} "
+                  f"MB, one a step: median "
+                  f"{1e3 * statistics.median(g[:-1]):.3f} ms over "
+                  f"{L * T} steps ({_ms(g[:-1])} ms) [{smi}; ranks sharing "
+                  f"one card, not scaling]")
+    if [lg[0] for lg in logs] != [
+            f"Multi-host initialised: process {r} of 2, backend gloo"
+            for r in range(2)]:
+        raise AssertionError(f"{tag} the ranks did not run on gloo")
+    got = np.load(os.path.join(out, "results.npz"))
+    ref = np.load(os.path.join(ref_out, "results.npz"))
+    conv = np.load(os.path.join(out, "results_convergence.npz"))
+    if conv["x1"].shape != (L + 1, BATCH, 96, 64, 1):
+        raise AssertionError(f"{tag} convergence {conv['x1'].shape}")
+    data = max(float(np.abs(got[k] - ref[k]).max())
+               for k in ("gt1", "gt2", "mixed"))
+    if data > MULTI_DATA_TOL:
+        raise AssertionError(f"{tag} gt1, gt2, mixed differ from phase 5's "
+                             f"by {data} dB")
+    diffs = _diffs(got, ref)
+    tol = MULTI_SRC_TOL if shard_sources else MULTI_FRAMES_TOL
+    print(f"{tag} results.npz vs phase 5 (one process, 30 frames), (max, "
+          f"mean) |diff| dB: {diffs}, tolerance {tol}; gt1, gt2, mixed "
+          f"max|diff| {data} dB (tolerance {MULTI_DATA_TOL})")
+    ok = _within(diffs, tol)
+    if not shard_sources:
+        # the same frames a forward in one process: the layout alone
+        again, halves, (score_diff, score_max) = _one_process_halves(work)
+        same, alone, batch = (_diffs(again, ref), _diffs(got, halves),
+                              _diffs(halves, ref))
+        print(f"{tag} one process, phase 5's separation again: (max, mean) "
+              f"|diff| vs phase 5 {same}; each 15-frame half alone with the "
+              f"draws of the whole: vs this run {alone} (tolerance "
+              f"{MULTI_SRC_TOL}), vs phase 5's 30 frames {batch}; one "
+              f"forward at 15 frames vs the same frames at 30: max|diff| "
+              f"{score_diff:.3e} of max|score| {score_max:.3e}")
+        ok = ok and _within(same, MULTI_SRC_TOL) \
+            and _within(alone, MULTI_SRC_TOL)
+    if not ok:
+        raise AssertionError(f"{tag} results differ from one process")
+    if sorted(os.listdir(out)) != sorted(
+            ["ground_truth1.wav", "ground_truth2.wav", "mix.wav", "out.log",
+             "out_rank1.log", "results.npz", "results_convergence.npz"]):
+        raise AssertionError(f"{tag} outputs {sorted(os.listdir(out))}")
+    return sum(r[bf16] for r in per_rank)
+
+
+def _epoch_line(path):
+    lines = _log_lines(path, ("Epoch",))
+    if len(lines) != 1:
+        raise AssertionError(f"{path}: epoch lines {lines}")
+    return lines[0]
+
+
+def _losses(line):
+    """(train, val) of an ``Epoch ...: Train Loss: a Val Loss: b`` line."""
+    parts = line.split()
+    return float(parts[4]), float(parts[7])
+
+
+def _close(got, want) -> bool:
+    """Logged (train, val) losses against others, to TRAIN_TOL's loss
+    bound or the log's precision (3 and 6 decimals)."""
+    return all(abs(g - w) <= max(TRAIN_TOL["loss"] * abs(w), 1e-3)
+               for g, w in zip(got, want))
+
+
+def _param_rel(flat_a, flat_b, prefix):
+    import numpy as np
+    keys = [k for k in flat_b if k.startswith(prefix)]
+    num = sum(float(np.sum((flat_a[k] - flat_b[k]) ** 2)) for k in keys)
+    den = sum(float(np.sum(flat_b[k] ** 2)) for k in keys)
+    return (num / den) ** 0.5
+
+
+def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
+    """10c: train_ncsn --multihost, 1 process over NCCL and 2 over gloo,
+    with their step and all-reduce times; returns the f32 launches of the
+    2 ranks together."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from audiosourcesep_tpu_torch import nn, train_ncsn
+    from audiosourcesep_tpu_torch.data import load_melspec_ds
+    from audiosourcesep_tpu_torch.models.ncsn import (get_score_model,
+                                                      get_sigmas)
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.training import (init_train_state,
+                                                   make_ncsn_train_step,
+                                                   setup_optimizer)
+    from audiosourcesep_tpu_torch.training.checkpoint import (
+        _flatten, latest_checkpoint, load_flat)
+    f32 = W.KERNELS[torch.float32]
+    L, T = 10, 1
+    args = ["--dataset", ds, "--version", "v1", "--n_filters", "192",
+            "--num_classes", str(L), "--batch_size", str(TRAIN_BATCH),
+            "--ema", "--n_epochs", "1", "--T", str(T), "--sample_every",
+            "1", "--device", "cuda"]
+    ref_line = _epoch_line(os.path.join(work, "ncsn", "out.log"))
+    ref_flat, ref_step = load_flat(latest_checkpoint(
+        os.path.join(work, "ncsn", "ckpts")))
+
+    # one process over NCCL, in this process as phase 7d ran
+    out = os.path.join(work, "ncsn_nccl1")
+    try:
+        nn.set_winograd(True)
+        _reset_counts()
+        t0 = time.time()
+        with timed_collectives() as times:
+            train_ncsn.main(args + ["--output", out, "--multihost",
+                                    "--coordinator_address",
+                                    f"localhost:{_free_port()}",
+                                    "--num_processes", "1", "--process_id",
+                                    "0"])
+        wall = time.time() - t0
+    finally:
+        nn.set_winograd(False)
+    launches = W.launch_counts[f32]
+    init = _log_lines(os.path.join(out, "out.log"), ("Multi-host",))
+    line = _epoch_line(os.path.join(out, "out.log"))
+    flat, step = load_flat(latest_checkpoint(os.path.join(out, "ckpts")))
+    rel = {p: _param_rel(flat, ref_flat, p)
+           for p in ("['params']", "['ema_params']")}
+    print(f"[10c] train_ncsn --multihost --num_processes 1: {init}, "
+          f"wall-clock {wall:.2f} s; '{line}' vs phase 7d's '{ref_line}'; "
+          f"params ||diff|| / ||7d|| {rel}; f32 launches {launches} "
+          f"(7d {train_launches}); steps {_ms(times['step'])} ms (7d's "
+          f"{_ms(STEP_TIMES['7d'])}; at world size 1 the step has no "
+          f"collective) [{smi}]")
+    if init != ["Multi-host initialised: process 0 of 1, backend nccl"]:
+        raise AssertionError("[10c] NCCL was not initialised")
+    if dist.is_initialized():
+        raise AssertionError("[10c] the process group outlived the CLI")
+    if not _close(_losses(line), _losses(ref_line)) or step != ref_step \
+            or launches != train_launches \
+            or max(rel.values()) > TRAIN_TOL["param"]:
+        raise AssertionError("[10c] the NCCL run differs from phase 7d")
+
+    # two processes over gloo, each with its own --output
+    outs = [os.path.join(work, f"ncsn_gloo_r{r}") for r in range(2)]
+    report = os.path.join(work, "ncsn_gloo_{rank}.json")
+    port = _free_port()
+    cmds = [[sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--rank-worker", report, "train_ncsn", *args, "--output",
+             outs[r], "--multihost", "--coordinator_address",
+             f"localhost:{port}", "--num_processes", "2", "--process_id",
+             str(r)] for r in range(2)]
+    t0 = time.time()
+    _run_all(cmds, "[10c]")
+    wall = time.time() - t0
+    reports = _rank_reports(report, 2)
+    logs = [os.path.join(outs[0], "out.log"),
+            os.path.join(outs[1], "out_rank1.log")]
+    lines = [_epoch_line(lg) for lg in logs]
+    backends = [_log_lines(lg, ("Multi-host",)) for lg in logs]
+    # the reference: one process on the global batches (each the two
+    # ranks' shard batches, in rank order) with the same draws
+    shards = [load_melspec_ds(os.path.join(ds, "train"),
+                              os.path.join(ds, "test"),
+                              batch_size=TRAIN_BATCH // 2, num_hosts=2,
+                              host_id=r) for r in range(2)]
+    for d in shards:
+        for split in d[:2]:
+            split.data = train_ncsn.preprocess(split.data, -100.0, 20.0,
+                                               False, 1e-6)
+    sigmas = get_sigmas(1.0, 0.01, L, "logarithmic")
+    model = get_score_model("v1", (96, 64, 1), 192, L, sigmas=sigmas,
+                            device="cuda")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = init_train_state(model, setup_optimizer("adam", 1e-3), ema=True)
+    step, eval_loss = make_ncsn_train_step(sigmas, ema_decay=0.999)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        nn.set_winograd(True)
+        losses = []
+        for b0, b1 in zip(shards[0][0], shards[1][0]):
+            state, loss = step(state, torch.as_tensor(
+                np.concatenate([b0, b1]), device="cuda"), gen)
+            losses.append(float(loss))
+        vals = [float(eval_loss(state, torch.as_tensor(
+            np.concatenate([e0, e1]), device="cuda"), gen))
+            for e0, e1 in zip(shards[0][1], shards[1][1])]
+    finally:
+        nn.set_winograd(False)
+    want = (float(np.mean(losses)), float(np.mean(vals)))
+    got = _losses(lines[0])
+    flat, step_n = load_flat(latest_checkpoint(os.path.join(outs[0],
+                                                            "ckpts")))
+    ref_tree = _flatten(state.tree())
+    rel = {p: _param_rel(flat, ref_tree, p)
+           for p in ("['params']", "['ema_params']")}
+    per_rank = [r["launches"] for r in reports]
+    forwards = len(losses) + len(vals) + L * T
+    print(f"[10c] train_ncsn --multihost, 2 processes on cuda:0: {backends}; "
+          f"wall-clock {wall:.2f} s (2 process starts included); epoch "
+          f"lines {lines}; one process on the same global batches: train "
+          f"{want[0]:.3f}, val {want[1]:.6f}; params ||diff|| / ||one|| "
+          f"{rel}; launches per rank {per_rank}, expected {f32} "
+          f"{forwards * ROUTED_PER_FORWARD} each ({len(losses)} steps + "
+          f"{len(vals)} eval + {L}x{T} Langevin); peak memory per rank "
+          f"{[round(r['peak_mib'], 1) for r in reports]} MiB")
+    n_grad = sum(t.numel() for t in state.params.values())
+    for r, rep in enumerate(reports):
+        print(f"[10c] rank {r}: steps at batch {TRAIN_BATCH // 2} a rank "
+              f"{_ms(rep['times']['step'])} ms, of them the bucketed "
+              f"all-reduce of {n_grad:,} f32 gradients "
+              f"{_ms(rep['times']['all_reduce'])} ms [{smi}; ranks sharing "
+              f"one card, not scaling]")
+    if not all(b == [f"Multi-host initialised: process {r} of 2, backend "
+                     f"gloo"] for r, b in enumerate(backends)):
+        raise AssertionError("[10c] the 2 ranks did not run on gloo")
+    if lines[0] != lines[1]:
+        raise AssertionError("[10c] the ranks logged different losses")
+    if not _close(got, want) or max(rel.values()) > TRAIN_TOL["param"] \
+            or step_n != len(losses):
+        raise AssertionError("[10c] 2 ranks differ from one process")
+    if os.path.exists(os.path.join(outs[1], "ckpts", "checkpoint.json")):
+        raise AssertionError("[10c] rank 1 wrote a checkpoint")
+    if any(r.get(f32) != forwards * ROUTED_PER_FORWARD for r in per_rank):
+        raise AssertionError(f"[10c] launches {per_rank}")
+    print("[10c] rank 0 alone wrote ckpts/ (rank 1's --output has none)")
+    return sum(r[f32] for r in per_rank)
+
+
+def phase_multi_tools(work: str):
+    """10d: dryrun_multichip(2) on the card, and technique1 against
+    float64."""
+    import numpy as np
+    from audiosourcesep_tpu_torch import technique1_ncsnv2
+    from audiosourcesep_tpu_torch.data import save_tf_records
+    from audiosourcesep_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.time()
+    loss = dryrun_multichip(2, "cuda", timeout=300)
+    print(f"[10d] dryrun_multichip(2) on cuda:0 (gloo): DP NCSN step, "
+          f"frame-sharded NCSN and Glow anneals, source-sharded NCSN and "
+          f"Glow anneals, all finite; loss {loss:.4f}; "
+          f"{time.time() - t0:.1f} s")
+    ds = os.path.join(work, "technique1")
+    specs = np.random.default_rng(0).uniform(
+        -100.0, 20.0, (2000, 96, 64)).astype(np.float32)
+    t0 = time.time()
+    for split, arr in (("train", specs), ("test", specs[:8])):
+        os.makedirs(os.path.join(ds, split))
+        save_tf_records(list(arr), os.path.join(ds, split, "x.tfrecord"))
+    written = time.time() - t0
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = technique1_ncsnv2.main([ds, "--device", "cuda"])
+    wall = time.time() - t0
+    flat = ((specs.reshape(2000, -1) + 100.0) / 120.0).astype(np.float64)
+    sq = (flat * flat).sum(1)
+    want = float(np.sqrt(max((sq[:, None] + sq[None] - 2 * flat @ flat.T)
+                             .max(), 0.0)))
+    rel = abs(got - want) / want
+    print(f"[10d] technique1_ncsnv2 --device cuda on 2,000 synthetic "
+          f"spectrograms: {got:.6f} (float64 on the CPU {want:.6f}, rel "
+          f"{rel:.2e}, tolerance {TECH1_TOL}); {wall:.2f} s with the load "
+          f"(the TFRecords written in {written:.2f} s)")
+    if rel > TECH1_TOL:
+        raise AssertionError("[10d] technique 1 differs from float64")
+
+
 def kernels_line(res, routes):
     """The ``kernels`` entries of the JSON line, one per kernel of
     ``ops.winograd.KERNELS``. ``res[dname]`` holds a kernel's numbers over
@@ -1845,6 +2412,7 @@ def kernels_line(res, routes):
 
 
 def main(argv):
+    t_start = time.time()
     full = "--full" in argv
     try:
         import torch
@@ -1855,6 +2423,9 @@ def main(argv):
     if not os.path.isdir(os.path.join(HERE, "audiosourcesep_tpu_torch")):
         fail(f"audiosourcesep_tpu_torch not found next to {__file__}")
     sys.path.insert(0, HERE)
+    if argv[:1] == ["--rank-worker"]:
+        rank_worker(argv[1:])
+        return
 
     smi = phase_device()
     phase_build()
@@ -1870,7 +2441,7 @@ def main(argv):
         ds, counts = phase_train_data(work)
         phase_train_step_vs_cpu()
         phase_train_routing(smi)
-        phase_train_cli(work, ds, counts)
+        train_launches, _ = phase_train_cli(work, ds, counts)
         res["float32_glow"] = phase_glow_kernel()
         phase_glow_score()
         phase_glow_train(smi)
@@ -1883,6 +2454,13 @@ def main(argv):
         phase_realnvp(work, smi)
         flowpp_launches = phase_flowpp(smi)
         image_glow_launches = phase_image_glow(work, n_train, full)
+        multi = {"shard_sources": phase_multi_basis(work, True, bf16_out,
+                                                    smi),
+                 "frame_sharded": phase_multi_basis(work, False, bf16_out,
+                                                    smi),
+                 "multihost_train": phase_multi_train(work, ds,
+                                                      train_launches, smi)}
+        phase_multi_tools(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1908,7 +2486,14 @@ def main(argv):
     # the image Glow separation's f32 launches (its classes not timed)
     next(k for k in kernels if k["name"] == name[f32])[
         "image_glow_launches"] = image_glow_launches
-    print(f"[10] card: {smi}")
+    # phase 10's launches, all ranks together: the two separation layouts
+    # (bf16) and the 2-rank training CLI (f32)
+    for key, n in multi.items():
+        dt = f32 if key == "multihost_train" else bf16
+        next(k for k in kernels if k["name"] == name[dt])[
+            f"{key}_launches"] = n
+    print(f"[10] card: {smi}; chip_smoke.py ran {time.time() - t_start:.0f}"
+          f" s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

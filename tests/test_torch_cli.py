@@ -151,11 +151,20 @@ def test_inversion_cli_ground_truth_sdr(basis_run):
         assert float(np.nanmean(sir[i])) > 20.0, (i, sir)
 
 
-@pytest.mark.parametrize("flag", [["--shard_sources"]])
-def test_cli_refuses_what_is_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_basis_sep.main(["a", "b", "--output", str(tmp_path),
-                            "--song_dir", str(tmp_path), "--debug", *flag])
+def test_shard_sources_on_one_process_is_ignored_and_separates(
+        tmp_path, song_dir, ckpt_dir):
+    """Without an even number of ranks --shard_sources prints the JAX
+    script's line and separates on one process."""
+    out = str(tmp_path / "sep")
+    run_basis_sep.main([ckpt_dir, ckpt_dir, "--output", out, "--song_dir",
+                        song_dir, "--n_mixed", "2", "--T", "1",
+                        "--num_classes", "2", "--n_filters", "4",
+                        "--device", "cpu", "--shard_sources"])
+    with open(os.path.join(out, "out.log")) as f:
+        assert "--shard_sources ignored (needs an even device count > 1)" \
+            in f.read()
+    res = np.load(os.path.join(out, "results.npz"))
+    assert res["x1"].shape == (2, 96, 64) and np.isfinite(res["x1"]).all()
 
 
 def test_cli_cuda_without_gpu_raises(tmp_path, monkeypatch):
@@ -348,13 +357,28 @@ def test_training_clis_cuda_without_gpu_raise(tmp_path, monkeypatch, cli,
         cli.main(argv)
 
 
-@pytest.mark.parametrize("cli,argv", [
-    (train_ncsn, ["--dataset", "d", "--multihost"])])
-def test_training_clis_refuse_what_is_not_ported(tmp_path, monkeypatch, cli,
-                                                 argv):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main([*argv, "--device", "cpu", "--debug"])
+def test_train_ncsn_multihost_one_process_over_gloo(tmp_path, dataset):
+    """--multihost --num_processes 1 on the CPU: a gloo group of one rank
+    (a file:// rendezvous) that trains exactly as the run without it,
+    writes its checkpoint and leaves the group."""
+    runs = {}
+    for name, extra in (("plain", []), ("multihost", [
+            "--multihost", "--coordinator_address",
+            f"file://{tmp_path / 'rendezvous'}", "--num_processes", "1",
+            "--process_id", "0"])):
+        out = str(tmp_path / name)
+        train_ncsn.main(["--dataset", dataset, "--output", out,
+                         "--n_epochs", "1", "--sample_every", "5",
+                         "--batch_size", "2", *TINY, *extra])
+        runs[name], step = load_flat(os.path.join(out, "ckpts", "ckpt-4"))
+        assert step == 4
+    assert not torch.distributed.is_initialized()
+    with open(tmp_path / "multihost" / "out.log") as f:
+        assert "Multi-host initialised: process 0 of 1, backend gloo" \
+            in f.read()
+    assert set(runs["plain"]) == set(runs["multihost"])
+    for k, v in runs["plain"].items():
+        np.testing.assert_array_equal(runs["multihost"][k], v, err_msg=k)
 
 
 # ---------------------------------------------------------------------------

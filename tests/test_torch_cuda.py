@@ -545,3 +545,95 @@ def test_mixlog_inv_cdf_round_trip_on_the_card(cuda):
     got = mixlog_inv_cdf(*(t.to(cuda) for t in (y, logits, means,
                                                 log_scales)))
     assert (got.cpu() - x).abs().max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# multi-process runs on the card (torch.distributed)
+# ---------------------------------------------------------------------------
+
+def _flat_params(model):
+    from audiosourcesep_tpu_torch.training.checkpoint import (_flatten,
+                                                              params_to_jax)
+    return _flatten(params_to_jax(model.state_dict()))
+
+
+def test_nccl_world_size_one_train_step_equals_the_plain_step(cuda,
+                                                              tmp_path):
+    """A process group of one rank over NCCL: the step with its gradients
+    all-reduced through NCCL equals the step without a group (a sum over
+    one rank, divided by one), to 1e-6 of each tensor; the group was
+    created at once (``device_id``) and is left afterwards."""
+    import copy
+
+    import torch.distributed as dist
+
+    from audiosourcesep_tpu_torch.parallel import (Layout, init_distributed,
+                                                   shutdown)
+    sigmas = get_sigmas(1.0, 0.01, 4)
+    model = get_score_model("v1", (16, 16, 1), 8, 4, device=cuda)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    other = copy.deepcopy(model)
+    x = torch.rand((4, 16, 16, 1), device=cuda)
+    dev = init_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0,
+                           device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dev.type == "cuda"
+        losses, states = [], []
+        for m, layout in ((model, Layout()), (other, None)):
+            state = init_train_state(m, setup_optimizer("adam", 1e-3))
+            step, _ = make_ncsn_train_step(sigmas, layout=layout)
+            gen = torch.Generator(device=cuda).manual_seed(1)
+            state, loss = step(state, x, gen)
+            losses.append(float(loss))
+            states.append(state)
+    finally:
+        shutdown()
+    assert not dist.is_initialized()
+    assert abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[1])
+    # the backward (cuDNN's weight gradients, the embeddings' scatter) is
+    # not bitwise reproducible from run to run; Adam's first step divides
+    # each gradient by its own size, so one near the f32 noise floor moves
+    # its weight apart by up to ~1e-6 (measured 4.9e-7, and 7e-8 on a
+    # zero-init embedding): 1% of the step's lr (1e-3) for every weight
+    for name, p in states[0].params.items():
+        q = states[1].params[name]
+        assert float((p - q).abs().max()) <= 1e-5, name
+
+
+def test_two_rank_source_sharded_anneal_on_one_card_equals_one_process(
+        cuda):
+    """Two gloo ranks sharing cuda:0, one NCSN prior each (the mixing
+    gathered over the pair each step), against one process with both
+    priors, on the same draws, TF32 off in both: each model sees the
+    same frames, so the result agrees to 1e-6 (bitwise expected)."""
+    from audiosourcesep_tpu_torch.parallel.workers import run_ranks
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     ncsn_score_fn)
+    L, T, N, shape = 2, 2, 3, (16, 16, 1)
+    models = []
+    for seed in (1, 2):
+        m = get_score_model("v1", shape, 8, L, device=cuda)
+        m.reset_parameters(torch.Generator().manual_seed(seed))
+        models.append(m.eval())
+    g = torch.Generator().manual_seed(3)
+    mixed, x0 = torch.rand((N, *shape), generator=g), \
+        torch.rand((2, N, *shape), generator=g)
+    noise = torch.randn((L, T, 2, N, *shape), generator=g)
+    cfg = dict(T=T, delta=2e-3, data_type="melspec", scale="dB")
+    sigmas = get_sigmas(1.0, 0.1, L)
+    want, want_traj = basis_separate_per_level(
+        ncsn_score_fn(models), mixed.to(cuda), x0.to(cuda), sigmas,
+        config=BasisConfig(**cfg),
+        noise_fn=lambda level, step: noise[level, step])
+    out = run_ranks(dict(task="basis", kind="ncsn", n_sources=2,
+                         shape=shape, n_filters=8, num_classes=L,
+                         params=[_flat_params(m) for m in models],
+                         sigmas=sigmas, mixed=mixed.numpy(),
+                         x0=x0.numpy(), cfg=cfg, noise=noise.numpy()),
+                    2, "cuda", timeout=300)
+    assert out[1] is None
+    scale = float(want.abs().max())
+    assert abs(out[0]["x"] - want.cpu().numpy()).max() <= 1e-6 * scale
+    assert abs(out[0]["traj"] - want_traj.cpu().numpy()).max() \
+        <= 1e-6 * scale
