@@ -246,14 +246,18 @@ def get_song_extract(mix_path: str, piano_path: str, violin_path: str,
                      fmin: float = 125.0, fmax: float = 7600.0,
                      dbmin: float = -100.0, dbmax: float = 20.0,
                      use_dB: bool = True, skip_frames: int = 2,
-                     device="cpu"):
+                     device="cuda"):
     """Load mixture + sources, window them, and compute the mel
     spectrograms and the complex mixture STFT (kept for phase-reuse
-    inversion) on ``device``.
+    inversion) on ``device``: the card by default, as the JAX package
+    computes them on its device; ``cuda`` raises without a card (no
+    fallback to the CPU).
 
     Returns ``(mel_spec [3][n, n_mels, F, 1], raw_audio [3][T],
     stft_mixture [n, bins, F] complex64)`` as numpy arrays.
     """
+    from ..cli import resolve_device
+    device = resolve_device(device)
     n_extract = int(round(duration / length_sec))
     windows = []
     for path in (mix_path, piano_path, violin_path):

@@ -37,7 +37,9 @@ SIGNATURES = {
     # (x, u, y, B, H, W, Cin, Cout, dilation, block_rows, stream)
     #   -> cudaError_t
     "winograd_f23_fwd_f32": ([_P, _P, _P, *[_I] * 7, _P], _I),
-    "winograd_f23_fwd_bf16": ([_P, _P, _P, *[_I] * 7, _P], _I),
+    # (x, u, y, B, H, W, Cin, Cout, U's row length, dilation, row phases
+    #  P, tile columns TC, tma, stream) -> cudaError_t
+    "winograd_f23_fwd_bf16": ([_P, _P, _P, *[_I] * 10, _P], _I),
     # () -> dynamic shared memory bytes per block of each kernel
     "winograd_f23_f32_smem_bytes": ([], _I),
     "winograd_f23_bf16_smem_bytes": ([], _I),

@@ -8,11 +8,14 @@ conv is computed per 2x2 output tile as
 with the exact +-1 / +-0.5 transform matrices below: 16 channel
 contractions in the transform domain, 2.25x fewer multiply-adds than the
 direct conv. Two Hopper kernels compute it, one per dtype: bf16 on the
-tensor cores (``csrc/winograd_mma.cu``) and float32 on the CUDA cores
-(``csrc/winograd.cu``). Both read NHWC ``x`` directly (SAME halo
-zero-filled in the kernel), take the pre-transformed weights
-``U [16, C_in, C_out]`` in ``x``'s dtype (rounded as the JAX wrapper
-rounds them), and write the interleaved NHWC output themselves.
+tensor cores (``csrc/winograd_mma.cu``: wgmma fed by TMA from a producer
+warpgroup) and float32 on the CUDA cores (``csrc/winograd.cu``). Both read
+NHWC ``x`` directly (SAME halo zero-filled in the kernel), take the
+pre-transformed weights ``U [16, C_in, C_out]`` in ``x``'s dtype (rounded
+as the JAX wrapper rounds them), and write the interleaved NHWC output
+themselves. The bf16 kernel's producer loads what TMA can address by TMA
+and the rest with plain loads (:func:`bf16_path`, counted in
+``bf16_path_counts``); it takes dilation up to 4 and raises above.
 
 Public layout is the JAX package's: NHWC activations, HWIO kernels.
 
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["transform_weights", "winograd_conv2d",
+__all__ = ["transform_weights", "winograd_conv2d", "bf16_path",
            "winograd_conv2d_reference", "winograd_eligible",
            "dilated_eligible", "dilated_winograd_conv2d",
            "dilated_winograd_conv2d_reference", "launch_count",
@@ -64,6 +67,11 @@ KERNELS = {torch.float32: "winograd_f23_fwd_f32",
 # kernel launches since import (or since a caller reset them to 0)
 launch_count = 0
 launch_counts = {name: 0 for name in KERNELS.values()}
+# the bf16 kernel's launches by the path its producer took (see bf16_path)
+bf16_path_counts = {"tma": 0, "plain": 0}
+# the bf16 kernel's x tensor map strides W by 2d, and TMA takes element
+# strides up to 8
+BF16_MAX_DILATION = 4
 
 
 def _const(a: np.ndarray, device) -> torch.Tensor:
@@ -123,7 +131,7 @@ def winograd_eligible(x_shape, kernel_shape, dilation: int = 1) -> bool:
 
 
 def _block_rows(th: int, tw: int) -> int:
-    """Tile rows of the kernels' 32-tile block for a (phase) grid of
+    """Tile rows of the f32 kernel's 32-tile block for a (phase) grid of
     ``th`` x ``tw`` tiles: 4 (a 4 x 8 block) unless 8 x 4 leaves fewer
     tile slots idle. The cascade's 48x32 convs: the dense 24 x 16 and the
     d = 2 12 x 8 grids fill 4 x 8 blocks; the d = 4 grid, 6 x 4 tiles,
@@ -132,6 +140,49 @@ def _block_rows(th: int, tw: int) -> int:
         cols = 32 // rows
         return -(-th // rows) * rows * -(-tw // cols) * cols
     return 8 if slots(8) < slots(4) else 4
+
+
+def _bf16_block(th: int, tw: int, d: int):
+    """``(P, TC)`` of the bf16 kernel's 64-tile block for a phase grid of
+    ``th`` x ``tw`` tiles at dilation ``d``: TC (8 or 4) tile columns by
+    64 / TC tile rows, taken from P (1, 2 or 4, dividing d) row phases of
+    one column phase. The shape with the fewest idle tile slots wins; on a
+    tie the wider block and the fewer phases. The cascade's 48x32 convs:
+    the dense 24 x 16 grid fills 8 x 8 blocks, the d = 2 grids of 12 x 8
+    tiles two phases of 4 x 8, the d = 4 grids of 6 x 4 tiles two phases
+    of 8 x 4 (75%)."""
+    best = None
+    for tc in (8, 4):
+        for p in (1, 2, 4):
+            if d % p:
+                continue
+            rows = 64 // (tc * p)
+            slots = -(-th // rows) * rows * -(-tw // tc) * tc
+            if best is None or slots < best[0]:
+                best = (slots, p, tc)
+    return best[1], best[2]
+
+
+def bf16_path(x: torch.Tensor) -> str:
+    """How the bf16 kernel's producer brings ``x`` and ``U`` in: ``"tma"``
+    by TMA when TMA can address x (C_in a multiple of 8, 16-byte aligned;
+    U's rows are padded to a multiple of 8 for the kernel, see
+    :func:`_bf16_u`), else ``"plain"``, by plain loads (begin_conv,
+    1->192)."""
+    if x.shape[-1] % 8 or x.data_ptr() % 16:
+        return "plain"
+    return "tma"
+
+
+def _bf16_u(u: torch.Tensor) -> torch.Tensor:
+    """U as the bf16 kernel reads it: 16-byte aligned, with rows of C_out
+    padded with zeros to a multiple of 8 channels (16 bytes), which TMA
+    needs between rows. A copy only when C_out is not a multiple of 8
+    (end_conv, Flow++'s 96->294) or U is not aligned."""
+    pad = -u.shape[2] % 8
+    if pad:
+        return F.pad(u, (0, pad))
+    return u.clone() if u.data_ptr() % 16 else u
 
 
 def _winograd_cuda(x: torch.Tensor, u: torch.Tensor,
@@ -160,21 +211,36 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"U must be [16, {cin}, C_out], got "
                          f"{tuple(u.shape)}")
     cout = u.shape[2]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and d > BF16_MAX_DILATION:
+        raise ValueError(f"the bf16 winograd kernel takes dilation up to "
+                         f"{BF16_MAX_DILATION}, got d={d}")
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     from ..kernels.build import load_library
     name = KERNELS[x.dtype]
+    th, tw = h // (2 * d), w // (2 * d)
+    if bf16:
+        u = _bf16_u(u)
+        path = bf16_path(x)
+        sizes = (cin, cout, u.shape[2], d)
+        geometry = (*_bf16_block(th, tw, d), int(path == "tma"))
+    else:
+        sizes = (cin, cout, d)
+        geometry = (_block_rows(th, tw),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(load_library(), name)(
-            x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
-            d, _block_rows(h // (2 * d), w // (2 * d)), stream)
+            x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, w, *sizes,
+            *geometry, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, C_out {cout}, d={d})")
     launch_count += 1
     launch_counts[name] += 1
+    if bf16:
+        bf16_path_counts[path] += 1
     return y
 
 

@@ -233,7 +233,7 @@ def run(args: argparse.Namespace, device: torch.device) -> None:
             os.path.join(song_dir, "mix.wav"),
             os.path.join(song_dir, "piano.wav"),
             os.path.join(song_dir, "violin.wav"),
-            spec["length_sec"] * args.n_mixed, **spec)
+            spec["length_sec"] * args.n_mixed, **spec, device=device)
         mixed, gt1, gt2 = mel_spec
         for name, audio in zip(("mix.wav", "ground_truth1.wav",
                                 "ground_truth2.wav"), raw_audio):

@@ -5,13 +5,18 @@
 
 Builds ``audiosourcesep_tpu_torch/csrc/winograd_mma.cu`` (bf16) and
 ``csrc/winograd.cu`` (f32) a second time with ``-DWINOGRAD_PROBE``: each
-warp then sums the ``clock64`` cycles it spends in each phase of its loop
-over input-channel chunks (bf16: 16 channels; f32: 8), and the f32 kernel
-also its epilogue. For each conv class that the NCSN v1 forward routes to
-the kernels (batch 30) it prints the plain build's time, the probed
-build's time, and the cycles per chunk of each phase, averaged over the
-eight warps (the f32 epilogue spread over the chunks). The probe build is
-slower than the plain one; the phase shares are what it is for.
+warp then sums the ``clock64`` cycles it spends in each phase of its role
+over input-channel chunks (bf16: 16 channels; f32: 8). The bf16 kernel's
+warps have two roles: the eight consumer warps (two warpgroups) wait for a
+stage to land, form V (the transform), run the wgmmas (issue, and the wait
+for the previous chunk's group), and write the output (the epilogue); the
+producer warp waits for a free stage and issues its copies. Shares that
+add up to more than the consumers' loop show the roles overlapping. For
+each conv class that the NCSN v1 forward routes to the kernels (batch 30)
+it prints the plain build's time, the probed build's time, and the cycles
+per chunk of each phase, averaged over the warps of a role (the epilogue
+spread over the chunks). The probe build is slower than the plain one;
+the phase shares are what it is for.
 """
 
 import ctypes
@@ -24,14 +29,20 @@ CLASSES = [(96, 64, 1, 192), (96, 64, 192, 192), (96, 64, 192, 384),
            (96, 64, 192, 1), (48, 32, 384, 384), (48, 32, 384, 192),
            (48, 32, 192, 192)]
 BATCH = 30
-# dtype name -> source, C entry, probe entry, channels per chunk, phases
+# dtype name -> source, C entry, probe entry, channels per chunk, and the
+# phases of each role as (role, first warp, warps, phase names)
 KERNELS = {
     "bfloat16": ("winograd_mma.cu", "winograd_f23_fwd_bf16",
                  "winograd_f23_bf16_probe", 16,
-                 ("mma", "transform", "copies", "wait", "barrier")),
+                 (("consumer", 0, 8, ("full wait", "transform", "wgmma",
+                                      "epilogue")),
+                  ("producer", 8, 1, ("empty wait", "issue")))),
+    # (the bf16 kernel's buffer holds 12 warps; on the TMA path only the
+    # producer's first warp runs)
     "float32": ("winograd.cu", "winograd_f23_fwd_f32",
                 "winograd_f23_f32_probe", 8,
-                ("fma+transform+copies", "wait", "barrier", "epilogue")),
+                (("all", 0, 8, ("fma+transform+copies", "wait", "barrier",
+                                "epilogue")),)),
 }
 
 
@@ -74,10 +85,12 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
-    for dname, (source, entry, probe, kc, phases) in KERNELS.items():
+    for dname, (source, entry, probe, kc, roles) in KERNELS.items():
         dtype = getattr(torch, dname)
         lib = build_probe(build, source, entry, probe)
-        buf = (ctypes.c_ulonglong * (8 * len(phases)))()
+        width = max(len(names) for *_, names in roles)
+        n_warps = 12 if dname == "bfloat16" else 8
+        buf = (ctypes.c_ulonglong * (n_warps * width))()
         print(f"{dname} ({source}): clk per {kc}-channel chunk per warp")
         for h, w, cin, cout in CLASSES:
             x = torch.randn(BATCH, h, w, cin, device="cuda",
@@ -85,11 +98,22 @@ def main():
             u = torch.randn(16, cin, cout, device="cuda",
                             generator=g).to(dtype)
             y = torch.empty(BATCH, h, w, cout, device="cuda", dtype=dtype)
+            if dname == "bfloat16":
+                u = W._bf16_u(u)
+                p_rows, tc = W._bf16_block(h // 2, w // 2, 1)
+                sizes = (cin, cout, u.shape[2], 1)
+                geometry = (p_rows, tc, int(W.bf16_path(x) == "tma"))
+                blocks = BATCH * -(-h // 2 // (64 // tc)) \
+                    * -(-w // 2 // tc) * -(-cout // 64)
+            else:
+                sizes = (cin, cout, 1)
+                geometry = (4,)
+                blocks = BATCH * -(-h // 8) * -(-w // 16) * -(-cout // 64)
 
             def probed():
                 err = getattr(lib, entry)(x.data_ptr(), u.data_ptr(),
-                                          y.data_ptr(), BATCH, h, w, cin,
-                                          cout, 1, 4, stream)
+                                          y.data_ptr(), BATCH, h, w, *sizes,
+                                          *geometry, stream)
                 assert err == 0, err
 
             ms_plain = ms(lambda: W._winograd_cuda(x, u))
@@ -97,19 +121,18 @@ def main():
             assert getattr(lib, probe)(buf) == 0
             ms_probe = ms(probed)
             assert getattr(lib, probe)(buf) == 0
-            # 32-tile blocks of 4 x 8 tiles, 64 output channels
-            blocks = BATCH * -(-h // 8) * -(-w // 16) * -(-cout // 64)
             chunks = 21 * blocks * -(-cin // kc)      # 1 warm-up + 20 timed
-            n = len(phases)
-            per = [sum(buf[wp * n + i] for wp in range(8)) / 8 / chunks
-                   for i in range(n)]
-            tot = sum(per)
-            shares = ", ".join(f"{p} {c:.0f} ({100 * c / tot:.0f}%)"
-                               for p, c in zip(phases, per))
+            parts = []
+            for role, w0, n, names in roles:
+                per = [sum(buf[wp * width + i] for wp in range(w0, w0 + n))
+                       / n / chunks for i in range(len(names))]
+                tot = sum(per)
+                parts.append(f"{role}: " + ", ".join(
+                    f"{p} {c:.0f} ({100 * c / tot:.0f}%)"
+                    for p, c in zip(names, per)) + f"; total {tot:.0f}")
             print(f"  {h}x{w} {cin:3d}->{cout:3d}: kernel {ms_plain:.4f} ms, "
-                  f"probed {ms_probe:.4f} ms; {shares}; total {tot:.0f}")
+                  f"probed {ms_probe:.4f} ms; " + " | ".join(parts))
             del x, u, y
-
 
 if __name__ == "__main__":
     main()

@@ -14,7 +14,9 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
 3. both Winograd kernels (bf16 on the tensor cores, f32 on the CUDA
    cores) against their plain PyTorch version and F.conv2d at every conv
    class the NCSN v1 forward routes to them (batch 30), with errors, times
-   and each class's bound (the least time the card could take); then the
+   and each class's bound (the least time the card could take), the bf16
+   kernel's ptxas report (a spill fails the phase), each class's producer
+   path and the host time of one launch; then the
    dilated route (the kernels on the d*d phase grids) at the cascade's
    dilated convs, 48x32 384->384 at d = 2 and 4 (one launch per conv,
    the phases read and written in place), against its plain version and
@@ -130,6 +132,13 @@ ROUTED_PER_FORWARD = sum(CONV_CLASSES.values())          # 64 of 75 convs
 # the cascade's dilated 3x3 convs of one forward, all 48x32 384->384:
 # dilation -> convs per forward (not routed; the dilated route's class)
 DILATED_CLASS = (48, 32, 384, 384)
+# the class whose host time of one launch phase 3 prints
+HOST_CLASS = (48, 32, 384, 384)
+# the bf16 kernel's design, for the kernels line
+BF16_DESIGN = ("wgmma m64n64k16 (A = V from registers, B = U from shared "
+               "memory), TMA loads of x and U into a 4-stage mbarrier ring "
+               "from a producer warpgroup, two consumer warpgroups with "
+               "A^T's rows folded (setmaxnreg 224/56), persistent blocks")
 DILATED = {2: 5, 4: 5}
 BATCH = 30
 # kernel vs plain version: (max|err| / max|plain|, mean|err| / mean|plain|,
@@ -302,7 +311,8 @@ def phase_build():
     print(f"[2] kernels built/loaded in {time.time() - t0:.2f} s: "
           f"{os.path.relpath(so, HERE)}")
     for line in build.build_log.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
+        if any(k in line for k in ("entry function", "registers", "spill",
+                                   "Potential Performance Loss")):
             print(f"[2] ptxas: {line.strip()}")
     for name in build.SIGNATURES:
         if name.endswith("_smem_bytes"):
@@ -326,14 +336,17 @@ def conv_bound(h, w, cin, cout, dname, batch=BATCH):
 
 def _new_result():
     return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "max_abs_err": 0.0, "by": {"operations": 0.0, "bytes": 0.0}}
+            "max_abs_err": 0.0, "by": {"operations": 0.0, "bytes": 0.0},
+            "paths": {}}
 
 
 def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
-          tag="[3]", batch=BATCH):
+          tag="[3]", batch=BATCH, path=None):
     """Run one conv class through the kernel, its plain version and
     F.conv2d on the same inputs; check the kernel's agreement, time all
-    three, and add ``n`` times each to the route's result ``r``."""
+    three, and add ``n`` times each to the route's result ``r``. ``path``
+    (the bf16 kernel's producer path for this class) goes into
+    ``r["paths"]``."""
     import torch
     tol_max, tol_mean, tol_conv = TOL[dname]
     y, ref, conv = run_kernel().float(), run_plain().float(), run_conv()
@@ -349,12 +362,15 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
     ms_p = cuda_ms(run_plain, 3)
     ms_c = cuda_ms(run_conv, 20, 2)
     bound, by = conv_bound(*shape, dname, batch)
+    if path is not None:
+        r["paths"][label.split(" d=")[0].strip()] = path
     r["ms"] += n * ms_k
     r["plain_ms"] += n * ms_p
     r["library_ms"] += n * ms_c
     r["bound_ms"] += n * bound
     r["by"][by] += n * bound
-    print(f"{tag} {dname:8s} {label} x{n:2d}/fwd: rel err vs plain max "
+    print(f"{tag} {dname:8s} {label} x{n:2d}/fwd"
+          f"{'' if path is None else f' ({path})'}: rel err vs plain max "
           f"{e_plain / scale:.2e} (tol {tol_max:g}) mean {e_mean:.2e} (tol "
           f"{tol_mean:g}), vs F.conv2d max {e_conv / scale:.2e} (tol "
           f"{tol_conv:g}); ms kernel {ms_k:.4f} plain {ms_p:.4f} F.conv2d "
@@ -370,6 +386,37 @@ def _summary(r, what, dname, tag="[3]", batch=BATCH):
           f"plain {r['plain_ms']:.3f} ms, F.conv2d {r['library_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.1f}%"
           f" of it reached)")
+
+
+def _ptxas_report(log: str, name: str):
+    """ptxas' lines (registers, spills, wgmma serialisation) for the entry
+    functions whose mangled name contains ``name``."""
+    out, on = [], False
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            on = name in line
+            if on:
+                out.append(line.split("ptxas info    : ")[-1])
+        elif "Potential Performance Loss" in line and name in line:
+            out.append(line.split("ptxas info    : ")[-1])
+        elif on and ("spill" in line or "Used" in line):
+            out.append(line.split("ptxas info    : ")[-1])
+    return out
+
+
+def _host_us(fn, n: int = 50) -> float:
+    """Host time of one call of ``fn`` (microseconds): ``n`` calls back to
+    back, timed on the host clock without waiting for the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return 1e6 * host
 
 
 def phase_kernel():
@@ -392,6 +439,15 @@ def phase_kernel():
     def nhwc(y):
         return y.permute(0, 2, 3, 1)
 
+    from audiosourcesep_tpu_torch.kernels import build
+    bf16_report = _ptxas_report(build.build_log, "winograd_f23_bf16")
+    for line in bf16_report:
+        print(f"[3] bf16 kernel ptxas: {line}")
+    if not bf16_report or any("spill" in ln and not ln.startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill")
+            for ln in bf16_report):
+        raise AssertionError("the bf16 kernel's ptxas report is missing or "
+                             "shows spills")
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
@@ -402,7 +458,13 @@ def phase_kernel():
                   (h, w, cin, cout),
                   lambda: W._winograd_cuda(x, u),
                   lambda: W.winograd_conv2d_reference(x, k),
-                  lambda: nhwc(F.conv2d(xc, kc, padding=1)))
+                  lambda: nhwc(F.conv2d(xc, kc, padding=1)),
+                  path=W.bf16_path(x) if dname == "bfloat16" else None)
+            if (h, w, cin, cout) == HOST_CLASS:
+                r["host_us"] = _host_us(lambda: W._winograd_cuda(x, u))
+                print(f"[3] {dname} host time of one launch (the wrapper, "
+                      f"the tensor maps and the enqueue, {HOST_CLASS}): "
+                      f"{r['host_us']:.1f} us")
             del x, k, u, xc, kc
         _summary(r, "routed convs of one forward", dname)
     for dtype in (torch.bfloat16, torch.float32):
@@ -419,7 +481,8 @@ def phase_kernel():
                   DILATED_CLASS,
                   lambda: W.dilated_winograd_conv2d(x, k, d, u),
                   lambda: W.dilated_winograd_conv2d_reference(x, k, d),
-                  lambda: nhwc(F.conv2d(xc, kc, padding=d, dilation=d)))
+                  lambda: nhwc(F.conv2d(xc, kc, padding=d, dilation=d)),
+                  path=W.bf16_path(x) if dname == "bfloat16" else None)
             del x, k, u, xc, kc
         _summary(r, "dilated route over the cascade's dilated convs", dname)
     return res
@@ -505,6 +568,8 @@ def _reset_counts():
     W.launch_count = 0
     for name in W.launch_counts:
         W.launch_counts[name] = 0
+    for name in W.bf16_path_counts:
+        W.bf16_path_counts[name] = 0
 
 
 def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
@@ -538,6 +603,7 @@ def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
                        + (["--inverse"] if inverse else []))
     wall = time.time() - t0
     launches = dict(W.launch_counts)
+    paths = dict(W.bf16_path_counts)
     expected = 2 * L * T * ROUTED_PER_FORWARD
     mine = W.KERNELS[torch.bfloat16 if dtype == "bf16" else torch.float32]
     res = np.load(os.path.join(out, "results.npz"))
@@ -557,6 +623,15 @@ def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
                     for name in launches}:
         raise AssertionError(f"the {dtype} path did not launch {mine} for "
                              f"every routed conv, and only it")
+    if dtype == "bf16":
+        # begin_conv (1->192) by plain loads, the rest by TMA
+        per = {"tma": ROUTED_PER_FORWARD - 1, "plain": 1}
+        want = {k: 2 * L * T * n for k, n in per.items()}
+        print(f"[5] bf16 launches by producer path {paths}, expected {want}")
+        if paths != want:
+            raise AssertionError("the bf16 kernel's paths are not the "
+                                 "classes' paths")
+        launches["paths"] = paths
     for key in ("x1", "x2", "gt1", "gt2", "mixed"):
         if res[key].shape != (BATCH, 96, 64):
             raise AssertionError(f"results.npz {key} {res[key].shape}")
@@ -1397,7 +1472,9 @@ def phase_image_kernel():
                       lambda: W.winograd_conv2d_reference(x, k),
                       lambda: F.conv2d(xc, kc, padding=1).permute(0, 2, 3,
                                                                   1),
-                      tag="[9a]", batch=batch)
+                      tag="[9a]", batch=batch,
+                      path=W.bf16_path(x) if dname == "bfloat16"
+                      else None)
                 del x, k, u, xc, kc
             _summary(r, f"routed convs of one {route} forward", dname,
                      tag="[9a]", batch=batch)
@@ -2389,10 +2466,15 @@ def kernels_line(res, routes):
     from audiosourcesep_tpu_torch.ops.winograd import KERNELS
 
     def numbers(r):
-        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": max(r["by"], key=r["by"].get),
-                "library_ms": r["library_ms"]}      # cuDNN F.conv2d
+        out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": max(r["by"], key=r["by"].get),
+               "library_ms": r["library_ms"]}       # cuDNN F.conv2d
+        if r.get("paths"):             # the producer path of each class
+            out["paths"] = r["paths"]
+        if "host_us" in r:
+            out["host_us"] = r["host_us"]
+        return out
 
     kernels = []
     for dtype, name in KERNELS.items():
@@ -2400,6 +2482,10 @@ def kernels_line(res, routes):
         entry = {"name": name, "route": "cuda", "source": SOURCES[dname],
                  "replaces": "audiosourcesep_tpu/ops/winograd.py:136",
                  "launches": routes[dname][""], **numbers(res[dname])}
+        if dname == "bfloat16":
+            entry["design"] = BF16_DESIGN
+            if "paths" in routes[dname]:
+                entry["path_launches"] = routes[dname]["paths"]
         for key in sorted(res):
             if key.startswith(dname + "_"):
                 route = key[len(dname) + 1:]
@@ -2477,6 +2563,8 @@ def main(argv):
               # one routed Flow++ train step (phase 9d)
               "flowpp": flowpp_launches[name[f32]]},
         bf16: {"": launches[bf16][name[bf16]],
+               # the same run's launches by producer path
+               "paths": launches[bf16]["paths"],
                "image": image_launches["bf16"],
                # the same step: the flows run in f32, so phase 9d holds
                # this to 0

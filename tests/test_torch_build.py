@@ -44,10 +44,11 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
 
     res = {"float32": result(1), "float32_dilated": result(2),
            "float32_glow": result(3), "float32_image": result(4),
-           "bfloat16": result(11), "bfloat16_dilated": result(12),
-           "bfloat16_image": result(14)}
+           "bfloat16": dict(result(11), paths={"96x64 1->192": "plain"}),
+           "bfloat16_dilated": result(12), "bfloat16_image": result(14)}
     routes = {"float32": {"": 100, "glow": 300, "image": 400},
-              "bfloat16": {"": 110, "image": 410}}
+              "bfloat16": {"": 110, "image": 410,
+                           "paths": {"tma": 108, "plain": 2}}}
     line = {k["name"]: k for k in chip_smoke.kernels_line(res, routes)}
     f32, bf16 = line["winograd_f23_fwd_f32"], line["winograd_f23_fwd_bf16"]
     assert f32["source"].endswith("csrc/winograd.cu")
@@ -61,3 +62,9 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
     assert "launches" not in f32["dilated_route"]
     assert "glow_route" not in bf16
     assert (bf16["ms"], bf16["image_route"]["launches"]) == (11, 410)
+    # the bf16 entry names its design and the producer path of each class
+    # and of the main path's launches; the f32 entry has neither
+    assert bf16["design"] == chip_smoke.BF16_DESIGN
+    assert bf16["paths"] == {"96x64 1->192": "plain"}
+    assert bf16["path_launches"] == {"tma": 108, "plain": 2}
+    assert "design" not in f32 and "paths" not in f32

@@ -103,6 +103,53 @@ def test_kernel_matches_plain_version(cuda, shape, cout, dtype):
         <= tol_conv * conv.abs().max().item()
 
 
+# one case per producer path of the bf16 kernel: x and U by TMA (C_in a
+# multiple of 8; C_out any, U's rows padded to 8: end_conv's 1, 33), both
+# by plain loads (C_in not a multiple of 8: begin_conv's 1, 12, ragged);
+# each launch counted once, under its path
+@pytest.mark.parametrize("shape,cout,path", [((2, 16, 16, 64), 64, "tma"),
+                                             ((2, 16, 16, 192), 1, "tma"),
+                                             ((2, 16, 8, 40), 33, "tma"),
+                                             ((2, 16, 16, 1), 192, "plain"),
+                                             ((2, 16, 16, 12), 40, "plain"),
+                                             ((2, 12, 10, 5), 7, "plain")])
+def test_bf16_kernel_paths_and_their_launch_counts(cuda, shape, cout, path):
+    x, k = _inputs(shape, cout, torch.bfloat16)
+    u = W.transform_weights(k).bfloat16()
+    assert W.bf16_path(x) == path
+    before, paths = dict(W.launch_counts), dict(W.bf16_path_counts)
+    got = W._winograd_cuda(x, u).float()
+    name = W.KERNELS[torch.bfloat16]
+    assert W.launch_counts == {n: c + (n == name) for n, c in before.items()}
+    assert W.bf16_path_counts == {n: c + (n == path)
+                                  for n, c in paths.items()}
+    want = W.winograd_conv2d_reference(x, k).float()
+    tol_max, tol_mean, _ = TOL[torch.bfloat16]
+    err = (got - want).abs()
+    assert err.max().item() <= tol_max * want.abs().max().item()
+    assert err.mean().item() <= tol_mean * want.abs().mean().item()
+
+
+def test_bf16_kernel_refuses_and_does_not_fall_back(cuda):
+    # dilation past the TMA element stride: the wrapper raises, nothing runs
+    x, k = _inputs((1, 32, 32, 16), 16, torch.bfloat16)
+    before = dict(W.launch_counts)
+    with pytest.raises(ValueError, match="dilation up to"):
+        W.dilated_winograd_conv2d(x, k, 8)
+    assert W.launch_counts == before
+    # the kernel itself refuses a TMA load of x that TMA cannot address
+    # (C_in 12): an error code, and y is left as it was
+    from audiosourcesep_tpu_torch.kernels.build import load_library
+    x, k = _inputs((1, 8, 8, 12), 16, torch.bfloat16)
+    u = W.transform_weights(k).bfloat16()
+    y = torch.full((1, 8, 8, 16), 7.0, device=cuda, dtype=torch.bfloat16)
+    err = load_library().winograd_f23_fwd_bf16(
+        x.data_ptr(), u.data_ptr(), y.data_ptr(), 1, 8, 8, 12, 16, 16, 1, 1,
+        8, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0 and bool((y == 7.0).all())
+
+
 def test_bf16_kernel_takes_bf16_weights_only(cuda):
     x, k = _inputs((1, 4, 4, 8), 8, torch.bfloat16)
     with pytest.raises(TypeError):
@@ -637,3 +684,31 @@ def test_two_rank_source_sharded_anneal_on_one_card_equals_one_process(
     assert abs(out[0]["x"] - want.cpu().numpy()).max() <= 1e-6 * scale
     assert abs(out[0]["traj"] - want_traj.cpu().numpy()).max() \
         <= 1e-6 * scale
+
+
+def test_song_front_end_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """get_song_extract on the card (its default) against the CPU on the
+    same wavs: the mixture STFT within 1e-5 of its largest magnitude (f32
+    FFTs in another order), the dB mels within 1e-3 dB (the tolerance the
+    CPU front end meets against the JAX package), the raw audio equal."""
+    import numpy as np
+    from audiosourcesep_tpu_torch.data import get_song_extract, write_wav
+    sr = 16000
+    t = np.arange(14 * sr) / sr          # 6 windows, the first 2 skipped
+    piano = 0.4 * np.sin(2 * np.pi * 220.0 * t)
+    violin = 0.4 * np.sin(2 * np.pi * 554.4 * t + 3 * np.sin(
+        2 * np.pi * 5.0 * t))
+    noise = 0.01 * np.random.default_rng(0).standard_normal(t.shape)
+    for name, a in (("mix", 0.5 * (piano + violin) + noise),
+                    ("piano", piano), ("violin", violin)):
+        write_wav(str(tmp_path / f"{name}.wav"), a.astype(np.float32), sr)
+    paths = [str(tmp_path / f"{n}.wav") for n in ("mix", "piano", "violin")]
+    card = get_song_extract(*paths, duration=3 * 2.04)
+    cpu = get_song_extract(*paths, duration=3 * 2.04, device="cpu")
+    for a, b in zip(card[1], cpu[1]):
+        np.testing.assert_array_equal(a, b)
+    assert card[2].shape == cpu[2].shape == (3, 1025, 64)
+    assert np.abs(card[2] - cpu[2]).max() <= 1e-5 * np.abs(cpu[2]).max()
+    for a, b in zip(card[0], cpu[0]):
+        assert a.shape == b.shape == (3, 96, 64, 1)
+        assert np.abs(a - b).max() <= 1e-3

@@ -86,7 +86,8 @@ def test_power_to_db_window_floor_matches_jax():
 
 def test_get_song_extract_matches_jax(song_dir):
     paths = [f"{song_dir}/{n}.wav" for n in ("mix", "piano", "violin")]
-    mel, raw, stft_mix = get_song_extract(*paths, duration=2 * 2.04)
+    mel, raw, stft_mix = get_song_extract(*paths, duration=2 * 2.04,
+                                          device="cpu")
     jmel_, jraw, jstft_mix = jextract(*paths, duration=2 * 2.04)
     for a, b in zip(raw, jraw):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -98,3 +99,12 @@ def test_get_song_extract_matches_jax(song_dir):
         np.testing.assert_allclose(a, b, atol=1e-3)      # dB
     x, sr = read_wav(paths[0])
     assert sr == SR and x.dtype == np.float32
+
+
+def test_get_song_extract_defaults_to_the_card(song_dir, monkeypatch):
+    # the default device is the card; without one it raises instead of
+    # falling back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    paths = [f"{song_dir}/{n}.wav" for n in ("mix", "piano", "violin")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_song_extract(*paths, duration=2 * 2.04)

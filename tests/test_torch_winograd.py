@@ -267,3 +267,318 @@ def test_dilated_eligibility_and_refusal():
     with pytest.raises(ValueError):
         twino.dilated_winograd_conv2d(torch.zeros(1, 12, 8, 2),
                                       torch.zeros(3, 3, 2, 2), 4)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's decomposition (csrc/winograd_mma.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+# A block: 64 tiles of one column phase q (TC tile columns x 64 / TC tile
+# rows from P row phases), 64 output channels, C_in in chunks of 16. A stage
+# holds U [16 points][16 rows][64] (128-byte swizzled) at byte 0 and the x
+# slab's two column-parity boxes at U_BYTES and U_BYTES + X_HALF.
+KC, NB, U_BYTES, X_HALF, U_POINT = 16, 64, 32768, 6912, 2048
+STAGE_BYTES = 47104
+
+
+def _bf16r(a):
+    """Round float32 values to bf16 (round to nearest even), as float32."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float() \
+        .numpy()
+
+
+def _k_channel(k):
+    """The chunk channel that U row (A column) k holds: lane q's A columns
+    2q, 2q+1, 2q+8, 2q+9 are channels 4q..4q+3."""
+    return 4 * ((k >> 1) & 3) + 2 * (k >> 3) + (k & 1)
+
+
+def _swz128(off):
+    """TMA's and wgmma's 128-byte swizzle of a byte offset."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _tma_box(view, start, box, estride):
+    """TMA tiled load of a box (``box``: the boxDim of each dimension,
+    innermost first) from ``view`` (an array indexed innermost-last, i.e.
+    ``view[i4, .., i0]``) at ``start`` with element strides ``estride``:
+    dim k loads ceil(box[k] / estride[k]) elements, element ``i`` at
+    ``start[k] + i * estride[k]``, zero outside the tensor. Returns the box
+    in shared-memory order (innermost last)."""
+    dims = view.shape[::-1]
+    idx = [start[k] + estride[k] * np.arange(-(-box[k] // estride[k]))
+           for k in range(5)]
+    ok = [(i >= 0) & (i < n) for i, n in zip(idx, dims)]
+    clip = [np.clip(i, 0, n - 1) for i, n in zip(idx, dims)]
+    out = view[np.ix_(*clip[::-1])]
+    keep = np.ones(out.shape, bool)
+    for axis, m in enumerate(ok[::-1]):
+        shape = [1] * 5
+        shape[axis] = m.size
+        keep &= m.reshape(shape)
+    return np.where(keep, out, 0.0).astype(view.dtype)
+
+
+def _stage_tma(x, u, d, P, TC, blk, j):
+    """A stage as the producer's three TMA loads land it, as float32
+    [STAGE_BYTES / 2] (one entry per bf16)."""
+    b, p0, q, tr0, tc0, co0 = blk
+    bsz, h, w, cin = x.shape
+    cout = u.shape[2]
+    trp = 64 // (TC * P)
+    stage = np.zeros(STAGE_BYTES // 2, np.float32)
+    # x as (C, W, row phase, phase row, batch)
+    xv = x.reshape(bsz, h // d, d, w, cin)
+    for par in range(2):
+        box = _tma_box(xv, (KC * j, d * (2 * tc0 - 1 + par) + q, p0,
+                            2 * tr0 - 1, b),
+                       (KC, 2 * d * (TC + 1), P, 2 * trp + 2, 1),
+                       (1, 2 * d, 1, 1, 1)).reshape(-1)
+        off = (U_BYTES + par * X_HALF) // 2
+        stage[off:off + box.size] = box
+    # U as (n, e, qj, h, point): channel 4 qj + 2 h + e
+    uv = np.zeros((16, 2, cin // 4, 2, cout), np.float32)
+    for e in range(2):
+        for hh in range(2):
+            uv[:, hh, :, e, :] = u[:, 2 * hh + e::4, :][:, :cin // 4]
+    # strides of the view: point, h, qj, e, n (innermost last)
+    ubox = _tma_box(uv, (co0, 0, 4 * j, 0, 0), (NB, 2, 4, 2, 16),
+                    (1, 1, 1, 1, 1)).reshape(-1)
+    offs = np.arange(ubox.size) * 2                  # unswizzled byte offset
+    stage[_swz128(offs) // 2] = ubox
+    return stage
+
+
+def _stage_plain(x, u, d, P, TC, blk, j):
+    """The same stage as the plain-load producer writes it."""
+    b, p0, q, tr0, tc0, co0 = blk
+    _, h, w, cin = x.shape
+    cout = u.shape[2]
+    trp = 64 // (TC * P)
+    sr_n, sch = 2 * trp + 2, TC + 1
+    stage = np.zeros(STAGE_BYTES // 2, np.float32)
+    for par in range(2):
+        for sr in range(sr_n):
+            for ph in range(P):
+                for k in range(sch):
+                    gr, gc = 2 * tr0 - 1 + sr, 2 * tc0 - 1 + par + 2 * k
+                    if not (0 <= gr < h // d and 0 <= gc < w // d):
+                        continue
+                    c = np.arange(KC * j, KC * j + KC)
+                    vals = np.where(c < cin, x[b, d * gr + p0 + ph,
+                                              d * gc + q,
+                                              np.minimum(c, cin - 1)], 0.0)
+                    off = (U_BYTES + par * X_HALF
+                           + ((sr * P + ph) * sch + k) * 32) // 2
+                    stage[off:off + KC] = vals
+    for point in range(16):
+        for k in range(KC):
+            c = KC * j + _k_channel(k)
+            for n in range(NB):
+                co = co0 + n
+                if c < cin and co < cout:
+                    off = point * U_POINT + k * NB * 2 + 2 * n
+                    stage[_swz128(off) // 2] = u[point, c, co]
+    return stage
+
+
+def _consume(stage, G, P, TC, acc):
+    """Warpgroup G's chunk: every thread's slab reads at its byte offsets,
+    V of the transform rows u = G .. G + 2 in bf16 arithmetic into its A
+    registers, and the 12 wgmmas (m64n64k16, B read through the
+    descriptor: MN-major, 8-row K groups 1024 B apart, 128-byte swizzle)
+    added into ``acc[v]`` ([64 rows, 64]) with A^T[G][u] as the scale of
+    A: ``acc[v]`` becomes P[G][v] = sum_u A^T[G][u] M[u][v]."""
+    trp = 64 // (TC * P)
+    rs = P * (TC + 1) * 32
+    A = np.zeros((3, 4, 64, KC), np.float32)        # [u - G][v][row][k]
+    for ct in range(128):
+        wl, lane = ct >> 5, ct & 31
+        t, lq = lane >> 2, lane & 3
+        col, row0 = t & (TC - 1), (16 // TC) * wl + 2 * (t // TC)
+        ph, trl = row0 // trp, row0 % trp
+        xoff = U_BYTES + ((2 * trl * P + ph) * (TC + 1) + col) * 32 \
+            + 8 * lq + G * rs
+        tt = np.zeros((3, 2, 4, 4), np.float32)     # [u - G][s][jj][chan]
+        for jj in range(4):
+            src = xoff + (jj & 1) * X_HALF + (jj >> 1) * 32
+            dd = [stage[(src + r * rs) // 2:(src + r * rs) // 2 + 4]
+                  for r in range(5)]
+            for ss in range(2):
+                e = dd[2 * ss:2 * ss + 3]
+                if G == 0:                          # u0, u1, u2
+                    rows = (e[0] - e[2], e[1] + e[2], e[2] - e[1])
+                else:                               # u1, u2, u3
+                    rows = (e[0] + e[1], e[1] - e[0], e[0] - e[2])
+                for k in range(3):
+                    tt[k, ss, jj] = _bf16r(rows[k])
+        for k in range(3):
+            for ss in range(2):
+                t0, t1, t2, t3 = tt[k, ss]
+                vs = [_bf16r(t0 - t2), _bf16r(t1 + t2), _bf16r(t2 - t1),
+                      _bf16r(t1 - t3)]
+                m = 16 * wl + 8 * ss + t
+                for v in range(4):
+                    # channels 4lq..4lq+3 are A columns 2lq, 2lq+1, 2lq+8,
+                    # 2lq+9
+                    A[k, v, m, [2 * lq, 2 * lq + 1, 2 * lq + 8,
+                                2 * lq + 9]] = vs[v]
+    kk, nn = np.meshgrid(np.arange(KC), np.arange(NB), indexing="ij")
+    for k in range(3):
+        sign = -1.0 if G == 1 and k > 0 else 1.0    # A^T[G][G + k]
+        for v in range(4):
+            point = 4 * (G + k) + v
+            byte = point * U_POINT + (kk // 8) * 1024 + (kk % 8) * 128 \
+                + 2 * nn
+            B = stage[_swz128(byte) // 2]
+            acc[v] += sign * (A[k, v] @ B)
+
+
+def _bf16_kernel_model(x, u, d, P, TC, path="tma"):
+    """The bf16 kernel, block by block, chunk by chunk, as numpy: x
+    [B, H, W, C_in] and U [16, C_in, C_out] float32 holding bf16 values
+    (the kernel reads U with its rows padded to 8 channels, as the wrapper
+    hands it over); returns y float32 holding bf16 values."""
+    bsz, h, w, cin = x.shape
+    cout = u.shape[2]
+    u = twino._bf16_u(torch.from_numpy(u)).numpy()
+    trp = 64 // (TC * P)
+    th, tw = h // (2 * d), w // (2 * d)
+    y = np.zeros((bsz, h, w, cout), np.float32)
+    stage_of = _stage_tma if path == "tma" else _stage_plain
+    for b in range(bsz):
+        for p0 in range(0, d, P):
+            for q in range(d):
+                for tr0 in range(0, th, trp):
+                    for tc0 in range(0, tw, TC):
+                        for co0 in range(0, cout, NB):
+                            blk = (b, p0, q, tr0, tc0, co0)
+                            accs = [[np.zeros((64, NB), np.float32)
+                                     for _ in range(4)] for _ in range(2)]
+                            for j in range(-(-cin // KC)):
+                                stage = stage_of(x, u, d, P, TC, blk, j)
+                                for G in range(2):
+                                    _consume(stage, G, P, TC, accs[G])
+                            _epilogue(accs, y, d, P, TC, blk, th, tw)
+    return y
+
+
+def _epilogue(accs, y, d, P, TC, blk, th, tw):
+    """Warpgroup G writes output row G of every tile: Y[G][j] = sum_v
+    P[G][v] A^T[j][v], rounded to bf16 once, at the tile's interleaved
+    pixels."""
+    b, p0, q, tr0, tc0, co0 = blk
+    trp = 64 // (TC * P)
+    cout = y.shape[3]
+    n = min(NB, cout - co0)
+    for G in range(2):
+        P_ = accs[G]
+        out = (P_[0] + P_[1] + P_[2], P_[1] - P_[2] - P_[3])
+        for m in range(64):
+            wl, ss, t = m // 16, (m % 16) // 8, m % 8
+            col, row = t & (TC - 1), (16 // TC) * wl + 2 * (t // TC) + ss
+            ph, trl = row // trp, row % trp
+            gtr, gtc = tr0 + trl, tc0 + col
+            if gtr >= th or gtc >= tw:
+                continue
+            for jp in range(2):
+                y[b, d * (2 * gtr + G) + p0 + ph, d * (2 * gtc + jp) + q,
+                  co0:co0 + n] = _bf16r(out[jp][m, :n])
+
+
+def _bf16_inputs(seed, shape, cout):
+    x, k = _inputs(seed, shape, cout, (1.0 / (9 * shape[-1])) ** 0.5)
+    xb = _bf16r(x)
+    ub = _bf16r(twino.transform_weights(torch.from_numpy(k)).numpy())
+    return x, k, xb, ub
+
+
+@pytest.mark.parametrize("shape,cout,d", [((1, 16, 16, 16), 32, 1),
+                                          ((1, 8, 20, 32), 40, 1),
+                                          ((1, 16, 8, 16), 32, 2),
+                                          ((1, 8, 24, 24), 16, 4)])
+def test_bf16_kernel_model_matches_pallas_interpret(shape, cout, d):
+    """The kernel's decomposition (TMA boxes with element stride 2d and
+    zero fill, the parity-split slab, the permuted K order, the fold of
+    A^T's rows over two warpgroups with A's sign as the wgmma scale, the
+    epilogue's addressing), at the
+    block shape the wrapper picks, against the JAX Pallas kernel in
+    interpret mode on the same bf16 operands: one bf16 rounding of Y
+    apart at most, and against the port's plain version within the card's
+    bf16 tolerance."""
+    x, k, xb, ub = _bf16_inputs(40 + d, shape, cout)
+    h, w = shape[1:3]
+    P, TC = twino._bf16_block(h // (2 * d), w // (2 * d), d)
+    got = _bf16_kernel_model(xb, ub, d, P, TC)
+    xj = jnp.asarray(xb).astype(jnp.bfloat16)
+    if d == 1:
+        pallas = jwino.winograd_conv2d(xj, jnp.asarray(k), True)
+    else:
+        pallas = jwino.dilated_winograd_conv2d(xj, jnp.asarray(k), d,
+                                               interpret=True)
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    scale = np.abs(pallas).max()
+    # V is bitwise the Pallas kernel's; the f32 sums differ in order only
+    assert np.abs(got - pallas).max() <= 2 ** -7 * scale
+    assert np.abs(got - pallas).mean() <= 1e-3 * np.abs(pallas).mean()
+    xt = torch.from_numpy(xb).bfloat16()
+    plain = (twino.winograd_conv2d_reference(xt, torch.from_numpy(k))
+             if d == 1 else twino.dilated_winograd_conv2d_reference(
+                 xt, torch.from_numpy(k), d)).float().numpy()
+    err = np.abs(got - plain)
+    assert err.max() <= BF16_MAX_REL * np.abs(plain).max()
+    assert err.mean() <= BF16_MEAN_REL * np.abs(plain).mean()
+
+
+@pytest.mark.parametrize("d,P,TC", [(1, 1, 8), (2, 2, 8), (4, 4, 4),
+                                    (2, 1, 4)])
+def test_bf16_plain_copy_lands_the_tma_layout(d, P, TC):
+    """The plain-load producer (the thin classes) writes every stage
+    exactly as the TMA loads land it: the slab with its zero halo, channels
+    past C_in zero, U in the permuted K order with the 128-byte swizzle."""
+    _, _, xb, ub = _bf16_inputs(50 + d, (2, 8 * d, 12 * d, 24), 72)
+    th, tw = 4, 6
+    trp = 64 // (TC * P)
+    for blk in ((1, 0, d - 1, 0, 0, 0),
+                (0, d - P, 0, (th - 1) // trp * trp, (tw - 1) // TC * TC,
+                 64)):
+        for j in range(2):
+            np.testing.assert_array_equal(
+                _stage_plain(xb, ub, d, P, TC, blk, j),
+                _stage_tma(xb, ub, d, P, TC, blk, j))
+
+
+@pytest.mark.parametrize("shape,cout,path", [((1, 8, 8, 1), 32, "plain"),
+                                             ((1, 8, 8, 16), 1, "tma"),
+                                             ((1, 8, 8, 5), 7, "plain"),
+                                             ((1, 8, 8, 12), 24, "plain"),
+                                             ((1, 8, 8, 16), 24, "tma")])
+def test_bf16_thin_classes_take_the_plain_path(shape, cout, path):
+    """When TMA cannot address x (C_in not a multiple of 8: begin_conv
+    1->192) the producer of the same kernel brings x and U in with plain
+    loads, in the same layout; a C_out that is not a multiple of 8 (end_conv
+    192->1) stays on TMA, U's rows padded to 8. The model holds each path
+    to the Pallas kernel."""
+    x, k, xb, ub = _bf16_inputs(60, shape, cout)
+    assert twino.bf16_path(torch.from_numpy(xb).bfloat16()) == path
+    got = _bf16_kernel_model(xb, ub, 1, 1, 8, path)
+    pallas = np.asarray(jwino.winograd_conv2d(
+        jnp.asarray(xb).astype(jnp.bfloat16), jnp.asarray(k), True)
+        .astype(jnp.float32))
+    assert np.abs(got - pallas).max() <= 2 ** -7 * np.abs(pallas).max()
+
+
+@pytest.mark.parametrize("h,w,d,shape,idle", [(48, 32, 1, (1, 8), 0.0),
+                                              (48, 32, 2, (2, 8), 0.0),
+                                              (48, 32, 4, (2, 4), 0.25),
+                                              (96, 64, 1, (1, 8), 0.0)])
+def test_bf16_block_fills_the_cascade_grids(h, w, d, shape, idle):
+    """The bf16 kernel's 64-tile block for a phase grid, (P row phases, TC
+    tile columns): the dense and d = 2 grids of the cascade's 48x32 convs
+    and the 96x64 grid leave no tile slot idle, the d = 4 grid (6 x 4
+    tiles) a quarter."""
+    th, tw = h // (2 * d), w // (2 * d)
+    assert twino._bf16_block(th, tw, d) == shape
+    p, tc = shape
+    rows = 64 // (tc * p)
+    slots = -(-th // rows) * rows * -(-tw // tc) * tc
+    assert 1 - th * tw / slots == pytest.approx(idle)
