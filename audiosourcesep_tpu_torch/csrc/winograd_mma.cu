@@ -16,8 +16,8 @@
 // Dilation d: output pixel (d (2a + r) + p, d (2c + s) + q) of phase (p, q)
 // reads only x[d (2a + i - 1) + p, d (2c + j - 1) + q], so each phase is a
 // stride-1 SAME conv on its (H/d) x (W/d) grid. The kernel reads and writes
-// the phases in place in the undilated NHWC tensors; d = 1 is the dense
-// conv.
+// the phases in place in the undilated NHWC tensors, at any d; d = 1 is the
+// dense conv.
 //
 // What bounds it on this card: operations. The 16 transform-domain
 // contractions are 16 * tiles * C_in * C_out multiply-adds; at 96x64
@@ -37,9 +37,15 @@
 //   bytes. x is a 5-D tensor map (C, W, row phase, phase row, batch); two
 //   boxes, one per column parity of the slab, with an element stride of
 //   2d along W, so that each box holds every other slab column of phase
-//   q. The start coordinate sits one tile row and column before the block,
-//   and TMA's out-of-bounds zero fill is the phase grid's SAME halo and
-//   ragged edge: no padded copy in HBM, no phase copy. U is a 5-D tensor
+//   q. TMA's element strides stop at 8, so for d > 4 the map is (2d C, W /
+//   2d, row phase, phase row, batch) instead: a group of 2d pixels' channels
+//   is one row of the innermost dimension, a slab column's place in its
+//   group (q, or d + q one group to the left) is a coordinate there, and
+//   every stride is 1. The start coordinate sits one tile row and column
+//   before the block, and TMA's out-of-bounds zero fill is the phase grid's
+//   SAME halo and ragged edge: no padded copy in HBM, no phase copy. The
+//   wide map has no zero fill past C_in inside a group, so it needs C_in a
+//   multiple of the 16-channel chunk (else the plain path). U is a 5-D tensor
 //   map that reorders the chunk's 16 channels (see the A operand below)
 //   and lands 128-byte swizzled, the layout wgmma reads B from. U's rows
 //   are ldu long, C_out padded to a multiple of 8 by the wrapper, so TMA
@@ -85,10 +91,10 @@
 // C interface (bound with ctypes): winograd_f23_fwd_bf16(x, u, y, B, H, W,
 // Cin, Cout, ldu, d, P, TC, tma, stream) with x [B,H,W,Cin], U
 // [16,Cin,ldu] (ldu >= Cout; the channels past Cout zero) and y
-// [B,H,W,Cout], all bf16, and dilation d (1..4); H and W divisible by 2d;
+// [B,H,W,Cout], all bf16, and dilation d >= 1; H and W divisible by 2d;
 // P (1, 2 or 4, dividing d) row phases and TC (4 or 8) tile columns per
-// block; tma 1 for the TMA path (C_in and ldu multiples of 8, x and U
-// 16-byte aligned), 0 for plain loads. It launches on
+// block; tma 1 for the TMA path (C_in and ldu multiples of 8, C_in of 16
+// when d > 4, x and U 16-byte aligned), 0 for plain loads. It launches on
 // `stream`, allocates nothing, and returns cudaGetLastError()
 // (cudaErrorInvalidValue for what it does not take).
 // winograd_f23_bf16_smem_bytes() returns the dynamic shared memory a block
@@ -134,6 +140,7 @@ constexpr int X_HALF = 6912;            // one column-parity box, largest
 constexpr int STAGE_BYTES = 47104;      // U + two x boxes, 1024-aligned
 constexpr int BAR_OFF = STAGES * STAGE_BYTES;
 constexpr int SMEM_BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;
+constexpr int MAX_STRIDED_D = 4;        // TMA element strides stop at 8
 static_assert(U_BYTES + 2 * X_HALF <= STAGE_BYTES, "stage layout");
 static_assert(STAGE_BYTES % 1024 == 0, "stages stay 1024-aligned");
 
@@ -569,10 +576,17 @@ __global__ void __launch_bounds__(NT, 1)
           mbar_expect_tx(full, p.x_bytes + U_BYTES);
           tma_load_5d(stage, &tmu, full, k.co0, 0, 4 * j, 0, 0);
 #pragma unroll
-          for (int par = 0; par < 2; ++par)
-            tma_load_5d(stage + U_BYTES + par * X_HALF, &tmx, full, KC * j,
-                        p.d * (2 * k.tc0 - 1 + par) + k.q, k.p0,
-                        2 * k.tr0 - 1, k.b);
+          for (int par = 0; par < 2; ++par) {
+            // the slab's first column of this parity, in x's columns
+            const int w0 = p.d * (2 * k.tc0 - 1 + par) + k.q;
+            int c0 = KC * j, c1 = w0;
+            if (p.d > MAX_STRIDED_D) {   // group w0 / 2d (floor), place in it
+              c1 = k.tc0 - 1 + par;
+              c0 += (w0 - 2 * p.d * c1) * p.Cin;
+            }
+            tma_load_5d(stage + U_BYTES + par * X_HALF, &tmx, full, c0, c1,
+                        k.p0, 2 * k.tr0 - 1, k.b);
+          }
         } else {
           copy_plain(p, stage, j, k, pt);
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -634,22 +648,26 @@ bool aligned16(const void* p) {
 }
 
 // x as (C, W, row phase, phase row, batch): element stride 2d along W, so a
-// box holds every other column of one column phase; U as (n, e, qj, h,
-// point) with channel 4 qj + 2 h + e, so a box lands the chunk's rows in
-// k_channel order, 128-byte swizzled
+// box holds every other column of one column phase; for d > 4 as (2d C, W /
+// 2d, row phase, phase row, batch), where the box's column of a group is
+// the innermost coordinate and its next column one group on. U as (n, e,
+// qj, h, point) with channel 4 qj + 2 h + e, so a box lands the chunk's
+// rows in k_channel order, 128-byte swizzled
 int encode_maps(CUtensorMap* tmx, CUtensorMap* tmu, const Params& p, int B) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUresult r = CUDA_SUCCESS;
   const cuuint64_t C = p.Cin, O = p.ldu, d = p.d;
-  const cuuint64_t xdim[5] = {C, (cuuint64_t)p.W, d, (cuuint64_t)p.H / d,
-                              (cuuint64_t)B};
-  const cuuint64_t xstr[4] = {2 * C, 2 * C * p.W, 2 * C * p.W * d,
-                              2 * C * p.W * p.H};
-  const cuuint32_t xbox[5] = {KC, (cuuint32_t)(2 * d * (p.TC + 1)),
-                              (cuuint32_t)p.P, (cuuint32_t)(2 * p.TRp + 2),
-                              1};
-  const cuuint32_t xel[5] = {1, (cuuint32_t)(2 * d), 1, 1, 1};
+  const bool strided = p.d <= MAX_STRIDED_D;
+  const cuuint64_t xdim[5] = {strided ? C : 2 * d * C,
+                              strided ? (cuuint64_t)p.W : p.W / (2 * d), d,
+                              (cuuint64_t)p.H / d, (cuuint64_t)B};
+  const cuuint64_t xstr[4] = {strided ? 2 * C : 4 * d * C, 2 * C * p.W,
+                              2 * C * p.W * d, 2 * C * p.W * p.H};
+  const cuuint32_t xbox[5] = {
+      KC, (cuuint32_t)(strided ? 2 * d * (p.TC + 1) : p.TC + 1),
+      (cuuint32_t)p.P, (cuuint32_t)(2 * p.TRp + 2), 1};
+  const cuuint32_t xel[5] = {1, (cuuint32_t)(strided ? 2 * d : 1), 1, 1, 1};
   r = encode(tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
                const_cast<__nv_bfloat16*>(p.x), xdim, xstr, xbox, xel,
                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -675,12 +693,13 @@ extern "C" int winograd_f23_fwd_bf16(const void* x, const void* u, void* y,
                                      int B, int H, int W, int Cin, int Cout,
                                      int ldu, int d, int P, int TC, int tma,
                                      void* stream) {
-  if (B < 0 || d < 1 || d > 4 || H < 2 * d || W < 2 * d || H % (2 * d) ||
+  if (B < 0 || d < 1 || H < 2 * d || W < 2 * d || H % (2 * d) ||
       W % (2 * d) || Cin < 1 || Cout < 1 || ldu < Cout ||
       (TC != 4 && TC != 8) ||
       (P != 1 && P != 2 && P != 4) || d % P)
     return (int)cudaErrorInvalidValue;
-  if (tma && (Cin % 8 || ldu % 8 || !aligned16(x) || !aligned16(u)))
+  if (tma && (Cin % 8 || (d > MAX_STRIDED_D && Cin % KC) || ldu % 8 ||
+              !aligned16(x) || !aligned16(u)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   Params p;

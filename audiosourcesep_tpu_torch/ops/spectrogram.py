@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from .mel import linear_to_mel_weight_matrix, mel_filterbank
-from .stft import hann_window_np, stft
+from .stft import frame_signal, hann_window, stft
 
 
 def db_limits_to_power(dbmin: float, dbmax: float) -> Tuple[float, float]:
@@ -57,9 +57,9 @@ def melspectrogram_tf_signal(audio: torch.Tensor, sr: int, frame_length: int,
     n_frames = -(-T // hop_length)
     pad = max(0, (n_frames - 1) * hop_length + frame_length - T)
     x = F.pad(audio, (0, pad))
-    frames = x.unfold(-1, frame_length, hop_length)[..., :n_frames, :]
-    frames = frames * torch.as_tensor(hann_window_np(frame_length),
-                                      dtype=x.dtype, device=x.device)
+    frames = frame_signal(x, frame_length, hop_length)[..., :n_frames, :]
+    frames = frames * hann_window(frame_length, dtype=x.dtype,
+                                  device=x.device)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)          # [..., F, bins]
     power = torch.square(torch.abs(spec)).float()
     A = torch.as_tensor(linear_to_mel_weight_matrix(

@@ -1,5 +1,5 @@
-"""Batched STFT and iSTFT with librosa conventions (port of ``stft`` and
-``istft`` in ``audiosourcesep_tpu/ops/stft.py``).
+"""Batched STFT and iSTFT with librosa conventions (port of
+``audiosourcesep_tpu/ops/stft.py``).
 
 * window: periodic Hann of length ``win_length`` (default ``n_fft``),
   zero-padded centred to ``n_fft``;
@@ -24,10 +24,27 @@ def hann_window_np(win_length: int, periodic: bool = True) -> np.ndarray:
     return w[:-1] if periodic else w
 
 
+def hann_window(win_length: int, periodic: bool = True,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """:func:`hann_window_np` as a tensor of ``dtype`` on ``device``."""
+    return torch.as_tensor(hann_window_np(win_length, periodic), dtype=dtype,
+                           device=device)
+
+
 def _pad_center_np(window: np.ndarray, n_fft: int) -> np.ndarray:
     pad = n_fft - window.shape[0]
     lpad = pad // 2
     return np.pad(window, (lpad, pad - lpad))
+
+
+def frame_signal(x: torch.Tensor, frame_length: int,
+                 hop_length: int) -> torch.Tensor:
+    """Slice ``x[..., T]`` into overlapping frames ``[..., n_frames,
+    frame_length]``, ``n_frames = 1 + (T - frame_length) // hop_length``
+    (none when ``T < frame_length``); a view of ``x``."""
+    if x.shape[-1] < frame_length:
+        return x.new_empty((*x.shape[:-1], 0, frame_length))
+    return x.unfold(-1, frame_length, hop_length)
 
 
 def stft(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,

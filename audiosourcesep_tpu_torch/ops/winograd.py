@@ -15,7 +15,8 @@ pre-transformed weights ``U [16, C_in, C_out]`` in ``x``'s dtype (rounded
 as the JAX wrapper rounds them), and write the interleaved NHWC output
 themselves. The bf16 kernel's producer loads what TMA can address by TMA
 and the rest with plain loads (:func:`bf16_path`, counted in
-``bf16_path_counts``); it takes dilation up to 4 and raises above.
+``bf16_path_counts``). Both kernels take any dilation d for which H and W
+divide by 2d, as the JAX ``dilated_winograd_conv2d`` does.
 
 Public layout is the JAX package's: NHWC activations, HWIO kernels.
 
@@ -69,9 +70,10 @@ launch_count = 0
 launch_counts = {name: 0 for name in KERNELS.values()}
 # the bf16 kernel's launches by the path its producer took (see bf16_path)
 bf16_path_counts = {"tma": 0, "plain": 0}
-# the bf16 kernel's x tensor map strides W by 2d, and TMA takes element
-# strides up to 8
-BF16_MAX_DILATION = 4
+# above this dilation the bf16 kernel's x tensor map cannot stride W by 2d
+# (TMA's element strides stop at 8) and addresses 2d-pixel groups instead,
+# which needs C_in in whole 16-channel chunks
+BF16_STRIDED_MAX_DILATION = 4
 
 
 def _const(a: np.ndarray, device) -> torch.Tensor:
@@ -163,13 +165,14 @@ def _bf16_block(th: int, tw: int, d: int):
     return best[1], best[2]
 
 
-def bf16_path(x: torch.Tensor) -> str:
+def bf16_path(x: torch.Tensor, dilation: int = 1) -> str:
     """How the bf16 kernel's producer brings ``x`` and ``U`` in: ``"tma"``
-    by TMA when TMA can address x (C_in a multiple of 8, 16-byte aligned;
-    U's rows are padded to a multiple of 8 for the kernel, see
-    :func:`_bf16_u`), else ``"plain"``, by plain loads (begin_conv,
-    1->192)."""
-    if x.shape[-1] % 8 or x.data_ptr() % 16:
+    by TMA when TMA can address x (C_in a multiple of 8, of 16 above
+    dilation 4, 16-byte aligned; U's rows are padded to a multiple of 8
+    for the kernel, see :func:`_bf16_u`), else ``"plain"``, by plain loads
+    (begin_conv, 1->192)."""
+    chunk = 16 if dilation > BF16_STRIDED_MAX_DILATION else 8
+    if x.shape[-1] % chunk or x.data_ptr() % 16:
         return "plain"
     return "tma"
 
@@ -212,9 +215,6 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor,
                          f"{tuple(u.shape)}")
     cout = u.shape[2]
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and d > BF16_MAX_DILATION:
-        raise ValueError(f"the bf16 winograd kernel takes dilation up to "
-                         f"{BF16_MAX_DILATION}, got d={d}")
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -223,7 +223,7 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor,
     th, tw = h // (2 * d), w // (2 * d)
     if bf16:
         u = _bf16_u(u)
-        path = bf16_path(x)
+        path = bf16_path(x, d)
         sizes = (cin, cout, u.shape[2], d)
         geometry = (*_bf16_block(th, tw, d), int(path == "tma"))
     else:

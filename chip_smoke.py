@@ -20,7 +20,10 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    dilated route (the kernels on the d*d phase grids) at the cascade's
    dilated convs, 48x32 384->384 at d = 2 and 4 (one launch per conv,
    the phases read and written in place), against its plain version and
-   the dilated F.conv2d;
+   the dilated F.conv2d; and the bf16 kernel above the dilations its
+   TMA element stride reaches, 96x64 192->192 at d = 8 (batch 30) and
+   d = 16 (batch 4), one launch each on its TMA path, with its time and
+   F.conv2d's beside the card's name and power limit;
 4. the full-width v1 score network (192 filters, ``[30, 96, 64, 1]``,
    random weights) with Winograd routing on and off, in bf16 and in f32
    (TF32 off, the CLIs' default ``--compute_dtype``);
@@ -140,6 +143,9 @@ BF16_DESIGN = ("wgmma m64n64k16 (A = V from registers, B = U from shared "
                "from a producer warpgroup, two consumer warpgroups with "
                "A^T's rows folded (setmaxnreg 224/56), persistent blocks")
 DILATED = {2: 5, 4: 5}
+# the bf16 kernel above d = 4, where its x tensor map addresses groups of
+# 2d pixels: dilation -> (batch, H, W, C_in, C_out), one conv each
+WIDE_DILATED = {8: (30, 96, 64, 192, 192), 16: (4, 96, 64, 192, 192)}
 BATCH = 30
 # kernel vs plain version: (max|err| / max|plain|, mean|err| / mean|plain|,
 # max|err| vs F.conv2d / max|plain|). f32 differs only in summation order.
@@ -346,7 +352,7 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
     F.conv2d on the same inputs; check the kernel's agreement, time all
     three, and add ``n`` times each to the route's result ``r``. ``path``
     (the bf16 kernel's producer path for this class) goes into
-    ``r["paths"]``."""
+    ``r["paths"]``. Returns the kernel's and F.conv2d's ms."""
     import torch
     tol_max, tol_mean, tol_conv = TOL[dname]
     y, ref, conv = run_kernel().float(), run_plain().float(), run_conv()
@@ -379,6 +385,7 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
     if e_plain > tol_max * scale or e_mean > tol_mean \
             or e_conv > tol_conv * scale:
         raise AssertionError(f"kernel disagrees at {label} {dname}")
+    return ms_k, ms_c
 
 
 def _summary(r, what, dname, tag="[3]", batch=BATCH):
@@ -419,17 +426,18 @@ def _host_us(fn, n: int = 50) -> float:
     return 1e6 * host
 
 
-def phase_kernel():
-    """Both kernels at the routed classes, then the dilated route; returns
-    the results of each route by dtype name (``bfloat16``, ``float32``,
-    ``bfloat16_dilated``, ``float32_dilated``)."""
+def phase_kernel(smi: str):
+    """Both kernels at the routed classes, then the dilated route, then
+    the bf16 kernel above d = 4; returns the results of each route by
+    dtype name (``bfloat16``, ``float32``, ``bfloat16_dilated``,
+    ``float32_dilated``, ``bfloat16_wide_dilation``)."""
     import torch
     import torch.nn.functional as F
     from audiosourcesep_tpu_torch.ops import winograd as W
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def inputs(h, w, cin, cout, dtype):
-        x = torch.randn(BATCH, h, w, cin, device="cuda",
+    def inputs(h, w, cin, cout, dtype, batch=BATCH):
+        x = torch.randn(batch, h, w, cin, device="cuda",
                         generator=g).to(dtype)
         k = torch.randn(3, 3, cin, cout, device="cuda", generator=g) \
             * (1.0 / (9 * cin)) ** 0.5
@@ -482,9 +490,32 @@ def phase_kernel():
                   lambda: W.dilated_winograd_conv2d(x, k, d, u),
                   lambda: W.dilated_winograd_conv2d_reference(x, k, d),
                   lambda: nhwc(F.conv2d(xc, kc, padding=d, dilation=d)),
-                  path=W.bf16_path(x) if dname == "bfloat16" else None)
+                  path=W.bf16_path(x, d) if dname == "bfloat16" else None)
             del x, k, u, xc, kc
         _summary(r, "dilated route over the cascade's dilated convs", dname)
+    r = res["bfloat16_wide_dilation"] = _new_result()
+    for d, (batch, h, w, cin, cout) in WIDE_DILATED.items():
+        x, k, u, xc, kc = inputs(h, w, cin, cout, torch.bfloat16, batch)
+        before, paths = dict(W.launch_counts), dict(W.bf16_path_counts)
+        W.dilated_winograd_conv2d(x, k, d, u)
+        name = W.KERNELS[torch.bfloat16]
+        if W.launch_counts != {n: c + (n == name)
+                               for n, c in before.items()} \
+                or W.bf16_path_counts["tma"] != paths["tma"] + 1:
+            raise AssertionError(f"bf16 d={d} is not one launch of the "
+                                 f"bf16 kernel on its TMA path")
+        ms_k, ms_c = _hold(
+            r, f"{h}x{w} {cin:3d}->{cout:3d} d={d} batch {batch}",
+            "bfloat16", 1, (h, w, cin, cout),
+            lambda: W.dilated_winograd_conv2d(x, k, d, u),
+            lambda: W.dilated_winograd_conv2d_reference(x, k, d),
+            lambda: nhwc(F.conv2d(xc, kc, padding=d, dilation=d)),
+            batch=batch, path=W.bf16_path(x, d))
+        print(f"[3] bfloat16 d={d} on {smi}: kernel {ms_k:.4f} ms, "
+              f"F.conv2d(dilation={d}) {ms_c:.4f} ms")
+        del x, k, u, xc, kc
+    _summary(r, "the bf16 kernel above d = 4", "bfloat16",
+             batch="30 and 4")
     return res
 
 
@@ -2460,6 +2491,7 @@ def kernels_line(res, routes):
     ``ops.winograd.KERNELS``. ``res[dname]`` holds a kernel's numbers over
     one v1 forward's 64 routed convs (batch 30) and ``res[f"{dname}_{r}"]``
     those of its route ``r`` (``dilated``: the cascade's 10 dilated convs;
+    ``wide_dilation``: the bf16 kernel at d = 8 and 16, one conv each;
     ``glow``, ``image``, ``flowpp``: the routed convs of one such forward);
     ``routes[dname][r]`` the launches of route ``r``'s main-path run (``""``
     for the NCSN separation CLI), which the dilated route has none of."""
@@ -2515,7 +2547,7 @@ def main(argv):
 
     smi = phase_device()
     phase_build()
-    res = phase_kernel()
+    res = phase_kernel(smi)
     phase_model(torch.bfloat16)
     phase_model(torch.float32)
     work = tempfile.mkdtemp(prefix="chip_smoke_")

@@ -45,7 +45,8 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
     res = {"float32": result(1), "float32_dilated": result(2),
            "float32_glow": result(3), "float32_image": result(4),
            "bfloat16": dict(result(11), paths={"96x64 1->192": "plain"}),
-           "bfloat16_dilated": result(12), "bfloat16_image": result(14)}
+           "bfloat16_dilated": result(12), "bfloat16_image": result(14),
+           "bfloat16_wide_dilation": result(13)}
     routes = {"float32": {"": 100, "glow": 300, "image": 400},
               "bfloat16": {"": 110, "image": 410,
                            "paths": {"tma": 108, "plain": 2}}}
@@ -62,6 +63,10 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
     assert "launches" not in f32["dilated_route"]
     assert "glow_route" not in bf16
     assert (bf16["ms"], bf16["image_route"]["launches"]) == (11, 410)
+    # the bf16 kernel above d = 4, timed apart from any main-path run
+    assert bf16["wide_dilation_route"]["ms"] == 13
+    assert "launches" not in bf16["wide_dilation_route"]
+    assert "wide_dilation_route" not in f32
     # the bf16 entry names its design and the producer path of each class
     # and of the main path's launches; the f32 entry has neither
     assert bf16["design"] == chip_smoke.BF16_DESIGN

@@ -130,24 +130,56 @@ def test_bf16_kernel_paths_and_their_launch_counts(cuda, shape, cout, path):
     assert err.mean().item() <= tol_mean * want.abs().mean().item()
 
 
-def test_bf16_kernel_refuses_and_does_not_fall_back(cuda):
-    # dilation past the TMA element stride: the wrapper raises, nothing runs
+def _no_fallback(*args, **kwargs):
+    raise AssertionError("the CUDA path fell back to cuDNN or the plain "
+                         "version")
+
+
+def test_bf16_kernel_refuses_and_does_not_fall_back(cuda, monkeypatch):
+    # d = 8, past TMA's element stride of 8: the hand-written kernel
+    # computes it in one launch on its TMA path, with no phase copy, no
+    # cuDNN conv and no plain version in the way
     x, k = _inputs((1, 32, 32, 16), 16, torch.bfloat16)
+    want = W.dilated_winograd_conv2d_reference(x, k, 8).float()
+    name = W.KERNELS[torch.bfloat16]
+    before, paths = dict(W.launch_counts), dict(W.bf16_path_counts)
+    with monkeypatch.context() as mp:
+        for fn in ("_to_phases", "_from_phases", "winograd_conv2d_reference",
+                   "dilated_winograd_conv2d_reference"):
+            mp.setattr(W, fn, _no_fallback)
+        mp.setattr(F, "conv2d", _no_fallback)
+        got = W.dilated_winograd_conv2d(x, k, 8).float()
+    assert W.launch_counts == {n: c + (n == name) for n, c in before.items()}
+    assert W.bf16_path_counts == {n: c + (n == "tma")
+                                  for n, c in paths.items()}
+    tol_max, tol_mean, _ = TOL[torch.bfloat16]
+    err = (got - want).abs()
+    assert err.max().item() <= tol_max * want.abs().max().item()
+    assert err.mean().item() <= tol_mean * want.abs().mean().item()
+    # a call that the JAX dilated_winograd_conv2d refuses too (H = 24 does
+    # not divide by 2d = 16) raises, and nothing runs
+    x, k = _inputs((1, 24, 32, 16), 16, torch.bfloat16)
+    u = W.transform_weights(k).bfloat16()
     before = dict(W.launch_counts)
-    with pytest.raises(ValueError, match="dilation up to"):
+    with pytest.raises(ValueError, match="divisible by 2d"):
         W.dilated_winograd_conv2d(x, k, 8)
+    with pytest.raises(ValueError, match="divisible by 2d"):
+        W._winograd_cuda(x, u, 8)
     assert W.launch_counts == before
     # the kernel itself refuses a TMA load of x that TMA cannot address
-    # (C_in 12): an error code, and y is left as it was
+    # (C_in 12; C_in 24 above d = 4, not whole 16-channel chunks): an error
+    # code, and y is left as it was
     from audiosourcesep_tpu_torch.kernels.build import load_library
-    x, k = _inputs((1, 8, 8, 12), 16, torch.bfloat16)
-    u = W.transform_weights(k).bfloat16()
-    y = torch.full((1, 8, 8, 16), 7.0, device=cuda, dtype=torch.bfloat16)
-    err = load_library().winograd_f23_fwd_bf16(
-        x.data_ptr(), u.data_ptr(), y.data_ptr(), 1, 8, 8, 12, 16, 16, 1, 1,
-        8, 1, torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    assert err != 0 and bool((y == 7.0).all())
+    for cin, d in ((12, 1), (24, 8)):
+        x, k = _inputs((1, 16, 16, cin), 16, torch.bfloat16)
+        u = W.transform_weights(k).bfloat16()
+        y = torch.full((1, 16, 16, 16), 7.0, device=cuda,
+                       dtype=torch.bfloat16)
+        err = load_library().winograd_f23_fwd_bf16(
+            x.data_ptr(), u.data_ptr(), y.data_ptr(), 1, 16, 16, cin, 16, 16,
+            d, 1, 8, 1, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err != 0 and bool((y == 7.0).all()), (cin, d)
 
 
 def test_bf16_kernel_takes_bf16_weights_only(cuda):
@@ -245,6 +277,45 @@ def test_dilated_route_matches_plain_version(cuda, monkeypatch, d, dtype,
     # all d*d phases in one launch of this dtype's kernel, counted where
     # _winograd_cuda launches it
     assert W.launch_counts == {n: c + (n == name) for n, c in before.items()}
+    assert got.dtype == dtype and got.shape == (*shape[:3], cout)
+    tol_max, tol_mean, tol_conv = TOL[dtype]
+    err = (got.float() - want).abs()
+    assert err.max().item() <= tol_max * want.abs().max().item()
+    assert err.mean().item() <= tol_mean * want.abs().mean().item()
+    conv = F.conv2d(x.permute(0, 3, 1, 2).float(), k.permute(3, 2, 0, 1),
+                    padding=d, dilation=d).permute(0, 2, 3, 1)
+    assert (got.float() - conv).abs().max().item() \
+        <= tol_conv * conv.abs().max().item()
+
+
+# dilations above 4, which the bf16 kernel's x tensor map reaches through
+# 2d-pixel groups: C_in in whole chunks by TMA (odd d = 5, d = 6, 8, 16 and
+# 32, whose phase grids are one tile, at the smoke's 96x64 192->192 class),
+# other C_in by plain loads
+@pytest.mark.parametrize("shape,cout,d,path", [
+    ((2, 20, 30, 16), 33, 5, "tma"),
+    ((1, 12, 36, 48), 64, 6, "tma"),
+    ((2, 16, 32, 32), 40, 8, "tma"),
+    ((1, 96, 64, 192), 192, 8, "tma"),
+    ((1, 96, 64, 192), 192, 16, "tma"),
+    ((1, 64, 64, 16), 16, 32, "tma"),
+    ((2, 16, 16, 24), 16, 8, "plain"),
+    ((1, 12, 24, 5), 7, 6, "plain")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dilated_route_above_dilation_4_matches_plain_version(
+        cuda, monkeypatch, dtype, shape, cout, d, path):
+    x, k = _inputs(shape, cout, dtype, seed=d)
+    want = W.dilated_winograd_conv2d_reference(x, k, d).float()
+    name = W.KERNELS[dtype]
+    before, paths = dict(W.launch_counts), dict(W.bf16_path_counts)
+    with monkeypatch.context() as mp:
+        mp.setattr(W, "_to_phases", _no_phase_copy)
+        mp.setattr(W, "_from_phases", _no_phase_copy)
+        got = W.dilated_winograd_conv2d(x, k, d)
+    assert W.launch_counts == {n: c + (n == name) for n, c in before.items()}
+    bf16 = dtype == torch.bfloat16
+    assert W.bf16_path_counts == {n: c + (bf16 and n == path)
+                                  for n, c in paths.items()}
     assert got.dtype == dtype and got.shape == (*shape[:3], cout)
     tol_max, tol_mean, tol_conv = TOL[dtype]
     err = (got.float() - want).abs()
@@ -604,44 +675,98 @@ def _flat_params(model):
     return _flatten(params_to_jax(model.state_dict()))
 
 
-def test_nccl_world_size_one_train_step_equals_the_plain_step(cuda,
-                                                              tmp_path):
+def _bilinear_matrix(n_out: int, n_in: int, device) -> torch.Tensor:
+    """``[n_out, n_in]`` weights of PyTorch's bilinear resize along one
+    axis (``align_corners=False``: half-pixel centres, the source index
+    clamped at 0)."""
+    src = ((torch.arange(n_out, dtype=torch.float64) + 0.5) * n_in / n_out
+           - 0.5).clamp(min=0.0)
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    lam = src - i0
+    m = torch.zeros(n_out, n_in, dtype=torch.float64)
+    rows = torch.arange(n_out)
+    m[rows, i0] += 1.0 - lam
+    m[rows, (i0 + 1).clamp(max=n_in - 1)] += lam
+    return m.float().to(device)
+
+
+def _resize_bilinear_by_matmuls(x: torch.Tensor, size) -> torch.Tensor:
+    """``nn.resize_bilinear`` as two products with the interpolation
+    matrices, whose backward is a product too: deterministic on the card,
+    where ``F.interpolate``'s bilinear backward adds with atomics and has
+    no deterministic kernel."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    mh = _bilinear_matrix(size[0], x.shape[2], x.device).to(x.dtype)
+    mw = _bilinear_matrix(size[1], x.shape[3], x.device).to(x.dtype)
+    return torch.einsum("oh,pw,nchw->ncop", mh, mw, x)
+
+
+def test_nccl_world_size_one_train_step_equals_the_plain_step(
+        cuda, tmp_path, monkeypatch):
     """A process group of one rank over NCCL: the step with its gradients
-    all-reduced through NCCL equals the step without a group (a sum over
-    one rank, divided by one), to 1e-6 of each tensor; the group was
-    created at once (``device_id``) and is left afterwards."""
+    all-reduced through NCCL (a sum over one rank, divided by one) against
+    the step without a group, from the same init on the same draws. The
+    asserts: the NCCL backend on the card, the group left afterwards, the
+    two losses within 1e-6 of each other (relative), and every parameter
+    after Adam's first step within 1e-5 (absolute; 1% of the lr).
+
+    Both steps run deterministic algorithms (cuDNN's deterministic convs,
+    the deterministic index_put behind the embeddings' gradient,
+    ``CUBLAS_WORKSPACE_CONFIG``), so they agree bit for bit: without that,
+    cuDNN's weight gradients and the scatters change their order of
+    summation from run to run, and Adam's first step, which divides each
+    gradient by its own size, moves a weight whose gradient sits at the
+    f32 noise floor by up to the whole lr. The MSF blocks' bilinear resize
+    runs as two matrix products here (``_resize_bilinear_by_matmuls``,
+    checked against ``F.interpolate`` first): ``F.interpolate``'s bilinear
+    backward has no deterministic kernel. Every setting is restored
+    afterwards."""
     import copy
 
     import torch.distributed as dist
 
     from audiosourcesep_tpu_torch.parallel import (Layout, init_distributed,
                                                    shutdown)
-    sigmas = get_sigmas(1.0, 0.01, 4)
-    model = get_score_model("v1", (16, 16, 1), 8, 4, device=cuda)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    other = copy.deepcopy(model)
-    x = torch.rand((4, 16, 16, 1), device=cuda)
-    dev = init_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0,
-                           device="cuda")
+    h = torch.randn(2, 3, 4, 8, device=cuda)
+    torch.testing.assert_close(_resize_bilinear_by_matmuls(h, (8, 16)),
+                               nn.resize_bilinear(h, (8, 16)), atol=1e-6,
+                               rtol=1e-6)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(nn, "resize_bilinear", _resize_bilinear_by_matmuls)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     try:
-        assert dist.get_backend() == "nccl" and dev.type == "cuda"
-        losses, states = [], []
-        for m, layout in ((model, Layout()), (other, None)):
-            state = init_train_state(m, setup_optimizer("adam", 1e-3))
-            step, _ = make_ncsn_train_step(sigmas, layout=layout)
-            gen = torch.Generator(device=cuda).manual_seed(1)
-            state, loss = step(state, x, gen)
-            losses.append(float(loss))
-            states.append(state)
+        sigmas = get_sigmas(1.0, 0.01, 4)
+        model = get_score_model("v1", (16, 16, 1), 8, 4, device=cuda)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        other = copy.deepcopy(model)
+        x = torch.rand((4, 16, 16, 1), device=cuda)
+        dev = init_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0,
+                               device="cuda")
+        try:
+            assert dist.get_backend() == "nccl" and dev.type == "cuda"
+            losses, states = [], []
+            for m, layout in ((model, Layout()), (other, None)):
+                state = init_train_state(m, setup_optimizer("adam", 1e-3))
+                step, _ = make_ncsn_train_step(sigmas, layout=layout)
+                gen = torch.Generator(device=cuda).manual_seed(1)
+                state, loss = step(state, x, gen)
+                losses.append(float(loss))
+                states.append(state)
+        finally:
+            shutdown()
     finally:
-        shutdown()
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+        torch.backends.cudnn.benchmark = saved[3]
     assert not dist.is_initialized()
     assert abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[1])
-    # the backward (cuDNN's weight gradients, the embeddings' scatter) is
-    # not bitwise reproducible from run to run; Adam's first step divides
-    # each gradient by its own size, so one near the f32 noise floor moves
-    # its weight apart by up to ~1e-6 (measured 4.9e-7, and 7e-8 on a
-    # zero-init embedding): 1% of the step's lr (1e-3) for every weight
     for name, p in states[0].params.items():
         q = states[1].params[name]
         assert float((p - q).abs().max()) <= 1e-5, name

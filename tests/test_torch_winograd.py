@@ -326,13 +326,24 @@ def _stage_tma(x, u, d, P, TC, blk, j):
     cout = u.shape[2]
     trp = 64 // (TC * P)
     stage = np.zeros(STAGE_BYTES // 2, np.float32)
-    # x as (C, W, row phase, phase row, batch)
-    xv = x.reshape(bsz, h // d, d, w, cin)
     for par in range(2):
-        box = _tma_box(xv, (KC * j, d * (2 * tc0 - 1 + par) + q, p0,
+        w0 = d * (2 * tc0 - 1 + par) + q     # the slab's first column
+        if d <= twino.BF16_STRIDED_MAX_DILATION:
+            # x as (C, W, row phase, phase row, batch), W strided by 2d
+            box = _tma_box(x.reshape(bsz, h // d, d, w, cin),
+                           (KC * j, w0, p0, 2 * tr0 - 1, b),
+                           (KC, 2 * d * (TC + 1), P, 2 * trp + 2, 1),
+                           (1, 2 * d, 1, 1, 1))
+        else:
+            # x as (2d C, W / 2d, row phase, phase row, batch): column w0
+            # is place w0 - 2d g of group g, each next one a group on
+            g = tc0 - 1 + par
+            box = _tma_box(x.reshape(bsz, h // d, d, w // (2 * d),
+                                     2 * d * cin),
+                           (KC * j + (w0 - 2 * d * g) * cin, g, p0,
                             2 * tr0 - 1, b),
-                       (KC, 2 * d * (TC + 1), P, 2 * trp + 2, 1),
-                       (1, 2 * d, 1, 1, 1)).reshape(-1)
+                           (KC, TC + 1, P, 2 * trp + 2, 1), (1,) * 5)
+        box = box.reshape(-1)
         off = (U_BYTES + par * X_HALF) // 2
         stage[off:off + box.size] = box
     # U as (n, e, qj, h, point): channel 4 qj + 2 h + e
@@ -495,10 +506,12 @@ def _bf16_inputs(seed, shape, cout):
 @pytest.mark.parametrize("shape,cout,d", [((1, 16, 16, 16), 32, 1),
                                           ((1, 8, 20, 32), 40, 1),
                                           ((1, 16, 8, 16), 32, 2),
-                                          ((1, 8, 24, 24), 16, 4)])
+                                          ((1, 8, 24, 24), 16, 4),
+                                          ((1, 16, 32, 32), 16, 8)])
 def test_bf16_kernel_model_matches_pallas_interpret(shape, cout, d):
-    """The kernel's decomposition (TMA boxes with element stride 2d and
-    zero fill, the parity-split slab, the permuted K order, the fold of
+    """The kernel's decomposition (TMA boxes with element stride 2d, or
+    above d = 4 over 2d-pixel groups, and zero fill, the parity-split
+    slab, the permuted K order, the fold of
     A^T's rows over two warpgroups with A's sign as the wgmma scale, the
     epilogue's addressing), at the
     block shape the wrapper picks, against the JAX Pallas kernel in
@@ -530,12 +543,15 @@ def test_bf16_kernel_model_matches_pallas_interpret(shape, cout, d):
 
 
 @pytest.mark.parametrize("d,P,TC", [(1, 1, 8), (2, 2, 8), (4, 4, 4),
-                                    (2, 1, 4)])
+                                    (2, 1, 4), (6, 2, 8), (8, 4, 4),
+                                    (16, 1, 8)])
 def test_bf16_plain_copy_lands_the_tma_layout(d, P, TC):
     """The plain-load producer (the thin classes) writes every stage
     exactly as the TMA loads land it: the slab with its zero halo, channels
-    past C_in zero, U in the permuted K order with the 128-byte swizzle."""
-    _, _, xb, ub = _bf16_inputs(50 + d, (2, 8 * d, 12 * d, 24), 72)
+    past C_in zero, U in the permuted K order with the 128-byte swizzle.
+    Above d = 4 TMA takes C_in in whole chunks (:func:`bf16_path`)."""
+    cin = 24 if d <= twino.BF16_STRIDED_MAX_DILATION else 32
+    _, _, xb, ub = _bf16_inputs(50 + d, (2, 8 * d, 12 * d, cin), 72)
     th, tw = 4, 6
     trp = 64 // (TC * P)
     for blk in ((1, 0, d - 1, 0, 0, 0),
@@ -565,6 +581,18 @@ def test_bf16_thin_classes_take_the_plain_path(shape, cout, path):
         jnp.asarray(xb).astype(jnp.bfloat16), jnp.asarray(k), True)
         .astype(jnp.float32))
     assert np.abs(got - pallas).max() <= 2 ** -7 * np.abs(pallas).max()
+
+
+@pytest.mark.parametrize("cin,d,path", [(24, 4, "tma"), (24, 8, "plain"),
+                                        (32, 8, "tma"), (5, 8, "plain"),
+                                        (192, 16, "tma"), (24, 6, "plain")])
+def test_bf16_path_takes_whole_chunks_above_dilation_4(cin, d, path):
+    """Above d = 4 the x tensor map addresses groups of 2d pixels, where a
+    chunk past C_in would read the next pixel's channels, not TMA's zero
+    fill: TMA then needs C_in in whole 16-channel chunks, and any other
+    C_in takes the plain loads."""
+    x = torch.zeros(1, 2 * d, 2 * d, cin, dtype=torch.bfloat16)
+    assert twino.bf16_path(x, d) == path
 
 
 @pytest.mark.parametrize("h,w,d,shape,idle", [(48, 32, 1, (1, 8), 0.0),
