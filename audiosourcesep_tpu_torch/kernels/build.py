@@ -37,6 +37,11 @@ SIGNATURES = {
     # (x, u, y, B, H, W, Cin, Cout, dilation, block_rows, stream)
     #   -> cudaError_t
     "winograd_f23_fwd_f32": ([_P, _P, _P, *[_I] * 7, _P], _I),
+    # (x, u, y, B, H, W, Cin, Cout, dilation, path (0 thin_in, 1
+    #  thin_out), box images, box tile rows, box tile columns, split
+    #  (thin_out's cluster, thin_in's tile warps), channel warps, stream)
+    #  -> cudaError_t
+    "winograd_f23_fwd_f32_thin": ([_P, _P, _P, *[_I] * 12, _P], _I),
     # (x, u, y, B, H, W, Cin, Cout, U's row length, dilation, row phases
     #  P, tile columns TC, tma, stream) -> cudaError_t
     "winograd_f23_fwd_bf16": ([_P, _P, _P, *[_I] * 10, _P], _I),

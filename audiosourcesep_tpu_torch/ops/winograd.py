@@ -9,7 +9,9 @@ with the exact +-1 / +-0.5 transform matrices below: 16 channel
 contractions in the transform domain, 2.25x fewer multiply-adds than the
 direct conv. Two Hopper kernels compute it, one per dtype: bf16 on the
 tensor cores (``csrc/winograd_mma.cu``: wgmma fed by TMA from a producer
-warpgroup) and float32 on the CUDA cores (``csrc/winograd.cu``). Both read
+warpgroup) and float32 on the CUDA cores (``csrc/winograd.cu``, and at thin
+channel counts ``csrc/winograd_thin.cu``: :func:`f32_path`, counted in
+``f32_path_counts``). Both read
 NHWC ``x`` directly (SAME halo zero-filled in the kernel), take the
 pre-transformed weights ``U [16, C_in, C_out]`` in ``x``'s dtype (rounded
 as the JAX wrapper rounds them), and write the interleaved NHWC output
@@ -38,13 +40,15 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["transform_weights", "winograd_conv2d", "bf16_path",
+__all__ = ["transform_weights", "winograd_conv2d", "bf16_path", "f32_path",
            "winograd_conv2d_reference", "winograd_eligible",
            "dilated_eligible", "dilated_winograd_conv2d",
            "dilated_winograd_conv2d_reference", "launch_count",
@@ -70,6 +74,24 @@ launch_count = 0
 launch_counts = {name: 0 for name in KERNELS.values()}
 # the bf16 kernel's launches by the path its producer took (see bf16_path)
 bf16_path_counts = {"tma": 0, "plain": 0}
+# the f32 kernel's launches by its path (see f32_path)
+f32_path_counts = {"wide": 0, "thin_in": 0, "thin_out": 0}
+# the f32 kernel's thin paths (csrc/winograd_thin.cu): C_in up to this takes
+# thin_in, else C_out up to this (C_in a multiple of 4) thin_out
+THIN_IN_MAX_CIN = 4
+THIN_OUT_MAX_COUT = 16
+# as csrc/winograd_thin.cu has them: thin_out's block (threads), the
+# 16-byte x pieces a thread copies a chunk and its ring stages, and the
+# shared memory a block may take so that three fit on an SM; thin_in's
+# tiles a block
+THIN_NT, THIN_MAXPIECE, THIN_STAGES = 128, 8, 3
+THIN_OUT_SMEM_MAX = 75 * 1024
+THIN_IN_TILES = 32
+# thin_out's cluster by a cost model fitted to the card's times, from the
+# H100's SMs and the thin_out blocks each holds at once (ptxas' registers:
+# 145 a thread with CB = 4, 116 with CB = 1): a launch takes whole waves
+SM_COUNT = 132
+THIN_OUT_BLOCKS_PER_SM = {4: 3, 1: 4}
 # above this dilation the bf16 kernel's x tensor map cannot stride W by 2d
 # (TMA's element strides stop at 8) and addresses 2d-pixel groups instead,
 # which needs C_in in whole 16-channel chunks
@@ -188,12 +210,120 @@ def _bf16_u(u: torch.Tensor) -> torch.Tensor:
     return u.clone() if u.data_ptr() % 16 else u
 
 
-def _winograd_cuda(x: torch.Tensor, u: torch.Tensor,
-                   dilation: int = 1) -> torch.Tensor:
+def f32_path(x_shape, c_out: int, dilation: int = 1) -> str:
+    """Which design of the f32 kernel computes this conv (NHWC ``x_shape``,
+    ``c_out`` output channels): ``"thin_in"`` for C_in <= 4 (a lane an
+    output channel with its U in registers, one stage of all C_in),
+    ``"thin_out"`` for C_out <= 16 with C_in a multiple of 4 (C_in split
+    over a thread-block cluster, reduced through distributed shared
+    memory), else ``"wide"`` (32 tiles x 64 C_out a block,
+    ``csrc/winograd.cu``). The limits are the card's: thin_in won at C_in
+    1 to 4 and lost at 6, 8 and 12, where the wide kernel's chunk of 8 is
+    full (``PERF.md``). All three work on the d*d phase grids in place, so
+    the path does not depend on ``dilation``. x of 2^31 elements or more
+    stays wide (the thin kernel's x offsets are 32-bit)."""
+    return next((p for p in ("thin_in", "thin_out")
+                 if _thin_eligible(x_shape, c_out, p)), "wide")
+
+
+def _thin_eligible(x_shape, c_out: int, path: str) -> bool:
+    """Whether the thin kernel takes this conv on ``path`` (it refuses
+    what this refuses)."""
+    b, h, w, cin = x_shape
+    if b * h * w * cin >= 2 ** 31:
+        return False
+    if path == "thin_in":
+        return cin <= THIN_IN_MAX_CIN
+    return c_out <= THIN_OUT_MAX_COUT and cin % 4 == 0
+
+
+def _thin_out_channels(cin: int, cout: int):
+    """``(CB, G, CO, KC, PIXW)`` of thin_out: output channels a thread,
+    groups a block (2 x 64 / G threads each, two a tile), channels a block
+    holds (padded to 4), input channels a chunk, floats a slab slot."""
+    cb = 1 if cout == 1 else 4
+    g = -(-cout // cb)
+    kc = 8 if cin % 8 == 0 else 4
+    return cb, g, 4 if cb == 1 else 4 * g, kc, 12 if kc == 8 else 4
+
+
+def _thin_in_channel_warps(cout: int) -> int:
+    """thin_in's channel warps a block (a lane an output channel): the
+    most, up to 4, that divide C_out's 32-channel groups (512: 4; 192, 96:
+    3)."""
+    groups = -(-cout // 32)
+    return next(w for w in (4, 3, 2, 1) if groups % w == 0)
+
+
+def _thin_box(ni: int, th: int, tw: int, tiles: int, fits):
+    """The box of ``tiles`` tiles (images x tile rows x tile columns) over
+    ``ni`` phase-grid images of ``th`` x ``tw`` tiles with the fewest idle
+    tile slots, then the smallest slab, then the widest; only boxes for
+    which ``fits(nimg, trb, tcb, slab_pixels)`` holds. Returns ``(slots,
+    (nimg, trb, tcb))``."""
+    best = None
+    for tcb in (4, 8, 16, 32):
+        for trb in (1, 2, 4, 8, 16):
+            if tiles % (tcb * trb):
+                continue
+            nimg = tiles // (tcb * trb)
+            px = nimg * (2 * trb + 2) * (2 * tcb + 2)
+            if not fits(nimg, trb, tcb, px):
+                continue
+            slots = (-(-ni // nimg) * nimg * -(-th // trb) * trb
+                     * -(-tw // tcb) * tcb)
+            key = (slots, px, -tcb)
+            if best is None or key < best[0]:
+                best = (key, (nimg, trb, tcb))
+    return best[0][0], best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def _thin_geometry(x_shape, c_out: int, dilation: int, path: str):
+    """``(nimg, trb, tcb, split, cwarps)`` of the thin kernel's launch: the
+    box of phase-grid images x tile rows x tile columns a block owns;
+    thin_out's cluster (the blocks C_in is split over) and its 4 warps, or
+    thin_in's tile warps Wt and channel warps Wc. Both were set from the
+    card's times at the thin classes (``chip_smoke.py`` phases 3, 8a, 9a).
+    thin_out's box has 64 / G tiles; its cluster (1, 2, 4 or 8, at most
+    C_in's chunks) takes the fewest whole waves of blocks x (chunks a block
+    + 1, the reduction's cost). thin_in's box has 32 tiles, walked by one
+    tile warp, or by two where C_out has at most 3 groups of 32 channels
+    (Flow++'s 3 -> 96 took 0.0117 ms so, 0.0147 with one)."""
+    b, h, w, cin = x_shape
+    d = dilation
+    ni, th, tw = b * d * d, h // (2 * d), w // (2 * d)
+    if path == "thin_in":
+        cw = _thin_in_channel_warps(c_out)
+        _, box = _thin_box(ni, th, tw, THIN_IN_TILES, lambda *a: True)
+        return (*box, 1 if -(-c_out // 32) > 3 else 2, cw)
+    cb, g, co, kc, pixw = _thin_out_channels(cin, c_out)
+    tiles = THIN_NT // (2 * g)
+    nch = cin // kc
+
+    def fits(nimg, trb, tcb, px):
+        words = max(THIN_STAGES * (px * pixw + kc * 16 * co),
+                    tiles * (16 * co + 4))
+        return (-(-px * (kc // 4) // THIN_NT) <= THIN_MAXPIECE
+                and 4 * words <= THIN_OUT_SMEM_MAX)
+
+    slots, box = _thin_box(ni, th, tw, tiles, fits)
+    wave = THIN_OUT_BLOCKS_PER_SM[cb] * SM_COUNT
+    cluster = min((n for n in (1, 2, 4, 8) if n <= nch),
+                  key=lambda n: (-(-slots // tiles * n // wave)
+                                 * (-(-nch // n) + 1), n))
+    return (*box, cluster, THIN_NT // 32)
+
+
+def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
+                   path: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel of ``x``'s dtype on the current stream: the
     3x3 SAME conv of dilation d on NHWC ``x`` (f32 or bf16, contiguous, H
     and W divisible by 2d) with ``U [16, C_in, C_out]`` of the same
-    dtype. One launch, whatever d."""
+    dtype. One launch, whatever d. ``path`` (f32 only) names the f32
+    kernel's design instead of :func:`f32_path`'s choice, so that a
+    measurement can time two designs on one conv; a path that does not
+    take the conv raises."""
     global launch_count
     if not x.is_cuda or u.device != x.device:
         raise ValueError(f"winograd kernel needs x and U on one CUDA device, "
@@ -218,29 +348,47 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor,
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    from ..kernels.build import load_library
-    name = KERNELS[x.dtype]
+    name = entry = KERNELS[x.dtype]
     th, tw = h // (2 * d), w // (2 * d)
     if bf16:
+        if path is not None:
+            raise ValueError("path names a design of the f32 kernel")
         u = _bf16_u(u)
         path = bf16_path(x, d)
         sizes = (cin, cout, u.shape[2], d)
         geometry = (*_bf16_block(th, tw, d), int(path == "tma"))
     else:
-        sizes = (cin, cout, d)
-        geometry = (_block_rows(th, tw),)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(load_library(), name)(
+        path = path or f32_path(x.shape, cout, d)
+        if path == "wide":
+            sizes = (cin, cout, d)
+            geometry = (_block_rows(th, tw),)
+        elif path in ("thin_in", "thin_out") and _thin_eligible(
+                x.shape, cout, path):
+            entry = "winograd_f23_fwd_f32_thin"
+            sizes = (cin, cout, d, int(path == "thin_out"))
+            geometry = _thin_geometry(tuple(x.shape), cout, d, path)
+        else:
+            raise ValueError(f"the f32 kernel's path {path!r} does not take "
+                             f"x {tuple(x.shape)} -> C_out {cout}")
+    from ..kernels.build import load_library
+    # the current stream's cudaStream_t (torch.cuda.current_stream builds a
+    # Stream object: 5 us of host time a launch on the H100's host, against
+    # 0.15 us)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    # the launch goes to the current device: make it x's (the context
+    # costs host time, so only when it is another)
+    with (contextlib.nullcontext() if x.device.index ==
+          torch.cuda.current_device() else torch.cuda.device(x.device)):
+        err = getattr(load_library(), entry)(
             x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, w, *sizes,
             *geometry, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(x {tuple(x.shape)}, C_out {cout}, d={d})")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)}, C_out {cout}, d={d}, "
+                           f"path {path})")
     launch_count += 1
     launch_counts[name] += 1
-    if bf16:
-        bf16_path_counts[path] += 1
+    (bf16_path_counts if bf16 else f32_path_counts)[path] += 1
     return y
 
 

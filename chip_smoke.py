@@ -10,13 +10,17 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    versions; TF32 is turned off for cuDNN convs and matmuls so float32
    comparisons are float32;
 2. build of the CUDA kernels from ``audiosourcesep_tpu_torch/csrc``, with
-   ptxas' registers, spills and shared memory of each kernel;
+   ptxas' registers, spills and shared memory of each kernel (a spill in
+   an instance of the f32 kernel's thin paths fails the phase);
 3. both Winograd kernels (bf16 on the tensor cores, f32 on the CUDA
    cores) against their plain PyTorch version and F.conv2d at every conv
    class the NCSN v1 forward routes to them (batch 30), with errors, times
    and each class's bound (the least time the card could take), the bf16
    kernel's ptxas report (a spill fails the phase), each class's producer
-   path and the host time of one launch; then the
+   path and the host time of one launch; the f32 kernel's thin paths
+   (``ops.winograd.f32_path``: begin_conv 1->192 ``thin_in``, end_conv
+   192->1 ``thin_out``) beside the wide kernel forced on the same class;
+   then the
    dilated route (the kernels on the d*d phase grids) at the cascade's
    dilated convs, 48x32 384->384 at d = 2 and 4 (one launch per conv,
    the phases read and written in place), against its plain version and
@@ -33,7 +37,8 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    T=2 in bf16 with ``--inverse`` (sep1/sep2.wav) and T=1 in f32; each run
    must launch its dtype's kernel exactly 2 models x 10 levels x T x routed
    convs per forward times and the other kernel never (so ``nn.conv2d``
-   routed no dilated conv);
+   routed no dilated conv), the bf16 kernel on its producer paths and the
+   f32 kernel on its paths (2 thin, 62 wide a forward);
 6. the inversion CLI (``melspec_inversion_basis.main``) on the card on the
    bf16 run's ``results.npz`` in three modes (reuse_phase with the Wiener
    filter, reuse_phase over the whole track, griffin), launching no
@@ -59,8 +64,10 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    ``restore_ncsn_params(ema=True)`` loads it.
 8. the Glow prior at the width of ``configs/melspec_glow.yml`` (L=3, K=40,
    512 filters, learntop, f32, TF32 off unless said): (a) the f32 kernel
-   at the coupling nets' six 3x3 conv classes (batch 30) against its plain
-   version and F.conv2d, with times and bounds, and the 1x1 512->512 conv
+   at the coupling nets' six 3x3 conv classes (batch 30) on its paths (five
+   thin, 8->512 wide) against its plain version and F.conv2d, with times
+   and bounds, and the wide kernel forced on each thin class, and the 1x1
+   512->512 conv
    as a matmul against F.conv2d; (b) log p and the score of 2 frames on
    the card against the CPU; (c) the score of 30 frames routed against
    cuDNN, 240 f32 launches per forward; (d) one Adamax step at batch 2 on
@@ -69,13 +76,15 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    against its bound; (e) ``train_glow`` (one epoch on phase 7's dataset)
    -> ``train_noisy_glow`` (2 levels, 10 with ``--full``) ->
    ``run_basis_sep --model_type glow --winograd`` (T=2) at
-   ``--score_chunk 8`` and ``0``, with the f32 kernel's launches,
+   ``--score_chunk 8`` and ``0``, with the f32 kernel's launches (80
+   ``thin_in``, 120 ``thin_out`` and 40 ``wide`` a forward),
    ``Duration`` and the peak memory (``--full`` adds T=100 at ``0``).
 9. the image path, on random uint8 images written in the MNIST and
    CIFAR-10 npz layouts (``ASR_MNIST_NPZ`` / ``ASR_CIFAR10_NPZ``): (a) both
    kernels at the image NCSN's conv classes (32x32 and 16x16, batch 50)
    and at Flow++'s (32x16, 16x16, 16x8, batch 64) against their plain
-   version and F.conv2d, with times and bounds; (b) ``train_ncsn
+   version and F.conv2d, with times and bounds, the f32 kernel's thin
+   classes beside the wide kernel forced on them; (b) ``train_ncsn
    --dataset mnist`` (v1, 192 filters, routing on) ->
    ``ncsn_generate_samples`` -> ``run_basis_sep --dataset mnist
    --winograd`` at 50 mixtures, T=2, in bf16 and f32 (``--full`` adds
@@ -294,6 +303,35 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()`` (ms): ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between two events, so that the
+    host's time per call (the wrapper, the enqueue) leaves no gaps between
+    the launches. ``cuda_ms`` times the calls as a caller makes them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def phase_device():
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -324,6 +362,11 @@ def phase_build():
         if name.endswith("_smem_bytes"):
             print(f"[2] {name}: {getattr(lib, name)()} bytes of dynamic "
                   f"shared memory per block")
+    thin = _ptxas_report(build.build_log, "winograd_f23_f32_thin")
+    if len([ln for ln in thin if ln.startswith("Compiling")]) != 3 \
+            or any(_spills(ln) for ln in thin):
+        raise AssertionError(f"the f32 kernel's thin instances are missing "
+                             f"from ptxas' report or spill: {thin}")
 
 
 def conv_bound(h, w, cin, cout, dname, batch=BATCH):
@@ -343,16 +386,29 @@ def conv_bound(h, w, cin, cout, dname, batch=BATCH):
 def _new_result():
     return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
             "max_abs_err": 0.0, "by": {"operations": 0.0, "bytes": 0.0},
-            "paths": {}}
+            "paths": {}, "wide_ms": 0.0, "device_ms": 0.0,
+            "wide_device_ms": 0.0, "library_device_ms": 0.0}
+
+
+def _has_thin(r) -> bool:
+    """Whether a route's classes include one on the f32 kernel's thin
+    paths (whose ``wide_ms`` then times the wide kernel forced on it)."""
+    return any(p.startswith("thin") for p in r.get("paths", {}).values())
 
 
 def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
-          tag="[3]", batch=BATCH, path=None):
+          tag="[3]", batch=BATCH, path=None, run_wide=None):
     """Run one conv class through the kernel, its plain version and
     F.conv2d on the same inputs; check the kernel's agreement, time all
     three, and add ``n`` times each to the route's result ``r``. ``path``
-    (the bf16 kernel's producer path for this class) goes into
-    ``r["paths"]``. Returns the kernel's and F.conv2d's ms."""
+    (the bf16 kernel's producer path, or the f32 kernel's design, for this
+    class) goes into ``r["paths"]``. ``run_wide`` (a thin class of the f32
+    kernel) runs the wide design on the same inputs: held to the plain
+    version too, timed, and its ms (the kernel's where it is None) added
+    to ``r["wide_ms"]``. f32 classes also take device times (``graph_ms``:
+    no host time between launches) of the kernel, the wide design and
+    F.conv2d, into ``r["device_ms"]``, ``r["wide_device_ms"]`` and
+    ``r["library_device_ms"]``. Returns the kernel's and F.conv2d's ms."""
     import torch
     tol_max, tol_mean, tol_conv = TOL[dname]
     y, ref, conv = run_kernel().float(), run_plain().float(), run_conv()
@@ -368,8 +424,29 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
     ms_p = cuda_ms(run_plain, 3)
     ms_c = cuda_ms(run_conv, 20, 2)
     bound, by = conv_bound(*shape, dname, batch)
+    name = label.split(" d=")[0].strip()
     if path is not None:
-        r["paths"][label.split(" d=")[0].strip()] = path
+        r["paths"][name] = path
+    ms_w = ms_k
+    if dname == "float32":
+        dev_k = dev_w = graph_ms(run_kernel)
+        dev_c = graph_ms(run_conv)
+    if run_wide is not None:
+        e_wide = (run_wide().float() - ref).abs().max().item()
+        ms_w, dev_w = cuda_ms(run_wide, 20, 2), graph_ms(run_wide)
+        print(f"{tag} {dname:8s} {label} on {path}: device {dev_k:.4f} ms "
+              f"(as called {ms_k:.4f}), the wide kernel forced {dev_w:.4f} "
+              f"({ms_w:.4f}): {dev_w / dev_k:.2f}x; F.conv2d {dev_c:.4f} "
+              f"({ms_c:.4f}); bound {bound:.4f} ms: thin at "
+              f"{100 * bound / dev_k:.1f}%, wide at {100 * bound / dev_w:.1f}%"
+              f"; the wide kernel's rel err vs plain {e_wide / scale:.2e}")
+        if e_wide > tol_max * scale:
+            raise AssertionError(f"the wide kernel disagrees at {label}")
+    if dname == "float32":
+        r["device_ms"] += n * dev_k
+        r["wide_device_ms"] += n * dev_w
+        r["library_device_ms"] += n * dev_c
+    r["wide_ms"] += n * ms_w
     r["ms"] += n * ms_k
     r["plain_ms"] += n * ms_p
     r["library_ms"] += n * ms_c
@@ -381,7 +458,9 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
           f"{tol_mean:g}), vs F.conv2d max {e_conv / scale:.2e} (tol "
           f"{tol_conv:g}); ms kernel {ms_k:.4f} plain {ms_p:.4f} F.conv2d "
           f"{ms_c:.4f} bound {bound:.4f} ({by}), kernel at "
-          f"{100 * bound / ms_k:.1f}% of bound")
+          f"{100 * bound / ms_k:.1f}% of bound"
+          + (f"; device ms kernel {dev_k:.4f} F.conv2d {dev_c:.4f}"
+             if dname == "float32" else ""))
     if e_plain > tol_max * scale or e_mean > tol_mean \
             or e_conv > tol_conv * scale:
         raise AssertionError(f"kernel disagrees at {label} {dname}")
@@ -393,6 +472,16 @@ def _summary(r, what, dname, tag="[3]", batch=BATCH):
           f"plain {r['plain_ms']:.3f} ms, F.conv2d {r['library_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.1f}%"
           f" of it reached)")
+    if dname == "float32":
+        print(f"{tag} {dname}: {what}, device times (no host time between "
+              f"launches): kernel {r['device_ms']:.3f} ms, F.conv2d "
+              f"{r['library_device_ms']:.3f} ms")
+    if _has_thin(r):
+        print(f"{tag} {dname}: {what}, the same classes with the wide kernel "
+              f"forced on the thin ones: {r['wide_ms']:.3f} ms as called "
+              f"({r['wide_ms'] / r['ms']:.2f}x), {r['wide_device_ms']:.3f} ms "
+              f"device ({r['wide_device_ms'] / r['device_ms']:.2f}x the "
+              f"kernel's paths)")
 
 
 def _ptxas_report(log: str, name: str):
@@ -412,6 +501,12 @@ def _ptxas_report(log: str, name: str):
     return out
 
 
+def _spills(line: str) -> bool:
+    """Whether a ptxas line reports a spill (or a stack frame)."""
+    return "spill" in line and not line.startswith(
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill")
+
+
 def _host_us(fn, n: int = 50) -> float:
     """Host time of one call of ``fn`` (microseconds): ``n`` calls back to
     back, timed on the host clock without waiting for the card."""
@@ -424,6 +519,19 @@ def _host_us(fn, n: int = 50) -> float:
     host = (time.perf_counter() - t0) / n
     torch.cuda.synchronize()
     return 1e6 * host
+
+
+def _paths(W, x, u, cout):
+    """The path of a conv class on its dtype's kernel (the bf16 producer's,
+    or the f32 kernel's design) and, for a thin f32 class, a call of the
+    wide f32 kernel forced on it (else None)."""
+    import torch
+    if x.dtype == torch.bfloat16:
+        return W.bf16_path(x), None
+    path = W.f32_path(x.shape, cout)
+    if path == "wide":
+        return path, None
+    return path, lambda: W._winograd_cuda(x, u, path="wide")
 
 
 def phase_kernel(smi: str):
@@ -451,9 +559,7 @@ def phase_kernel(smi: str):
     bf16_report = _ptxas_report(build.build_log, "winograd_f23_bf16")
     for line in bf16_report:
         print(f"[3] bf16 kernel ptxas: {line}")
-    if not bf16_report or any("spill" in ln and not ln.startswith(
-            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill")
-            for ln in bf16_report):
+    if not bf16_report or any(_spills(ln) for ln in bf16_report):
         raise AssertionError("the bf16 kernel's ptxas report is missing or "
                              "shows spills")
     res = {}
@@ -462,12 +568,13 @@ def phase_kernel(smi: str):
         r = res[dname] = _new_result()
         for (h, w, cin, cout), n in CONV_CLASSES.items():
             x, k, u, xc, kc = inputs(h, w, cin, cout, dtype)
+            path, wide = _paths(W, x, u, cout)
             _hold(r, f"{h}x{w} {cin:3d}->{cout:3d}", dname, n,
                   (h, w, cin, cout),
                   lambda: W._winograd_cuda(x, u),
                   lambda: W.winograd_conv2d_reference(x, k),
                   lambda: nhwc(F.conv2d(xc, kc, padding=1)),
-                  path=W.bf16_path(x) if dname == "bfloat16" else None)
+                  path=path, run_wide=wide)
             if (h, w, cin, cout) == HOST_CLASS:
                 r["host_us"] = _host_us(lambda: W._winograd_cuda(x, u))
                 print(f"[3] {dname} host time of one launch (the wrapper, "
@@ -490,7 +597,8 @@ def phase_kernel(smi: str):
                   lambda: W.dilated_winograd_conv2d(x, k, d, u),
                   lambda: W.dilated_winograd_conv2d_reference(x, k, d),
                   lambda: nhwc(F.conv2d(xc, kc, padding=d, dilation=d)),
-                  path=W.bf16_path(x, d) if dname == "bfloat16" else None)
+                  path=W.bf16_path(x, d) if dname == "bfloat16"
+                  else W.f32_path(x.shape, cout, d))
             del x, k, u, xc, kc
         _summary(r, "dilated route over the cascade's dilated convs", dname)
     r = res["bfloat16_wide_dilation"] = _new_result()
@@ -599,8 +707,9 @@ def _reset_counts():
     W.launch_count = 0
     for name in W.launch_counts:
         W.launch_counts[name] = 0
-    for name in W.bf16_path_counts:
-        W.bf16_path_counts[name] = 0
+    for counts in (W.bf16_path_counts, W.f32_path_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
@@ -634,7 +743,8 @@ def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
                        + (["--inverse"] if inverse else []))
     wall = time.time() - t0
     launches = dict(W.launch_counts)
-    paths = dict(W.bf16_path_counts)
+    paths = dict(W.bf16_path_counts if dtype == "bf16"
+                 else W.f32_path_counts)
     expected = 2 * L * T * ROUTED_PER_FORWARD
     mine = W.KERNELS[torch.bfloat16 if dtype == "bf16" else torch.float32]
     res = np.load(os.path.join(out, "results.npz"))
@@ -654,15 +764,17 @@ def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
                     for name in launches}:
         raise AssertionError(f"the {dtype} path did not launch {mine} for "
                              f"every routed conv, and only it")
-    if dtype == "bf16":
-        # begin_conv (1->192) by plain loads, the rest by TMA
-        per = {"tma": ROUTED_PER_FORWARD - 1, "plain": 1}
-        want = {k: 2 * L * T * n for k, n in per.items()}
-        print(f"[5] bf16 launches by producer path {paths}, expected {want}")
-        if paths != want:
-            raise AssertionError("the bf16 kernel's paths are not the "
-                                 "classes' paths")
-        launches["paths"] = paths
+    # bf16: begin_conv (1->192) by plain loads, the rest by TMA; f32:
+    # begin_conv thin_in, end_conv (192->1) thin_out, the rest wide
+    per = ({"tma": ROUTED_PER_FORWARD - 1, "plain": 1} if dtype == "bf16"
+           else {"wide": ROUTED_PER_FORWARD - 2, "thin_in": 1,
+                 "thin_out": 1})
+    want = {k: 2 * L * T * n for k, n in per.items()}
+    print(f"[5] {dtype} launches by path {paths}, expected {want}")
+    if paths != want:
+        raise AssertionError(f"the {dtype} kernel's paths are not the "
+                             f"classes' paths")
+    launches["paths"] = paths
     for key in ("x1", "x2", "gt1", "gt2", "mixed"):
         if res[key].shape != (BATCH, 96, 64):
             raise AssertionError(f"results.npz {key} {res[key].shape}")
@@ -1165,7 +1277,7 @@ def _rel(a, b) -> float:
     return ((a.cpu() - b.cpu()).norm() / b.cpu().norm()).item()
 
 
-def phase_glow_kernel():
+def phase_glow_kernel(smi: str):
     """8a: the f32 kernel at the six Glow conv classes (batch 30) against
     its plain version and F.conv2d; the coupling nets' 1x1 512->512 conv
     as nn.conv1x1 (a matmul) against F.conv2d at each resolution."""
@@ -1181,13 +1293,26 @@ def phase_glow_kernel():
             * (1.0 / (9 * cin)) ** 0.5
         u = W.transform_weights(k)
         xc, kc = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1)
+        path, wide = _paths(W, x, u, cout)
+        before = dict(W.f32_path_counts)
+        W._winograd_cuda(x, u)
+        if W.f32_path_counts != {p: c + (p == path)
+                                 for p, c in before.items()}:
+            raise AssertionError(f"{h}x{w} {cin}->{cout} did not launch once "
+                                 f"on its path {path}")
         _hold(r, f"{h}x{w} {cin:3d}->{cout:3d}", "float32", n,
               (h, w, cin, cout), lambda: W._winograd_cuda(x, u),
               lambda: W.winograd_conv2d_reference(x, k),
               lambda: F.conv2d(xc, kc, padding=1).permute(0, 2, 3, 1),
-              tag="[8a]")
+              tag="[8a]", path=path, run_wide=wide)
         del x, k, u, xc, kc
     _summary(r, "routed convs of one Glow forward", "float32", tag="[8a]")
+    print(f"[8a] the Glow route on {smi}, device times: thin paths "
+          f"{r['device_ms']:.3f} ms, the wide kernel forced "
+          f"{r['wide_device_ms']:.3f} ms, F.conv2d "
+          f"{r['library_device_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms; "
+          f"as called: {r['ms']:.3f}, {r['wide_ms']:.3f}, "
+          f"{r['library_ms']:.3f} ms")
     f = GLOW["n_filters"]
     for h, w in ((48, 32), (24, 16), (12, 8)):
         x = torch.randn(BATCH, f, h, w, device="cuda", generator=g
@@ -1424,11 +1549,17 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
                             str(chunk), "--score_clip", "1", *width])
         wall = time.time() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        got = dict(W.launch_counts)
+        got, paths = dict(W.launch_counts), dict(W.f32_path_counts)
         chunks = -(-BATCH // chunk) if chunk else 1
         want = {name: L * T * 2 * chunks * GLOW_ROUTED
                 if dt == torch.float32 else 0
                 for dt, name in W.KERNELS.items()}
+        # conv1 (2/4 -> 512) thin_in, (8 -> 512) wide, conv3 (512 ->
+        # 4/8/16) thin_out: each class's path at a chunk's frames
+        want_paths = dict.fromkeys(W.f32_path_counts, 0)
+        for (h, w, cin, cout), n in GLOW_CLASSES.items():
+            want_paths[W.f32_path((chunk or BATCH, h, w, cin), cout)] += \
+                L * T * 2 * chunks * n
         with open(os.path.join(out, "out.log")) as f:
             dur = [ln.strip() for ln in f if ln.startswith("Duration")]
         res = np.load(os.path.join(out, "results.npz"))
@@ -1440,17 +1571,19 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
               f"wall-clock "
               f"{wall:.2f} s; peak memory {peak:.2f} GiB; launches {got}, "
               f"expected {want} ({L} levels x T={T} x 2 sources x {chunks} "
-              f"chunks x {GLOW_ROUTED}); x1 {res['x1'].shape} in "
+              f"chunks x {GLOW_ROUTED}); by path {paths}, expected "
+              f"{want_paths}; x1 {res['x1'].shape} in "
               f"[{res['x1'].min():.2f}, {res['x1'].max():.2f}] dB")
-        if got != want:
+        if got != want or paths != want_paths:
             raise AssertionError("the Glow separation did not launch the "
-                                 "f32 kernel for every routed conv")
+                                 "f32 kernel for every routed conv, on its "
+                                 "classes' paths")
         for key in ("x1", "x2"):
             if res[key].shape != (BATCH, 96, 64) \
                     or not np.isfinite(res[key]).all() \
                     or res[key].min() < -100.0 or res[key].max() > 20.0:
                 raise AssertionError(f"results.npz {key}")
-        launches[(T, chunk)] = got[W.KERNELS[torch.float32]]
+        launches[(T, chunk)] = got[W.KERNELS[torch.float32]], paths
     return launches[(2, 8)]
 
 
@@ -1498,14 +1631,13 @@ def phase_image_kernel():
                 u = W.transform_weights(k).to(dtype)
                 xc, kc = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).to(
                     dtype)
+                path, wide = _paths(W, x, u, cout)
                 _hold(r, f"{route} {h}x{w} {cin:3d}->{cout:4d}", dname, n,
                       (h, w, cin, cout), lambda: W._winograd_cuda(x, u),
                       lambda: W.winograd_conv2d_reference(x, k),
                       lambda: F.conv2d(xc, kc, padding=1).permute(0, 2, 3,
                                                                   1),
-                      tag="[9a]", batch=batch,
-                      path=W.bf16_path(x) if dname == "bfloat16"
-                      else None)
+                      tag="[9a]", batch=batch, path=path, run_wide=wide)
                 del x, k, u, xc, kc
             _summary(r, f"routed convs of one {route} forward", dname,
                      tag="[9a]", batch=batch)
@@ -2502,8 +2634,14 @@ def kernels_line(res, routes):
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": max(r["by"], key=r["by"].get),
                "library_ms": r["library_ms"]}       # cuDNN F.conv2d
-        if r.get("paths"):             # the producer path of each class
+        if r.get("paths"):             # the path of each class
             out["paths"] = r["paths"]
+        if r.get("device_ms"):         # f32: no host time between launches
+            out["device_ms"] = r["device_ms"]
+            out["library_device_ms"] = r["library_device_ms"]
+        if _has_thin(r):               # the wide f32 kernel forced on them
+            out["wide_ms"] = r["wide_ms"]
+            out["wide_device_ms"] = r["wide_device_ms"]
         if "host_us" in r:
             out["host_us"] = r["host_us"]
         return out
@@ -2516,8 +2654,8 @@ def kernels_line(res, routes):
                  "launches": routes[dname][""], **numbers(res[dname])}
         if dname == "bfloat16":
             entry["design"] = BF16_DESIGN
-            if "paths" in routes[dname]:
-                entry["path_launches"] = routes[dname]["paths"]
+        if "paths" in routes[dname]:
+            entry["path_launches"] = routes[dname]["paths"]
         for key in sorted(res):
             if key.startswith(dname + "_"):
                 route = key[len(dname) + 1:]
@@ -2525,6 +2663,9 @@ def kernels_line(res, routes):
                 if route in routes[dname]:
                     entry[f"{route}_route"]["launches"] = \
                         routes[dname][route]
+                if f"{route}_paths" in routes[dname]:
+                    entry[f"{route}_route"]["path_launches"] = \
+                        routes[dname][f"{route}_paths"]
         kernels.append(entry)
     return kernels
 
@@ -2560,7 +2701,7 @@ def main(argv):
         phase_train_step_vs_cpu()
         phase_train_routing(smi)
         train_launches, _ = phase_train_cli(work, ds, counts)
-        res["float32_glow"] = phase_glow_kernel()
+        res["float32_glow"] = phase_glow_kernel(smi)
         phase_glow_score()
         phase_glow_train(smi)
         glow_launches = phase_glow_cli(work, ds, counts, full)
@@ -2588,8 +2729,10 @@ def main(argv):
     routes = {
         # the CLI separation of this dtype (phase 5)
         f32: {"": launches[f32][name[f32]],
-              # the Glow separation CLI (phase 8e)
-              "glow": glow_launches,
+              # the same run's launches by path
+              "paths": launches[f32]["paths"],
+              # the Glow separation CLI (phase 8e), and by path
+              "glow": glow_launches[0], "glow_paths": glow_launches[1],
               # the image separation of this dtype (phase 9b)
               "image": image_launches["f32"],
               # one routed Flow++ train step (phase 9d)

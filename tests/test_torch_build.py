@@ -37,17 +37,30 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
     which followed the f32 one in ``ops.winograd.KERNELS``)."""
     import chip_smoke
 
-    def result(ms):
-        return {"ms": ms, "plain_ms": 0.0, "library_ms": 0.0,
-                "bound_ms": 1.0, "max_abs_err": 0.0,
-                "by": {"operations": 1.0, "bytes": 0.0}}
+    def result(ms, **kw):
+        return dict({"ms": ms, "plain_ms": 0.0, "library_ms": 0.0,
+                     "bound_ms": 1.0, "max_abs_err": 0.0,
+                     "by": {"operations": 1.0, "bytes": 0.0}}, **kw)
 
-    res = {"float32": result(1), "float32_dilated": result(2),
-           "float32_glow": result(3), "float32_image": result(4),
+    res = {"float32": result(1, paths={"96x64 1->192": "thin_in",
+                                       "96x64 192->192": "wide"},
+                             wide_ms=1.2,
+                             device_ms=0.9, wide_device_ms=1.1,
+                             library_device_ms=1.5),
+           "float32_dilated": result(2),
+           "float32_glow": result(3, paths={"48x32 2->512": "thin_in"},
+                                  wide_ms=9.0,
+                                  device_ms=2.5, wide_device_ms=8.5,
+                                  library_device_ms=12.0),
+           "float32_image": result(4),
            "bfloat16": dict(result(11), paths={"96x64 1->192": "plain"}),
            "bfloat16_dilated": result(12), "bfloat16_image": result(14),
            "bfloat16_wide_dilation": result(13)}
-    routes = {"float32": {"": 100, "glow": 300, "image": 400},
+    routes = {"float32": {"": 100, "glow": 300, "image": 400,
+                          "paths": {"wide": 62, "thin_in": 1,
+                                    "thin_out": 1},
+                          "glow_paths": {"wide": 0, "thin_in": 150,
+                                         "thin_out": 150}},
               "bfloat16": {"": 110, "image": 410,
                            "paths": {"tma": 108, "plain": 2}}}
     line = {k["name"]: k for k in chip_smoke.kernels_line(res, routes)}
@@ -68,8 +81,25 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
     assert "launches" not in bf16["wide_dilation_route"]
     assert "wide_dilation_route" not in f32
     # the bf16 entry names its design and the producer path of each class
-    # and of the main path's launches; the f32 entry has neither
+    # and of the main path's launches
     assert bf16["design"] == chip_smoke.BF16_DESIGN
     assert bf16["paths"] == {"96x64 1->192": "plain"}
     assert bf16["path_launches"] == {"tma": 108, "plain": 2}
-    assert "design" not in f32 and "paths" not in f32
+    assert "design" not in f32 and "wide_ms" not in bf16
+    # the f32 entry: the design of each class, the main path's launches by
+    # design, the Glow route's too, the wide kernel forced on the thin
+    # classes of each route that has them, and device times (no host time
+    # between launches)
+    assert f32["paths"] == {"96x64 1->192": "thin_in",
+                            "96x64 192->192": "wide"}
+    assert f32["path_launches"] == {"wide": 62, "thin_in": 1, "thin_out": 1}
+    assert f32["glow_route"]["path_launches"] == \
+        {"wide": 0, "thin_in": 150, "thin_out": 150}
+    assert f32["glow_route"]["paths"] == {"48x32 2->512": "thin_in"}
+    assert (f32["wide_ms"], f32["glow_route"]["wide_ms"]) == (1.2, 9.0)
+    assert (f32["glow_route"]["device_ms"],
+            f32["glow_route"]["wide_device_ms"],
+            f32["glow_route"]["library_device_ms"]) == (2.5, 8.5, 12.0)
+    assert "wide_ms" not in f32["image_route"]
+    assert "device_ms" not in bf16
+    assert "path_launches" not in f32["image_route"]

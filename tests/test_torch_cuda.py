@@ -182,6 +182,104 @@ def test_bf16_kernel_refuses_and_does_not_fall_back(cuda, monkeypatch):
         assert err != 0 and bool((y == 7.0).all()), (cin, d)
 
 
+# the f32 kernel's paths at Glow's six coupling classes (batch 2; 8->512
+# stays wide), NCSN's begin_conv 1->192 and end_conv 192->1 and Flow++'s
+# 3->96, then the phase grids in place (d = 2) and ragged channels (C_out 5,
+# C_in 3); each launch counted once under its path, with both plain
+# versions and F.conv2d made to fail
+@pytest.mark.parametrize("shape,cout,d,path", [
+    ((2, 48, 32, 2), 512, 1, "thin_in"),
+    ((2, 48, 32, 512), 4, 1, "thin_out"),
+    ((2, 24, 16, 4), 512, 1, "thin_in"),
+    ((2, 24, 16, 512), 8, 1, "thin_out"),
+    ((2, 12, 8, 8), 512, 1, "wide"),
+    ((2, 12, 8, 512), 16, 1, "thin_out"),
+    ((2, 96, 64, 192), 1, 1, "thin_out"),
+    ((2, 96, 64, 1), 192, 1, "thin_in"),
+    ((2, 32, 16, 3), 96, 1, "thin_in"),
+    ((2, 16, 24, 64), 8, 2, "thin_out"),
+    ((2, 16, 24, 3), 16, 2, "thin_in"),
+    ((1, 12, 8, 36), 5, 1, "thin_out")])
+def test_f32_thin_paths_and_their_launch_counts(cuda, monkeypatch, shape,
+                                                cout, d, path):
+    x, k = _inputs(shape, cout, torch.float32, seed=d)
+    k = k * (0.1 * shape[-1]) ** -0.5
+    want = (W.winograd_conv2d_reference(x, k) if d == 1 else
+            W.dilated_winograd_conv2d_reference(x, k, d))
+    u = W.transform_weights(k)
+    assert W.f32_path(x.shape, cout, d) == path
+    name = W.KERNELS[torch.float32]
+    before, paths = dict(W.launch_counts), dict(W.f32_path_counts)
+    with monkeypatch.context() as mp:
+        for fn in ("_to_phases", "_from_phases", "winograd_conv2d_reference",
+                   "dilated_winograd_conv2d_reference"):
+            mp.setattr(W, fn, _no_fallback)
+        mp.setattr(F, "conv2d", _no_fallback)
+        got = W._winograd_cuda(x, u, d)
+    torch.cuda.synchronize()
+    assert W.launch_counts == {n: c + (n == name) for n, c in before.items()}
+    assert W.f32_path_counts == {n: c + (n == path)
+                                 for n, c in paths.items()}
+    assert got.shape == (*shape[:3], cout)
+    tol_max, tol_mean, _ = TOL[torch.float32]
+    err = (got - want).abs()
+    assert err.max().item() <= tol_max * want.abs().max().item()
+    assert err.mean().item() <= tol_mean * want.abs().mean().item()
+    # the wide design, forced on the same conv, computes the same
+    wide = W._winograd_cuda(x, u, d, path="wide")
+    assert W.f32_path_counts["wide"] == paths["wide"] + 1 + (path == "wide")
+    assert (wide - want).abs().max().item() \
+        <= tol_max * want.abs().max().item()
+
+
+@pytest.mark.parametrize("shape,cout", [((30, 48, 32, 512), 4),
+                                        ((8, 12, 8, 512), 16),
+                                        ((30, 96, 64, 192), 1),
+                                        ((4, 48, 32, 2), 512)])
+def test_f32_thin_paths_are_the_same_from_run_to_run(cuda, shape, cout):
+    """thin_out sums the cluster's partial Ms in rank order, so two runs
+    (with other work on the card between them) are bitwise equal."""
+    x, k = _inputs(shape, cout, torch.float32, seed=5)
+    u = W.transform_weights(k)
+    first = W._winograd_cuda(x, u)
+    W._winograd_cuda(x.flip(0).contiguous(), u)
+    second = W._winograd_cuda(x, u)
+    assert torch.equal(first, second)
+
+
+def test_f32_thin_path_refuses_and_does_not_fall_back(cuda):
+    # a path forced on a conv it does not take raises before any launch
+    x, k = _inputs((2, 8, 8, 64), 32, torch.float32)
+    u = W.transform_weights(k)
+    before, paths = dict(W.launch_counts), dict(W.f32_path_counts)
+    for path in ("thin_in", "thin_out", "narrow"):
+        with pytest.raises(ValueError, match="path"):
+            W._winograd_cuda(x, u, path=path)
+    with pytest.raises(ValueError, match="f32 kernel"):
+        W._winograd_cuda(x.bfloat16(), u.bfloat16(), path="wide")
+    assert W.launch_counts == before and W.f32_path_counts == paths
+    # the C entry refuses it too (C_in 64 on thin_in, C_out 32 on
+    # thin_out, a box of the wrong size, a cluster past C_in's chunks):
+    # an error code, and y is left as it was
+    from audiosourcesep_tpu_torch.kernels.build import load_library
+    stream = torch.cuda.current_stream().cuda_stream
+    # (and C_in 8 on thin_in, and a thin_in block of more than 512 threads)
+    for cin, cout, path, geometry in ((64, 4, 0, (1, 4, 8, 1, 4)),
+                                      (64, 32, 1, (1, 8, 8, 1, 4)),
+                                      (64, 4, 1, (1, 4, 8, 1, 4)),
+                                      (64, 4, 1, (1, 8, 8, 16, 4)),
+                                      (8, 64, 0, (1, 4, 8, 1, 4)),
+                                      (4, 64, 0, (1, 4, 8, 5, 4))):
+        x, k = _inputs((2, 8, 8, cin), cout, torch.float32)
+        u = W.transform_weights(k)
+        y = torch.full((2, 8, 8, cout), 7.0, device=cuda)
+        err = load_library().winograd_f23_fwd_f32_thin(
+            x.data_ptr(), u.data_ptr(), y.data_ptr(), 2, 8, 8, cin, cout, 1,
+            path, *geometry, stream)
+        torch.cuda.synchronize()
+        assert err != 0 and bool((y == 7.0).all()), (cin, cout, path)
+
+
 def test_bf16_kernel_takes_bf16_weights_only(cuda):
     x, k = _inputs((1, 4, 4, 8), 8, torch.bfloat16)
     with pytest.raises(TypeError):

@@ -610,3 +610,341 @@ def test_bf16_block_fills_the_cascade_grids(h, w, d, shape, idle):
     rows = 64 // (tc * p)
     slots = -(-th // rows) * rows * -(-tw // tc) * tc
     assert 1 - th * tw / slots == pytest.approx(idle)
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernel's thin paths (csrc/winograd_thin.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+# A block owns a box of phase-grid images x tile rows x tile columns.
+# thin_out: 2 G groups of 64 / G threads; thread (half hf, group, tile) owns
+# rows 2 hf, 2 hf + 1 of V and CB output channels. A stage holds the x slab,
+# [nimg][2 trb + 2 rows][2 tcb + 2 slots][PIXW floats], a row's even columns
+# in its first tcb + 1 slots and its odd ones after, then U [KC][16][CO].
+# thin_in: Wc channel warps x Wt tile warps, a lane an output channel with
+# its U in registers; the slab [C_in][pixels] and V [tiles][C_in][16] in
+# shared memory; tile warp w walks tiles w, w + Wt, ...
+
+def _thin_box_grid(x_shape, d, box):
+    b, h, w, _ = x_shape
+    nimg, trb, tcb = box
+    ni, th, tw = b * d * d, h // (2 * d), w // (2 * d)
+    return [(ib * nimg, tr0 * trb, tc0 * tcb)
+            for ib in range(-(-ni // nimg))
+            for tr0 in range(-(-th // trb))
+            for tc0 in range(-(-tw // tcb))], (ni, th, tw)
+
+
+def _thin_tiles(box):
+    """Box-local (image, tile row, tile column) of each tile t (column
+    fastest)."""
+    nimg, trb, tcb = box
+    t = np.arange(nimg * trb * tcb)
+    return t // (tcb * trb), (t // tcb) % trb, t % tcb
+
+
+def _thin_slab_pixels(x, d, box, origin):
+    """x at each slab pixel of a box, [nimg][2 trb + 2][2 tcb + 2][C_in],
+    zero outside the phase grid (the halo and the ragged edge)."""
+    bsz, h, w, cin = x.shape
+    nimg, trb, tcb = box
+    ii0, tr0, tc0 = origin
+    out = np.zeros((nimg, 2 * trb + 2, 2 * tcb + 2, cin), np.float32)
+    for im in range(nimg):
+        if ii0 + im >= bsz * d * d:
+            continue
+        b, ph = divmod(ii0 + im, d * d)
+        pr, pc = divmod(ph, d)
+        for r in range(2 * trb + 2):
+            gr = 2 * tr0 - 1 + r
+            for c in range(2 * tcb + 2):
+                gc = 2 * tc0 - 1 + c
+                if 0 <= gr < h // d and 0 <= gc < w // d:
+                    out[im, r, c] = x[b, d * gr + pr, d * gc + pc]
+    return out
+
+
+def _thin_store(m, box, origin, grid, d, y, oc, written):
+    """Y = A^T M A of each tile t in ``m`` ({t: M [16]}) into y[..., oc],
+    skipping tiles outside the grid."""
+    at = twino._AT.astype(np.float32)
+    ni, th, tw = grid
+    im, tr, tc = _thin_tiles(box)
+    for t, mt in m.items():
+        ii, otr, otc = origin[0] + im[t], origin[1] + tr[t], origin[2] + tc[t]
+        if ii >= ni or otr >= th or otc >= tw:
+            continue
+        b, ph = divmod(ii, d * d)
+        pr, pc = divmod(ph, d)
+        yt = at @ mt.reshape(4, 4) @ at.T
+        for i in range(2):
+            for jj in range(2):
+                pix = (b, d * (2 * otr + i) + pr, d * (2 * otc + jj) + pc, oc)
+                y[pix] = yt[i, jj]
+                written[pix] += 1
+
+
+def _thin_out_model(x, u, d, y, written):
+    bsz, h, w, cin = x.shape
+    cout = u.shape[2]
+    cb, g, co, kc, pixw = twino._thin_out_channels(cin, cout)
+    *box, n, warps = twino._thin_geometry(x.shape, cout, d, "thin_out")
+    box = tuple(box)
+    assert warps == twino.THIN_NT // 32
+    nimg, trb, tcb = box
+    tpb, sr, sc, hh = nimg * trb * tcb, 2 * trb + 2, 2 * tcb + 2, tcb + 1
+    assert tpb == twino.THIN_NT // (2 * g)
+    nch = cin // kc
+    im, tr, tc = _thin_tiles(box)
+    bt = twino._BT.astype(np.float32)
+    origins, grid = _thin_box_grid(x.shape, d, box)
+    for origin in origins:
+        pixels = _thin_slab_pixels(x, d, box, origin)
+        # the slab as the copies land it: slot (row, parity half + column
+        # / 2), PIXW floats a slot
+        slab = np.zeros((nimg, sr, sc, pixw), np.float32)
+        cols = np.arange(sc)
+        ms = []
+        for r in range(n):                    # cluster rank r
+            acc = np.zeros((2, g, tpb, 8, cb), np.float32)
+            for j in range(r * nch // n, (r + 1) * nch // n):
+                slab[:, :, (cols & 1) * hh + (cols >> 1), :kc] = \
+                    pixels[..., j * kc:(j + 1) * kc]
+                flat = slab.reshape(-1)
+                us = np.zeros((kc, 16, co), np.float32)
+                us[:, :, :cout] = u[:, j * kc:(j + 1) * kc].transpose(1, 0, 2)
+                for hf in range(2):
+                    prow = (im * sr + 2 * tr + hf) * sc + tc
+                    for hq in range(kc // 4):
+                        jj = np.arange(4)
+                        slot = (prow[:, None, None] + np.arange(3)[None, :, None]
+                                * sc + ((jj & 1) * hh + (jj >> 1))[None, None])
+                        # dd[t, 3 patch rows hf.., 4 columns, 4 channels]
+                        dd = flat[(slot * pixw + 4 * hq)[..., None]
+                                  + np.arange(4)]
+                        rows = (np.stack([dd[:, 1] - dd[:, 0], dd[:, 0] - dd[:, 2]],
+                                         1) if hf else
+                                np.stack([dd[:, 0] - dd[:, 2], dd[:, 1] + dd[:, 2]],
+                                         1))
+                        v = np.einsum("tajk,vj->tavk", rows, bt).reshape(-1, 8, 4)
+                        for k in range(4):
+                            for grp in range(g):
+                                acc[hf, grp] += v[:, :, k, None] * us[
+                                    4 * hq + k, 8 * hf:8 * hf + 8, None,
+                                    grp * cb:(grp + 1) * cb][:, 0]
+            # M [tile][channel][16] in the rank's shared memory
+            m = np.zeros((tpb, co, 16), np.float32)
+            for hf in range(2):
+                for grp in range(g):
+                    m[:, grp * cb:(grp + 1) * cb, 8 * hf:8 * hf + 8] = \
+                        acc[hf, grp].transpose(0, 2, 1)
+            ms.append(m)
+        for r in range(n):          # rank r's slice, summed in rank order
+            for oc in range(cout):
+                m = {}
+                for t in range(r * tpb // n, (r + 1) * tpb // n):
+                    total = np.zeros(16, np.float32)
+                    for rk in range(n):
+                        total = total + ms[rk][t, oc]
+                    m[t] = total
+                _thin_store(m, box, origin, grid, d, y, oc, written)
+
+
+def _thin_in_model(x, u, d, y, written):
+    bsz, h, w, cin = x.shape
+    cout = u.shape[2]
+    *box, twarps, cwarps = twino._thin_geometry(x.shape, cout, d, "thin_in")
+    box = tuple(box)
+    assert cwarps == twino._thin_in_channel_warps(cout)
+    im, tr, tc = _thin_tiles(box)
+    bt = twino._BT.astype(np.float32)
+    origins, grid = _thin_box_grid(x.shape, d, box)
+    for origin in origins:
+        slab = _thin_slab_pixels(x, d, box, origin)
+        # V of every (tile, input channel) once: [tiles][C_in][16]
+        dd = np.stack([np.stack([slab[im, 2 * tr + i, 2 * tc + jj]
+                                 for jj in range(4)], 1) for i in range(4)], 1)
+        v = np.einsum("ui,tijc,vj->tcuv", bt, dd, bt).reshape(-1, cin, 16)
+        for cob in range(-(-cout // (32 * cwarps))):
+            for lane in range(32 * cwarps):      # a lane an output channel
+                oc = 32 * cwarps * cob + lane
+                if oc >= cout:
+                    continue
+                ur = u[:, :, oc].T               # [C_in][16], its registers
+                for wp in range(twarps):         # tile warp wp's tiles
+                    tiles = np.arange(wp, len(im), twarps)
+                    m = np.zeros((len(tiles), 16), np.float32)
+                    for c in range(cin):
+                        m = m + v[tiles, c] * ur[c]
+                    _thin_store(dict(zip(tiles, m)), box, origin, grid, d, y,
+                                oc, written)
+
+
+def _thin_kernel_model(x, u, d, path):
+    """The thin kernel, block by block, as numpy; returns y and how often
+    each output was written."""
+    y = np.zeros((*x.shape[:3], u.shape[2]), np.float32)
+    written = np.zeros(y.shape, np.int64)
+    (_thin_out_model if path == "thin_out" else _thin_in_model)(
+        x, u, d, y, written)
+    return y, written
+
+
+@pytest.mark.parametrize("shape,cout,d,path", [
+    ((2, 8, 8, 64), 4, 1, "thin_out"),       # a cluster of 2 ranks
+    ((1, 8, 8, 256), 8, 1, "thin_out"),      # 8 ranks, 2 groups
+    ((2, 8, 8, 64), 16, 1, "thin_out"),      # 4 groups of 32 tiles
+    ((2, 16, 8, 64), 1, 1, "thin_out"),      # one channel a thread
+    ((1, 12, 8, 36), 5, 1, "thin_out"),      # chunks of 4, C_out padded
+    ((2, 16, 16, 32), 8, 2, "thin_out"),     # phase grids in place
+    ((2, 8, 8, 2), 16, 1, "thin_in"),
+    ((2, 12, 8, 3), 32, 1, "thin_in"),
+    ((2, 8, 8, 1), 8, 1, "thin_in"),
+    ((1, 8, 8, 4), 40, 1, "thin_in"),        # C_out past a block
+    ((2, 16, 8, 3), 16, 2, "thin_in")])
+def test_thin_kernel_model_matches_pallas_interpret(shape, cout, d, path):
+    """Each thin path's decomposition (the box the wrapper picks, the
+    slab with its zero halo; thin_out's parity-split slots, two rows of V a
+    thread for 4 channels from 3 patch rows, U's layout, the split of C_in
+    over the cluster, the partial M in each rank's shared memory and the
+    slice reduction in rank order; thin_in's one stage, V of each tile and
+    channel once, a lane's U and its register epilogue; the epilogue's
+    addressing, each output written once) against the JAX Pallas kernel in
+    interpret mode, to 1e-5 of max|y| (f32, summation order only), and
+    against the port's plain version within the card's f32 tolerance
+    (1e-4)."""
+    x, k = _inputs(70 + d + shape[-1], shape, cout, (1.0 / (9 * shape[-1]))
+                   ** 0.5)
+    assert twino.f32_path(shape, cout, d) == path
+    u = twino.transform_weights(torch.from_numpy(k)).numpy()
+    got, written = _thin_kernel_model(x, u, d, path)
+    assert (written == 1).all()
+    if d == 1:
+        pallas = jwino.winograd_conv2d(jnp.asarray(x), jnp.asarray(k), True)
+        plain = twino.winograd_conv2d_reference(torch.from_numpy(x),
+                                                torch.from_numpy(k))
+    else:
+        pallas = jwino.dilated_winograd_conv2d(jnp.asarray(x), jnp.asarray(k),
+                                               d, interpret=True)
+        plain = twino.dilated_winograd_conv2d_reference(
+            torch.from_numpy(x), torch.from_numpy(k), d)
+    pallas, plain = np.asarray(pallas), plain.numpy()
+    assert np.abs(got - pallas).max() <= 1e-5 * np.abs(pallas).max()
+    assert np.abs(got - plain).max() <= 1e-4 * np.abs(plain).max()
+
+
+def _ncsn_conv_classes():
+    """(C_in, C_out, dilation) of each 3x3 conv of the v1 NCSN forward (192
+    filters): 74 of its 75 convs, the other one 1x1."""
+    from audiosourcesep_tpu_torch import nn as tnn
+    from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+    m = get_score_model("v1", (96, 64, 1), 192, 10)
+    convs = [c for c in m.modules() if isinstance(c, tnn.Conv2d)]
+    assert len(convs) == 75
+    return [(c.kernel.shape[1], c.kernel.shape[0], c.dilation)
+            for c in convs if c.kernel.shape[2:] == (3, 3)]
+
+
+def test_f32_path_picks_its_path_for_every_class():
+    """The thin paths take five of Glow's six coupling classes (2/4 -> 512
+    in, 512 -> 4/8/16 out), the NCSN's begin_conv and end_conv (both
+    forwards: 1 -> 192, 192 -> 1) and Flow++'s 3 -> 96; every other class,
+    dilated ones included, stays on the wide kernel, Glow's 8 -> 512 and
+    Flow++'s 6/12 -> 32/96 too (the wide kernel was the faster there)."""
+    import chip_smoke
+    thin_in = {(2, 512), (4, 512), (1, 192), (3, 96)}
+    thin_out = {(512, 4), (512, 8), (512, 16), (192, 1)}
+    ncsn = [(30, 96, 64, cin, cout, d) for cin, cout, d in
+            _ncsn_conv_classes()]
+    assert len(ncsn) == 74
+    got = {}
+    for classes, batch in ((chip_smoke.GLOW_CLASSES, chip_smoke.BATCH),
+                           (chip_smoke.IMAGE_CLASSES, chip_smoke.IMG_BATCH),
+                           (chip_smoke.FLOWPP_CLASSES,
+                            chip_smoke.FLOWPP_BATCH)):
+        for h, w, cin, cout in classes:
+            got[(batch, h, w, cin, cout, 1)] = twino.f32_path(
+                (batch, h, w, cin), cout)
+    for key in ncsn:
+        got[key] = twino.f32_path(key[:4], key[4], key[5])
+    for (_, _, _, cin, cout, _), path in got.items():
+        want = ("thin_in" if (cin, cout) in thin_in else "thin_out"
+                if (cin, cout) in thin_out else "wide")
+        assert path == want, (cin, cout)
+    paths = [twino.f32_path(key[:4], key[4], key[5]) for key in ncsn]
+    assert (paths.count("thin_in"), paths.count("thin_out")) == (1, 1)
+    # C_in past 4 and not a multiple of 4, or C_out past 16: wide
+    assert twino.f32_path((2, 8, 8, 5), 4) == "wide"
+    assert twino.f32_path((2, 8, 8, 8), 512) == "wide"
+    assert twino.f32_path((2, 8, 8, 16), 17) == "wide"
+
+
+@pytest.mark.parametrize("shape,cout,geometry,idle", [
+    ((30, 48, 32, 2), 512, (1, 4, 8, 1, 4), 0),
+    ((30, 48, 32, 512), 4, (1, 8, 8, 2, 4), 0),
+    ((30, 24, 16, 4), 512, (1, 4, 8, 1, 4), 0),
+    ((30, 24, 16, 512), 8, (1, 4, 8, 4, 4), 0),
+    ((30, 12, 8, 512), 16, (2, 2, 4, 8, 4), 0),
+    ((30, 96, 64, 1), 192, (1, 4, 8, 1, 3), 0),
+    ((30, 96, 64, 192), 1, (1, 8, 8, 2, 4), 0),
+    ((50, 32, 32, 192), 1, (1, 8, 8, 2, 4), 0),
+    ((64, 32, 16, 3), 96, (1, 4, 8, 2, 3), 0)])
+def test_thin_geometry_fills_the_classes(shape, cout, geometry, idle):
+    """The box the wrapper picks leaves no tile slot idle at the Glow,
+    NCSN and Flow++ thin classes; thin_out's cluster gives every Glow class
+    more blocks than the 132 SMs (the 12x8 grid, 720 tiles: 45 boxes x 8)
+    and its boxes fit three blocks' shared memory on an SM and their x
+    pieces in a thread's 8; thin_in's blocks are 4 channel warps (512
+    channels) or 3 (192, 96), and 2 tile warps where C_out has at most 3
+    groups of 32 channels."""
+    path = twino.f32_path(shape, cout)
+    got = twino._thin_geometry(shape, cout, 1, path)
+    assert got == geometry
+    nimg, trb, tcb, split, cwarps = got
+    b, h, w, cin = shape
+    tiles = nimg * trb * tcb
+    slots = (-(-b // nimg) * nimg * -(-(h // 2) // trb) * trb
+             * -(-(w // 2) // tcb) * tcb)
+    assert slots - b * (h // 2) * (w // 2) == idle
+    px = nimg * (2 * trb + 2) * (2 * tcb + 2)
+    if path == "thin_in":
+        assert cwarps == twino._thin_in_channel_warps(cout)
+        assert tiles == twino.THIN_IN_TILES
+        return
+    cb, g, co, kc, pixw = twino._thin_out_channels(cin, cout)
+    assert tiles * 2 * g == twino.THIN_NT
+    assert cwarps == twino.THIN_NT // 32
+    if cin == 512:
+        assert slots // tiles * split > twino.SM_COUNT
+    assert -(-px * kc // 4 // twino.THIN_NT) <= twino.THIN_MAXPIECE
+    words = max(twino.THIN_STAGES * (px * pixw + kc * 16 * co),
+                tiles * (16 * co + 4))
+    assert 3 * 4 * words <= 228 * 1024
+
+
+def test_thin_slab_reads_are_free_of_bank_conflicts():
+    """A quarter warp (8 lanes, consecutive tiles) reads one 16-byte slot
+    part each of 8 different 16-byte bank groups, for every box shape the
+    wrapper picks above and every patch pixel: the slot pitch PIXW is an
+    odd number of 16-byte units and a row's even and odd columns are
+    apart."""
+    for tcb, trb, pixw in ((4, 2, 12), (8, 4, 12), (16, 8, 12), (8, 4, 4),
+                           (4, 8, 4), (32, 4, 12)):
+        sc, hh = 2 * tcb + 2, tcb + 1
+        t = np.arange(32)
+        tr, tc = (t // tcb) % trb, t % tcb
+        for i in range(4):
+            for jj in range(4):
+                slot = ((2 * tr + i) * sc + (jj & 1) * hh + tc + (jj >> 1))
+                unit = slot * pixw // 4 % 8
+                for q in range(4):
+                    assert len(set(unit[8 * q:8 * q + 8])) == 8, (tcb, trb)
+
+
+def test_thin_paths_refuse_what_they_do_not_take():
+    assert twino._thin_eligible((2, 8, 8, 4), 512, "thin_in")
+    assert not twino._thin_eligible((2, 8, 8, 5), 4, "thin_in")
+    assert twino._thin_eligible((2, 8, 8, 512), 16, "thin_out")
+    assert not twino._thin_eligible((2, 8, 8, 512), 17, "thin_out")
+    assert not twino._thin_eligible((2, 8, 8, 510), 4, "thin_out")
+    assert not twino._thin_eligible((2 ** 20, 64, 64, 4), 4, "thin_in")
+    assert twino.f32_path((2 ** 20, 64, 64, 4), 4) == "wide"
