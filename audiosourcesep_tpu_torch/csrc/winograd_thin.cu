@@ -45,8 +45,9 @@
 //   adds them in rank order 0, 1, ..., n - 1 (each rank's partial summed
 //   over its chunks in order), forms Y = A^T M A and writes y. The order
 //   is fixed, so a result is the same from run to run; nothing goes
-//   through HBM atomics. x that is not 16-byte aligned takes plain loads,
-//   C_out that is not a multiple of 4 4-byte copies of U.
+//   through HBM atomics. x must be 16-byte aligned (the wrapper copies x
+//   that is not); C_out that is not a multiple of 4 takes 4-byte copies
+//   of U.
 // - thin_in (C_in <= 4): weights stationary. A lane owns one output
 //   channel and keeps its U [C_in][16] in registers; a warp's 32 lanes are
 //   32 consecutive channels, so every store of y is 128 contiguous bytes.
@@ -67,7 +68,9 @@
 // thin_in: up to 64); split: thin_out's cluster (the blocks C_in is split
 // over), thin_in's tile warps Wt; cwarps: thin_in's channel warps Wc
 // (thin_out: 4). It launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() (or an error code for a call it does not take).
+// cudaGetLastError() (or an error code for a call it does not take). The
+// first launch of each kernel on a device raises the kernel's dynamic
+// shared memory limit to SMEM_MAX; later launches skip that call.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -82,9 +85,11 @@ constexpr int MINB = 3;         // thin_out blocks an SM (register budget)
 constexpr int MAXPIECE = 8;     // 16-byte x pieces a thread copies a chunk
 constexpr int MAXSTAGE = 3;     // thin_out ring stages
 constexpr int MAXC = 4;         // thin_in's C_in: a lane's U registers
+constexpr int MAXCOUT = 16;     // thin_out's C_out
 constexpr int IN_THREADS = 512; // thin_in threads a block, at most
 constexpr int MAXCLUSTER = 8;   // portable cluster size
 constexpr int SMEM_MAX = 227 * 1024;
+constexpr int MAXDEV = 64;      // devices whose kernel limits are raised
 
 // the phase grids and the box of a block, for both paths
 struct Grid {
@@ -103,7 +108,7 @@ struct OutGeo {
   int co;                       // channels a block (padded to 4)
   int nch, stages;              // chunks of C_in; ring stages
   int slab_words, stage_words, npieces;
-  int xv, cv;                   // 16-byte x pieces; 16-byte U pieces
+  int cv;                       // 16-byte U pieces
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -126,10 +131,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-__device__ __forceinline__ float4 load4(const float* src, int n) {
-  return make_float4(n > 0 ? src[0] : 0.f, n > 1 ? src[1] : 0.f,
-                     n > 2 ? src[2] : 0.f, n > 3 ? src[3] : 0.f);
 }
 __device__ __forceinline__ float4 f4add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -245,16 +246,8 @@ __global__ void __launch_bounds__(NT, MINB)
     for (int k = 0; k < MAXPIECE; ++k) {
       if (xdst[k] < 0) continue;
       const bool ok = xsrc[k] >= 0;
-      const float* src = x + (ok ? (long long)xsrc[k] + j * o.kc : 0);
-      const uint32_t dst = smem_u32(st + xdst[k]);
-      if (o.xv) {
-        cp_async16(dst, src, ok);
-      } else {
-        const float4 v = load4(src, ok ? 4 : 0);
-        asm volatile("st.shared.v4.f32 [%0], {%1,%2,%3,%4};\n"
-                     :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-                     : "memory");
-      }
+      cp_async16(smem_u32(st + xdst[k]),
+                 x + (ok ? (long long)xsrc[k] + j * o.kc : 0), ok);
     }
   };
   // chunk j's U [kc][16][co] -> stage s: zeros past C_out
@@ -532,15 +525,23 @@ bool aligned16(const void* p) {
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// cudaLaunchKernelEx with a cluster of `cluster` blocks along x, the
-// kernel's dynamic shared memory raised to `smem` first
-template <typename Kernel, typename Geo>
-int launch(Kernel kernel, const void* x, const void* u, void* y,
-           const Geo& geo, int blocks, int threads, int cluster, int smem,
-           cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// cudaLaunchKernelEx of `kernel` with a cluster of `cluster` blocks along
+// x (0: not a cluster launch); the kernel's dynamic shared memory limit is
+// raised to SMEM_MAX on its first launch on the current device (a race
+// only sets it twice)
+template <auto kernel, typename Geo>
+int launch(const void* x, const void* u, void* y, const Geo& geo,
+           int blocks, int threads, int cluster, int smem, cudaStream_t s) {
+  static bool raised[MAXDEV];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= MAXDEV || !raised[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAXDEV) raised[dev] = true;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3((unsigned)threads);
@@ -552,7 +553,7 @@ int launch(Kernel kernel, const void* x, const void* u, void* y,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cluster > 0 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x),
                            static_cast<const float*>(u),
                            static_cast<float*>(y), geo);
@@ -576,8 +577,8 @@ extern "C" int winograd_f23_fwd_f32_thin(const void* x, const void* u,
   // the x and y pixel indices are 32-bit, and x's offsets
   if ((long long)B * H * W * Cin >= (1LL << 31)) return bad;
   const bool out = path == 1;
-  if (out ? (Cout > 16 || Cin % 4 || split < 1 || split > MAXCLUSTER ||
-             cwarps != NT / 32)
+  if (out ? (Cout > MAXCOUT || Cin % 4 || split < 1 ||
+             split > MAXCLUSTER || cwarps != NT / 32 || !aligned16(x))
           : (Cin > MAXC || split < 1 || cwarps < 1 || cwarps > 4 ||
              32 * split * cwarps > IN_THREADS))
     return bad;
@@ -603,8 +604,8 @@ extern "C" int winograd_f23_fwd_f32_thin(const void* x, const void* u,
         ((Cin * slab_px + 3) & ~3) + (long long)g.tpb * Cin * 16 + g.tpb;
     if (4 * words > SMEM_MAX || boxes * g.n_inner > 0x7fffffffLL) return bad;
     const int blocks = (int)(boxes * g.n_inner), smem = (int)(4 * words);
-    return launch(winograd_f23_f32_thin_in_kernel, x, u, y, g, blocks,
-                  threads, 1, smem, s);
+    return launch<winograd_f23_f32_thin_in_kernel>(x, u, y, g, blocks,
+                                                   threads, 0, smem, s);
   }
 
   OutGeo o;
@@ -629,13 +630,12 @@ extern "C" int winograd_f23_fwd_f32_thin(const void* x, const void* u,
   if ((long long)g.tpb * (16 * o.co + 4) > words)
     words = (long long)g.tpb * (16 * o.co + 4);
   if (4 * words > SMEM_MAX || boxes * split > 0x7fffffffLL) return bad;
-  o.xv = aligned16(x);
   o.cv = Cout % 4 == 0 && aligned16(u);
   o.g = g;
   const int blocks = (int)(boxes * split), smem = (int)(4 * words);
   if (cb == 1)
-    return launch(winograd_f23_f32_thin_out_kernel<1>, x, u, y, o, blocks,
-                  NT, split, smem, s);
-  return launch(winograd_f23_f32_thin_out_kernel<4>, x, u, y, o, blocks, NT,
-                split, smem, s);
+    return launch<winograd_f23_f32_thin_out_kernel<1>>(x, u, y, o, blocks,
+                                                       NT, split, smem, s);
+  return launch<winograd_f23_f32_thin_out_kernel<4>>(x, u, y, o, blocks, NT,
+                                                     split, smem, s);
 }

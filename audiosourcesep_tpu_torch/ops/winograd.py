@@ -77,20 +77,24 @@ bf16_path_counts = {"tma": 0, "plain": 0}
 # the f32 kernel's launches by its path (see f32_path)
 f32_path_counts = {"wide": 0, "thin_in": 0, "thin_out": 0}
 # the f32 kernel's thin paths (csrc/winograd_thin.cu): C_in up to this takes
-# thin_in, else C_out up to this (C_in a multiple of 4) thin_out
+# thin_in (on grids of more tiles than THIN_IN_MIN_TILES), else C_out up to
+# this (C_in a multiple of 4) thin_out
 THIN_IN_MAX_CIN = 4
 THIN_OUT_MAX_COUT = 16
-# as csrc/winograd_thin.cu has them: thin_out's block (threads), the
-# 16-byte x pieces a thread copies a chunk and its ring stages, and the
-# shared memory a block may take so that three fit on an SM; thin_in's
-# tiles a block
+THIN_IN_MIN_TILES = 512
+# the limits of csrc/winograd_thin.cu, its NT, MAXPIECE and MAXSTAGE
+# (tests/test_torch_winograd.py reads them from the source): thin_out's
+# block (threads), the 16-byte x pieces a thread copies a chunk and its
+# ring stages
 THIN_NT, THIN_MAXPIECE, THIN_STAGES = 128, 8, 3
+# the shared memory a thin_out block may take so that three fit on an SM;
+# thin_in's tiles a block (the most), and the warps an SM should have of a
+# launch before a smaller box is taken
 THIN_OUT_SMEM_MAX = 75 * 1024
 THIN_IN_TILES = 32
-# thin_out's cluster by a cost model fitted to the card's times, from the
-# H100's SMs and the thin_out blocks each holds at once (ptxas' registers:
-# 145 a thread with CB = 4, 116 with CB = 1): a launch takes whole waves
-SM_COUNT = 132
+THIN_IN_WARPS_PER_SM = 8
+# thin_out's blocks an SM holds at once (ptxas' registers: 145 a thread
+# with CB = 4, 116 with CB = 1), for its cluster's cost model
 THIN_OUT_BLOCKS_PER_SM = {4: 3, 1: 4}
 # above this dilation the bf16 kernel's x tensor map cannot stride W by 2d
 # (TMA's element strides stop at 8) and addresses 2d-pixel groups instead,
@@ -212,18 +216,24 @@ def _bf16_u(u: torch.Tensor) -> torch.Tensor:
 
 def f32_path(x_shape, c_out: int, dilation: int = 1) -> str:
     """Which design of the f32 kernel computes this conv (NHWC ``x_shape``,
-    ``c_out`` output channels): ``"thin_in"`` for C_in <= 4 (a lane an
-    output channel with its U in registers, one stage of all C_in),
-    ``"thin_out"`` for C_out <= 16 with C_in a multiple of 4 (C_in split
-    over a thread-block cluster, reduced through distributed shared
-    memory), else ``"wide"`` (32 tiles x 64 C_out a block,
-    ``csrc/winograd.cu``). The limits are the card's: thin_in won at C_in
-    1 to 4 and lost at 6, 8 and 12, where the wide kernel's chunk of 8 is
-    full (``PERF.md``). All three work on the d*d phase grids in place, so
-    the path does not depend on ``dilation``. x of 2^31 elements or more
-    stays wide (the thin kernel's x offsets are 32-bit)."""
+    ``c_out`` output channels): ``"thin_in"`` for C_in <= 4 on a grid of
+    more than THIN_IN_MIN_TILES 2x2 tiles (a lane an output channel with
+    its U in registers, one stage of all C_in), ``"thin_out"`` for C_out
+    <= 16 with C_in a multiple of 4 (C_in split over a thread-block
+    cluster, reduced through distributed shared memory), else ``"wide"``
+    (32 tiles x 64 C_out a block, ``csrc/winograd.cu``). The limits are
+    the card's: thin_in won at C_in 1 to 4 and lost at 6, 8 and 12, where
+    the wide kernel's chunk of 8 is full, and at C_in 4 it lost on the
+    image Glow's 8x8 grids (128 tiles), where a launch's latency bounds
+    both designs (``PERF.md``). All three work on the d*d phase grids in
+    place, so the path does not depend on ``dilation`` (a grid has B H W
+    / 4 tiles at any d). x of 2^31 elements or more stays wide (the thin
+    kernel's x offsets are 32-bit)."""
+    b, h, w, _ = x_shape
     return next((p for p in ("thin_in", "thin_out")
-                 if _thin_eligible(x_shape, c_out, p)), "wide")
+                 if _thin_eligible(x_shape, c_out, p) and (
+                     p == "thin_out" or b * h * w // 4 > THIN_IN_MIN_TILES)),
+                "wide")
 
 
 def _thin_eligible(x_shape, c_out: int, path: str) -> bool:
@@ -260,9 +270,12 @@ def _thin_box(ni: int, th: int, tw: int, tiles: int, fits):
     ``ni`` phase-grid images of ``th`` x ``tw`` tiles with the fewest idle
     tile slots, then the smallest slab, then the widest; only boxes for
     which ``fits(nimg, trb, tcb, slab_pixels)`` holds. Returns ``(slots,
-    (nimg, trb, tcb))``."""
+    (nimg, trb, tcb))``. Boxes 1 or 2 tiles wide fill grids of that width
+    (the image Glow's 4x4 convs: 2 x 2 tiles), at the cost of 2-way bank
+    conflicts on thin_out's slab reads, whose image and tile-row pitches
+    then meet in the same banks."""
     best = None
-    for tcb in (4, 8, 16, 32):
+    for tcb in (1, 2, 4, 8, 16, 32):
         for trb in (1, 2, 4, 8, 16):
             if tiles % (tcb * trb):
                 continue
@@ -279,24 +292,33 @@ def _thin_box(ni: int, th: int, tw: int, tiles: int, fits):
 
 
 @functools.lru_cache(maxsize=256)
-def _thin_geometry(x_shape, c_out: int, dilation: int, path: str):
-    """``(nimg, trb, tcb, split, cwarps)`` of the thin kernel's launch: the
-    box of phase-grid images x tile rows x tile columns a block owns;
-    thin_out's cluster (the blocks C_in is split over) and its 4 warps, or
-    thin_in's tile warps Wt and channel warps Wc. Both were set from the
-    card's times at the thin classes (``chip_smoke.py`` phases 3, 8a, 9a).
-    thin_out's box has 64 / G tiles; its cluster (1, 2, 4 or 8, at most
-    C_in's chunks) takes the fewest whole waves of blocks x (chunks a block
-    + 1, the reduction's cost). thin_in's box has 32 tiles, walked by one
-    tile warp, or by two where C_out has at most 3 groups of 32 channels
-    (Flow++'s 3 -> 96 took 0.0117 ms so, 0.0147 with one)."""
+def _thin_geometry(x_shape, c_out: int, dilation: int, path: str,
+                   sms: int):
+    """``(nimg, trb, tcb, split, cwarps)`` of the thin kernel's launch on a
+    card of ``sms`` SMs: the box of phase-grid images x tile rows x tile
+    columns a block owns; thin_out's cluster (the blocks C_in is split
+    over) and its 4 warps, or thin_in's tile warps Wt and channel warps Wc.
+    Both were set from the card's times at the thin classes
+    (``chip_smoke.py`` phases 3, 8a, 9a). thin_out's box has 64 / G tiles;
+    its cluster (1, 2, 4 or 8, at most C_in's chunks) takes the fewest
+    whole waves of blocks x (chunks a block + 1, the reduction's cost).
+    thin_in's box has 32 tiles, or 16 or 8 where an SM would otherwise
+    have fewer than THIN_IN_WARPS_PER_SM warps of the launch (Glow's 24x16
+    4->512 in a separation's chunk of 8 frames, 768 tiles, takes 8), walked
+    by one tile warp, or by two where C_out has at most 3 groups of 32
+    channels (Flow++'s 3 -> 96 took 0.0117 ms so, 0.0147 with one)."""
     b, h, w, cin = x_shape
     d = dilation
     ni, th, tw = b * d * d, h // (2 * d), w // (2 * d)
     if path == "thin_in":
         cw = _thin_in_channel_warps(c_out)
-        _, box = _thin_box(ni, th, tw, THIN_IN_TILES, lambda *a: True)
-        return (*box, 1 if -(-c_out // 32) > 3 else 2, cw)
+        wt = 1 if -(-c_out // 32) > 3 else 2
+        for tiles in (THIN_IN_TILES, THIN_IN_TILES // 2, THIN_IN_TILES // 4):
+            slots, box = _thin_box(ni, th, tw, tiles, lambda *a: True)
+            warps = slots // tiles * -(-c_out // (32 * cw)) * cw * wt
+            if warps >= THIN_IN_WARPS_PER_SM * sms:
+                break
+        return (*box, wt, cw)
     cb, g, co, kc, pixw = _thin_out_channels(cin, c_out)
     tiles = THIN_NT // (2 * g)
     nch = cin // kc
@@ -308,11 +330,16 @@ def _thin_geometry(x_shape, c_out: int, dilation: int, path: str):
                 and 4 * words <= THIN_OUT_SMEM_MAX)
 
     slots, box = _thin_box(ni, th, tw, tiles, fits)
-    wave = THIN_OUT_BLOCKS_PER_SM[cb] * SM_COUNT
+    wave = THIN_OUT_BLOCKS_PER_SM[cb] * sms
     cluster = min((n for n in (1, 2, 4, 8) if n <= nch),
                   key=lambda n: (-(-slots // tiles * n // wave)
                                  * (-(-nch // n) + 1), n))
     return (*box, cluster, THIN_NT // 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
@@ -366,7 +393,10 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
                 x.shape, cout, path):
             entry = "winograd_f23_fwd_f32_thin"
             sizes = (cin, cout, d, int(path == "thin_out"))
-            geometry = _thin_geometry(tuple(x.shape), cout, d, path)
+            geometry = _thin_geometry(tuple(x.shape), cout, d, path,
+                                      _sm_count(x.device.index))
+            if path == "thin_out" and x.data_ptr() % 16:
+                x = x.clone()          # thin_out copies x in 16-byte pieces
         else:
             raise ValueError(f"the f32 kernel's path {path!r} does not take "
                              f"x {tuple(x.shape)} -> C_out {cout}")

@@ -64,11 +64,12 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    ``restore_ncsn_params(ema=True)`` loads it.
 8. the Glow prior at the width of ``configs/melspec_glow.yml`` (L=3, K=40,
    512 filters, learntop, f32, TF32 off unless said): (a) the f32 kernel
-   at the coupling nets' six 3x3 conv classes (batch 30) on its paths (five
-   thin, 8->512 wide) against its plain version and F.conv2d, with times
-   and bounds, and the wide kernel forced on each thin class, and the 1x1
-   512->512 conv
-   as a matmul against F.conv2d; (b) log p and the score of 2 frames on
+   at the coupling nets' six 3x3 conv classes on its paths (five thin,
+   8->512 wide), at batch 30 and at the chunks of 8 and 6 frames that
+   ``--score_chunk 8`` scores, each launched once on its path, against
+   its plain version and F.conv2d, with times and bounds, and the wide
+   kernel forced on each thin class; the host time of a thin launch; the
+   1x1 512->512 conv as a matmul against F.conv2d; (b) log p and the score of 2 frames on
    the card against the CPU; (c) the score of 30 frames routed against
    cuDNN, 240 f32 launches per forward; (d) one Adamax step at batch 2 on
    the card against the CPU, then the step at batch 32 split into
@@ -84,7 +85,9 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    kernels at the image NCSN's conv classes (32x32 and 16x16, batch 50)
    and at Flow++'s (32x16, 16x16, 16x8, batch 64) against their plain
    version and F.conv2d, with times and bounds, the f32 kernel's thin
-   classes beside the wide kernel forced on them; (b) ``train_ncsn
+   classes beside the wide kernel forced on them, and the f32 kernel at
+   the image Glow's six classes (16x16, 8x8, 4x4) in the chunks of 8 and
+   2 images that (e) scores; (b) ``train_ncsn
    --dataset mnist`` (v1, 192 filters, routing on) ->
    ``ncsn_generate_samples`` -> ``run_basis_sep --dataset mnist
    --winograd`` at 50 mixtures, T=2, in bf16 and f32 (``--full`` adds
@@ -96,7 +99,8 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    the train step (Adam, clip 1) at batch 64 routing off and on, with
    peak memory and bound; (e) ``train_glow --dataset mnist`` (L=3, K=32,
    512 filters) -> ``train_noisy_glow`` -> ``run_basis_sep --model_type
-   glow --dataset mnist --winograd`` at 50 mixtures.
+   glow --dataset mnist --winograd`` at 50 mixtures, with the f32
+   kernel's launches by path.
 10. several processes on the one card (gloo, since NCCL refuses two ranks
    on one device; every rank of a phase on ``cuda:0``): (a)
    ``run_basis_sep --shard_sources`` under ``torchrun --nproc_per_node 2``
@@ -171,6 +175,18 @@ PEAK = {"bfloat16": 989e12, "float32": 67e12}
 HBM = 3.35e12      # bytes/s
 SOURCES = {"bfloat16": "audiosourcesep_tpu_torch/csrc/winograd_mma.cu",
            "float32": "audiosourcesep_tpu_torch/csrc/winograd.cu"}
+# the f32 kernel's designs (ops.winograd.f32_path): the source, the C entry
+# and the __global__ kernel of each
+F32_PATHS = {
+    "wide": ("audiosourcesep_tpu_torch/csrc/winograd.cu",
+             "winograd_f23_fwd_f32", "winograd_f23_f32_kernel"),
+    "thin_in": ("audiosourcesep_tpu_torch/csrc/winograd_thin.cu",
+                "winograd_f23_fwd_f32_thin",
+                "winograd_f23_f32_thin_in_kernel"),
+    "thin_out": ("audiosourcesep_tpu_torch/csrc/winograd_thin.cu",
+                 "winograd_f23_fwd_f32_thin",
+                 "winograd_f23_f32_thin_out_kernel"),
+}
 # mel_to_stft on the card (f32) against float64 on the CPU: max|err| /
 # max|ref| and mean|err| / mean|ref| of the NNLS power. f32 on the CPU
 # lands 3.4e-4 / 2.3e-4 from float64 on this song's ground truths.
@@ -253,7 +269,14 @@ REALNVP_BATCH = 256
 # the image Glow of train_glow's defaults, trained at batch 64
 IMAGE_GLOW = {"L": 3, "K": 32, "n_filters": 512}
 IMAGE_GLOW_BATCH = 64
-IMAGE_GLOW_ROUTED = 2 * IMAGE_GLOW["L"] * IMAGE_GLOW["K"]  # 192 a forward
+# its coupling nets' 3x3 convs on [32, 32, 1] (MNIST padded), (H, W, C_in,
+# C_out) -> convs per forward
+IMAGE_GLOW_CLASSES = {
+    (16, 16, 2, 512): 32, (16, 16, 512, 4): 32,
+    (8, 8, 4, 512): 32, (8, 8, 512, 8): 32,
+    (4, 4, 8, 512): 32, (4, 4, 512, 16): 32,
+}
+IMAGE_GLOW_ROUTED = sum(IMAGE_GLOW_CLASSES.values())      # 192 a forward
 # image-scale noise levels (span 256) and the step of the [0, 1] schedule
 # scaled to it (2e-5 * 256^2)
 IMAGE_SIGMAS = ["--sigma1", "256.0", "--sigmaL", "2.56", "--progression",
@@ -387,7 +410,7 @@ def _new_result():
     return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
             "max_abs_err": 0.0, "by": {"operations": 0.0, "bytes": 0.0},
             "paths": {}, "wide_ms": 0.0, "device_ms": 0.0,
-            "wide_device_ms": 0.0, "library_device_ms": 0.0}
+            "wide_device_ms": 0.0, "library_device_ms": 0.0, "by_path": {}}
 
 
 def _has_thin(r) -> bool:
@@ -408,7 +431,9 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
     to ``r["wide_ms"]``. f32 classes also take device times (``graph_ms``:
     no host time between launches) of the kernel, the wide design and
     F.conv2d, into ``r["device_ms"]``, ``r["wide_device_ms"]`` and
-    ``r["library_device_ms"]``. Returns the kernel's and F.conv2d's ms."""
+    ``r["library_device_ms"]``, and the kernel's numbers also into
+    ``r["by_path"][path]``, so that each design's source has its own.
+    Returns the kernel's and F.conv2d's ms."""
     import torch
     tol_max, tol_mean, tol_conv = TOL[dname]
     y, ref, conv = run_kernel().float(), run_plain().float(), run_conv()
@@ -446,6 +471,15 @@ def _hold(r, label, dname, n, shape, run_kernel, run_plain, run_conv,
         r["device_ms"] += n * dev_k
         r["wide_device_ms"] += n * dev_w
         r["library_device_ms"] += n * dev_c
+        p = r["by_path"].setdefault(path, dict.fromkeys(
+            ("ms", "device_ms", "plain_ms", "library_ms",
+             "library_device_ms", "bound_ms", "max_abs_err", "classes"), 0))
+        for key, ms in (("ms", ms_k), ("device_ms", dev_k),
+                        ("plain_ms", ms_p), ("library_ms", ms_c),
+                        ("library_device_ms", dev_c), ("bound_ms", bound)):
+            p[key] += n * ms
+        p["max_abs_err"] = max(p["max_abs_err"], e_plain)
+        p["classes"] += 1
     r["wide_ms"] += n * ms_w
     r["ms"] += n * ms_k
     r["plain_ms"] += n * ms_p
@@ -507,18 +541,39 @@ def _spills(line: str) -> bool:
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill")
 
 
-def _host_us(fn, n: int = 50) -> float:
-    """Host time of one call of ``fn`` (microseconds): ``n`` calls back to
-    back, timed on the host clock without waiting for the card."""
+def _call_us(fn, n: int = 200):
+    """Median host time of one call of ``fn`` (us): the wrapper's, and
+    that of the C entry's ctypes call inside it (``load_library`` handing
+    the wrapper entries that time themselves). ``n`` calls, each timed
+    alone, without waiting for the card."""
+    import statistics
     import torch
+    from audiosourcesep_tpu_torch.kernels import build
+    lib, calls, entries = build.load_library(), [], []
+
+    class Timed:
+        def __getattr__(self, name):
+            entry = getattr(lib, name)
+
+            def call(*args):
+                t0 = time.perf_counter()
+                err = entry(*args)
+                entries.append(time.perf_counter() - t0)
+                return err
+            return call
+
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    host = (time.perf_counter() - t0) / n
+    real, build.load_library = build.load_library, Timed
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            calls.append(time.perf_counter() - t0)
+    finally:
+        build.load_library = real
     torch.cuda.synchronize()
-    return 1e6 * host
+    return (1e6 * statistics.median(calls), 1e6 * statistics.median(entries))
 
 
 def _paths(W, x, u, cout):
@@ -576,7 +631,7 @@ def phase_kernel(smi: str):
                   lambda: nhwc(F.conv2d(xc, kc, padding=1)),
                   path=path, run_wide=wide)
             if (h, w, cin, cout) == HOST_CLASS:
-                r["host_us"] = _host_us(lambda: W._winograd_cuda(x, u))
+                r["host_us"] = _call_us(lambda: W._winograd_cuda(x, u))[0]
                 print(f"[3] {dname} host time of one launch (the wrapper, "
                       f"the tensor maps and the enqueue, {HOST_CLASS}): "
                       f"{r['host_us']:.1f} us")
@@ -1277,42 +1332,100 @@ def _rel(a, b) -> float:
     return ((a.cpu() - b.cpu()).norm() / b.cpu().norm()).item()
 
 
+def _f32_classes(r, classes, batches, tag, g, prefix=""):
+    """The f32 kernel at each class of ``classes`` ({(H, W, C_in, C_out):
+    convs per forward}) and batch of ``batches`` ({batch: chunks of it per
+    forward}): launched once on its path (``f32_path_counts``), then held
+    to its plain version and the wide kernel forced on it, and timed
+    (``_hold``) into the route's result ``r``."""
+    import torch
+    import torch.nn.functional as F
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    for (h, w, cin, cout), n in classes.items():
+        for batch, chunks in batches.items():
+            x = torch.randn(batch, h, w, cin, device="cuda", generator=g)
+            k = torch.randn(3, 3, cin, cout, device="cuda", generator=g) \
+                * (1.0 / (9 * cin)) ** 0.5
+            u = W.transform_weights(k)
+            xc, kc = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1)
+            path, wide = _paths(W, x, u, cout)
+            label = (f"{prefix}{h}x{w} {cin:3d}->{cout:3d}"
+                     + (f" batch {batch}" if len(batches) > 1 else ""))
+            before = dict(W.f32_path_counts)
+            W._winograd_cuda(x, u)
+            if W.f32_path_counts != {p: c + (p == path)
+                                     for p, c in before.items()}:
+                raise AssertionError(f"{label} did not launch once on its "
+                                     f"path {path}")
+            _hold(r, label, "float32", n * chunks, (h, w, cin, cout),
+                  lambda: W._winograd_cuda(x, u),
+                  lambda: W.winograd_conv2d_reference(x, k),
+                  lambda: F.conv2d(xc, kc, padding=1).permute(0, 2, 3, 1),
+                  tag=tag, batch=batch, path=path, run_wide=wide)
+            del x, k, u, xc, kc
+
+
+def _thin_host_us(classes, batch):
+    """Host time of one launch (us, medians) of each thin f32 design at the
+    first class of ``classes`` that ``f32_path`` puts on it, and of the
+    wide design forced on the same conv: the wrapper's, and the C entry's
+    alone."""
+    import torch
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    out = {}
+    for h, w, cin, cout in classes:
+        path = W.f32_path((batch, h, w, cin), cout)
+        if path == "wide" or path in out:
+            continue
+        x = torch.randn(batch, h, w, cin, device="cuda")
+        u = torch.randn(16, cin, cout, device="cuda")
+        us, entry_us = _call_us(lambda: W._winograd_cuda(x, u))
+        wide_us, wide_entry_us = _call_us(
+            lambda: W._winograd_cuda(x, u, path="wide"))
+        out[path] = {"class": f"{batch}x{h}x{w} {cin}->{cout}", "us": us,
+                     "entry_us": entry_us, "wide_us": wide_us,
+                     "wide_entry_us": wide_entry_us}
+    return out
+
+
+def _print_host_us(host):
+    for path, t in host.items():
+        print(f"[8a] host time of one {path} launch at {t['class']} "
+              f"(medians of 200): the wrapper {t['us']:.2f} us, its C entry "
+              f"{t['entry_us']:.2f} us; the wide kernel forced there "
+              f"{t['wide_us']:.2f} us, its C entry {t['wide_entry_us']:.2f}"
+              f" us")
+
+
 def phase_glow_kernel(smi: str):
-    """8a: the f32 kernel at the six Glow conv classes (batch 30) against
-    its plain version and F.conv2d; the coupling nets' 1x1 512->512 conv
-    as nn.conv1x1 (a matmul) against F.conv2d at each resolution."""
+    """8a: the f32 kernel at the six Glow conv classes against its plain
+    version, the wide kernel forced on them and F.conv2d, at batch 30 (a
+    separation's score at --score_chunk 0) and at the chunks of 8 and 6
+    frames that --score_chunk 8 scores 30 frames in; the host time of a
+    thin launch; the coupling nets' 1x1 512->512 conv as nn.conv1x1 (a
+    matmul) against F.conv2d at each resolution. Returns the result of
+    each route: ``glow`` (batch 30), ``glow_chunks`` (3 chunks of 8 and
+    one of 6)."""
     import torch
     import torch.nn.functional as F
     from audiosourcesep_tpu_torch import nn
-    from audiosourcesep_tpu_torch.ops import winograd as W
     g = torch.Generator(device="cuda").manual_seed(8)
-    r = _new_result()
-    for (h, w, cin, cout), n in GLOW_CLASSES.items():
-        x = torch.randn(BATCH, h, w, cin, device="cuda", generator=g)
-        k = torch.randn(3, 3, cin, cout, device="cuda", generator=g) \
-            * (1.0 / (9 * cin)) ** 0.5
-        u = W.transform_weights(k)
-        xc, kc = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1)
-        path, wide = _paths(W, x, u, cout)
-        before = dict(W.f32_path_counts)
-        W._winograd_cuda(x, u)
-        if W.f32_path_counts != {p: c + (p == path)
-                                 for p, c in before.items()}:
-            raise AssertionError(f"{h}x{w} {cin}->{cout} did not launch once "
-                                 f"on its path {path}")
-        _hold(r, f"{h}x{w} {cin:3d}->{cout:3d}", "float32", n,
-              (h, w, cin, cout), lambda: W._winograd_cuda(x, u),
-              lambda: W.winograd_conv2d_reference(x, k),
-              lambda: F.conv2d(xc, kc, padding=1).permute(0, 2, 3, 1),
-              tag="[8a]", path=path, run_wide=wide)
-        del x, k, u, xc, kc
-    _summary(r, "routed convs of one Glow forward", "float32", tag="[8a]")
-    print(f"[8a] the Glow route on {smi}, device times: thin paths "
-          f"{r['device_ms']:.3f} ms, the wide kernel forced "
-          f"{r['wide_device_ms']:.3f} ms, F.conv2d "
-          f"{r['library_device_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms; "
-          f"as called: {r['ms']:.3f}, {r['wide_ms']:.3f}, "
-          f"{r['library_ms']:.3f} ms")
+    res = {}
+    for route, batches, what in (
+            ("glow", {BATCH: 1}, f"{BATCH}"),
+            ("glow_chunks", {8: 3, 6: 1}, f"{BATCH} in chunks of 8, 8, 8, 6")):
+        r = res[route] = _new_result()
+        _f32_classes(r, GLOW_CLASSES, batches, "[8a]", g)
+        _summary(r, "routed convs of one Glow forward", "float32",
+                 tag="[8a]", batch=what)
+        print(f"[8a] the Glow route, batch {what}, on {smi}, device times: "
+              f"kernel's paths {r['device_ms']:.3f} ms, the wide kernel "
+              f"forced {r['wide_device_ms']:.3f} ms, F.conv2d "
+              f"{r['library_device_ms']:.3f} ms, bound {r['bound_ms']:.3f} "
+              f"ms; as called: {r['ms']:.3f}, {r['wide_ms']:.3f}, "
+              f"{r['library_ms']:.3f} ms")
+    res["glow"]["thin_host_us"] = _thin_host_us(GLOW_CLASSES, 8)
+    _print_host_us(res["glow"]["thin_host_us"])
     f = GLOW["n_filters"]
     for h, w in ((48, 32), (24, 16), (12, 8)):
         x = torch.randn(BATCH, f, h, w, device="cuda", generator=g
@@ -1328,7 +1441,7 @@ def phase_glow_kernel(smi: str):
               f"{bound:.4f} ms; x{GLOW['K']}/fwd; rel diff {err:.1e}")
         if err > GLOW_TOL:
             raise AssertionError("nn.conv1x1 disagrees with F.conv2d")
-    return r
+    return res
 
 
 def phase_glow_score():
@@ -1482,7 +1595,8 @@ def phase_glow_train(smi: str):
 def phase_glow_cli(work: str, ds: str, counts, full: bool):
     """8e: train_glow -> train_noisy_glow -> run_basis_sep --model_type
     glow --winograd at full width on phase 7a's dataset; returns the f32
-    kernel's launches in the separation at --score_chunk 8."""
+    kernel's launches, in all and by path, in the T=2 separation at each
+    --score_chunk (8 and 0), by chunk."""
     import numpy as np
     import torch
     from audiosourcesep_tpu_torch import (run_basis_sep, train_glow,
@@ -1555,11 +1669,13 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
                 if dt == torch.float32 else 0
                 for dt, name in W.KERNELS.items()}
         # conv1 (2/4 -> 512) thin_in, (8 -> 512) wide, conv3 (512 ->
-        # 4/8/16) thin_out: each class's path at a chunk's frames
+        # 4/8/16) thin_out: each class's path at each chunk's frames
         want_paths = dict.fromkeys(W.f32_path_counts, 0)
+        step = chunk or BATCH
         for (h, w, cin, cout), n in GLOW_CLASSES.items():
-            want_paths[W.f32_path((chunk or BATCH, h, w, cin), cout)] += \
-                L * T * 2 * chunks * n
+            for lo in range(0, BATCH, step):
+                b = min(step, BATCH - lo)
+                want_paths[W.f32_path((b, h, w, cin), cout)] += L * T * 2 * n
         with open(os.path.join(out, "out.log")) as f:
             dur = [ln.strip() for ln in f if ln.startswith("Duration")]
         res = np.load(os.path.join(out, "results.npz"))
@@ -1584,7 +1700,7 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
                     or res[key].min() < -100.0 or res[key].max() > 20.0:
                 raise AssertionError(f"results.npz {key}")
         launches[(T, chunk)] = got[W.KERNELS[torch.float32]], paths
-    return launches[(2, 8)]
+    return {chunk: launches[(2, chunk)] for chunk in (8, 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -1612,7 +1728,9 @@ def phase_image_data(work: str):
 def phase_image_kernel():
     """9a: both kernels at the image NCSN's classes (batch IMG_BATCH) and
     at Flow++'s (batch FLOWPP_BATCH), against their plain version and
-    F.conv2d; returns the result of each route by name."""
+    F.conv2d; the f32 kernel at the image Glow's classes in the chunks of
+    8 and 2 images that its separation (9e) scores IMG_BATCH images in.
+    Returns the result of each route by name."""
     import torch
     import torch.nn.functional as F
     from audiosourcesep_tpu_torch.ops import winograd as W
@@ -1641,6 +1759,13 @@ def phase_image_kernel():
                 del x, k, u, xc, kc
             _summary(r, f"routed convs of one {route} forward", dname,
                      tag="[9a]", batch=batch)
+    r = res["float32_image_glow"] = _new_result()
+    what = f"{IMG_BATCH} in chunks of 8 (6) and 2"
+    _f32_classes(r, IMAGE_GLOW_CLASSES, {8: IMG_BATCH // 8,
+                                         IMG_BATCH % 8: 1}, "[9a]", g,
+                 prefix="image glow ")
+    _summary(r, "routed convs of one image Glow forward", "float32",
+             tag="[9a]", batch=what)
     torch.cuda.empty_cache()
     return res
 
@@ -2024,7 +2149,7 @@ def phase_flowpp(smi: str):
 def phase_image_glow(work: str, n_train: int, full: bool):
     """9e: train_glow -> train_noisy_glow -> run_basis_sep --model_type
     glow --dataset mnist --winograd at train_glow's width; returns the f32
-    kernel's launches in the separation."""
+    kernel's launches in the separation, in all and by path."""
     import numpy as np
     import torch
     from audiosourcesep_tpu_torch import (run_basis_sep, train_glow,
@@ -2072,27 +2197,35 @@ def phase_image_glow(work: str, n_train: int, full: bool):
                         IMAGE_STEP_LR, *sig, *width])
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    got = dict(W.launch_counts)
+    got, paths = dict(W.launch_counts), dict(W.f32_path_counts)
     chunks = -(-IMG_BATCH // chunk)
     want = {name: L * T * 2 * chunks * IMAGE_GLOW_ROUTED
             if dt == torch.float32 else 0 for dt, name in W.KERNELS.items()}
+    # each class's path at each chunk's images (8, ..., 8, 2)
+    want_paths = dict.fromkeys(W.f32_path_counts, 0)
+    for (h, w, cin, cout), n in IMAGE_GLOW_CLASSES.items():
+        for lo in range(0, IMG_BATCH, chunk):
+            b = min(chunk, IMG_BATCH - lo)
+            want_paths[W.f32_path((b, h, w, cin), cout)] += L * T * 2 * n
     with open(os.path.join(out, "out.log")) as f:
         dur = [ln.strip() for ln in f if ln.startswith("Duration")]
     res = np.load(os.path.join(out, "results.npz"), allow_pickle=True)
     print(f"[9e] run_basis_sep --model_type glow --dataset mnist --winograd "
           f"--T {T} --score_chunk {chunk}, {IMG_BATCH} mixtures: {dur}, "
           f"wall-clock {wall:.2f} s, peak memory {peak:.2f} GiB; launches "
-          f"{got}, expected {want}; x1 {res['x1'].shape} in "
+          f"{got}, expected {want}; by path {paths}, expected {want_paths}; "
+          f"x1 {res['x1'].shape} in "
           f"[{res['x1'].min():.0f}, {res['x1'].max():.0f}]")
-    if got != want:
+    if got != want or paths != want_paths:
         raise AssertionError("the image Glow separation did not launch the "
-                             "f32 kernel for every routed conv")
+                             "f32 kernel for every routed conv, on its "
+                             "classes' paths")
     for key in ("x1", "x2"):
         a = res[key]
         if a.shape != (IMG_BATCH, 32, 32) or a.min() < 0 or a.max() > 255 \
                 or not np.array_equal(a, np.round(a)):
             raise AssertionError(f"results.npz {key}")
-    return got[W.KERNELS[torch.float32]]
+    return got[W.KERNELS[torch.float32]], paths
 
 
 # ---------------------------------------------------------------------------
@@ -2624,9 +2757,14 @@ def kernels_line(res, routes):
     one v1 forward's 64 routed convs (batch 30) and ``res[f"{dname}_{r}"]``
     those of its route ``r`` (``dilated``: the cascade's 10 dilated convs;
     ``wide_dilation``: the bf16 kernel at d = 8 and 16, one conv each;
-    ``glow``, ``image``, ``flowpp``: the routed convs of one such forward);
-    ``routes[dname][r]`` the launches of route ``r``'s main-path run (``""``
-    for the NCSN separation CLI), which the dilated route has none of."""
+    ``glow``, ``image``, ``flowpp``: the routed convs of one such forward;
+    ``glow_chunks``, ``image_glow``: those of a Glow separation's forward
+    in its chunks of 8); ``routes[dname][r]`` the launches of route ``r``'s
+    main-path run (``""`` for the NCSN separation CLI), which the dilated
+    route has none of, and ``routes[dname][f"{r}_paths"]`` the same by
+    path. The f32 entry also names the source, C entry and kernel of each
+    of its designs (``path_sources``), and each route's numbers by design
+    (``by_path``)."""
     from audiosourcesep_tpu_torch.ops.winograd import KERNELS
 
     def numbers(r):
@@ -2639,11 +2777,15 @@ def kernels_line(res, routes):
         if r.get("device_ms"):         # f32: no host time between launches
             out["device_ms"] = r["device_ms"]
             out["library_device_ms"] = r["library_device_ms"]
+        if r.get("by_path"):           # f32: each design's own numbers
+            out["by_path"] = r["by_path"]
         if _has_thin(r):               # the wide f32 kernel forced on them
             out["wide_ms"] = r["wide_ms"]
             out["wide_device_ms"] = r["wide_device_ms"]
         if "host_us" in r:
             out["host_us"] = r["host_us"]
+        if "thin_host_us" in r:
+            out["thin_host_us"] = r["thin_host_us"]
         return out
 
     kernels = []
@@ -2654,6 +2796,10 @@ def kernels_line(res, routes):
                  "launches": routes[dname][""], **numbers(res[dname])}
         if dname == "bfloat16":
             entry["design"] = BF16_DESIGN
+        else:
+            entry["path_sources"] = {
+                p: {"source": src, "entry": c, "kernel": k}
+                for p, (src, c, k) in F32_PATHS.items()}
         if "paths" in routes[dname]:
             entry["path_launches"] = routes[dname]["paths"]
         for key in sorted(res):
@@ -2685,6 +2831,12 @@ def main(argv):
     if argv[:1] == ["--rank-worker"]:
         rank_worker(argv[1:])
         return
+    if argv[:1] == ["--host-times"]:
+        # phase 8a's host time of a launch of each f32 design, alone (no
+        # result line): the same measurement on another tree of the port
+        phase_device()
+        _print_host_us(_thin_host_us(GLOW_CLASSES, 8))
+        return
 
     smi = phase_device()
     phase_build()
@@ -2701,7 +2853,8 @@ def main(argv):
         phase_train_step_vs_cpu()
         phase_train_routing(smi)
         train_launches, _ = phase_train_cli(work, ds, counts)
-        res["float32_glow"] = phase_glow_kernel(smi)
+        res.update({f"float32_{route}": r for route, r in
+                    phase_glow_kernel(smi).items()})
         phase_glow_score()
         phase_glow_train(smi)
         glow_launches = phase_glow_cli(work, ds, counts, full)
@@ -2731,8 +2884,14 @@ def main(argv):
         f32: {"": launches[f32][name[f32]],
               # the same run's launches by path
               "paths": launches[f32]["paths"],
-              # the Glow separation CLI (phase 8e), and by path
-              "glow": glow_launches[0], "glow_paths": glow_launches[1],
+              # the Glow separation CLI (phase 8e), and by path: all 30
+              # frames at once, and in chunks of 8
+              "glow": glow_launches[0][0], "glow_paths": glow_launches[0][1],
+              "glow_chunks": glow_launches[8][0],
+              "glow_chunks_paths": glow_launches[8][1],
+              # the image Glow separation CLI (phase 9e), chunks of 8
+              "image_glow": image_glow_launches[0],
+              "image_glow_paths": image_glow_launches[1],
               # the image separation of this dtype (phase 9b)
               "image": image_launches["f32"],
               # one routed Flow++ train step (phase 9d)
@@ -2746,9 +2905,6 @@ def main(argv):
                "flowpp": flowpp_launches[name[bf16]]},
     }
     kernels = kernels_line(res, routes)
-    # the image Glow separation's f32 launches (its classes not timed)
-    next(k for k in kernels if k["name"] == name[f32])[
-        "image_glow_launches"] = image_glow_launches
     # phase 10's launches, all ranks together: the two separation layouts
     # (bf16) and the 2-rank training CLI (f32)
     for key, n in multi.items():

@@ -52,6 +52,10 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
                                   wide_ms=9.0,
                                   device_ms=2.5, wide_device_ms=8.5,
                                   library_device_ms=12.0),
+           "float32_glow_chunks": result(
+               5, paths={"48x32 2->512 batch 8": "thin_in"}, wide_ms=10.0,
+               device_ms=3.0, wide_device_ms=9.0, library_device_ms=13.0,
+               by_path={"thin_in": {"ms": 5, "device_ms": 3.0}}),
            "float32_image": result(4),
            "bfloat16": dict(result(11), paths={"96x64 1->192": "plain"}),
            "bfloat16_dilated": result(12), "bfloat16_image": result(14),
@@ -60,7 +64,10 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
                           "paths": {"wide": 62, "thin_in": 1,
                                     "thin_out": 1},
                           "glow_paths": {"wide": 0, "thin_in": 150,
-                                         "thin_out": 150}},
+                                         "thin_out": 150},
+                          "glow_chunks": 500,
+                          "glow_chunks_paths": {"wide": 100, "thin_in": 200,
+                                                "thin_out": 200}},
               "bfloat16": {"": 110, "image": 410,
                            "paths": {"tma": 108, "plain": 2}}}
     line = {k["name"]: k for k in chip_smoke.kernels_line(res, routes)}
@@ -103,3 +110,21 @@ def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():
     assert "wide_ms" not in f32["image_route"]
     assert "device_ms" not in bf16
     assert "path_launches" not in f32["image_route"]
+    # the Glow separation's chunks: their own numbers and launches
+    chunks = f32["glow_chunks_route"]
+    assert (chunks["ms"], chunks["launches"]) == (5, 500)
+    assert chunks["path_launches"] == {"wide": 100, "thin_in": 200,
+                                       "thin_out": 200}
+    # each design of the f32 kernel names its source, C entry and kernel,
+    # and a route's numbers come by design too
+    import pathlib
+    root = pathlib.Path(chip_smoke.__file__).parent
+    assert set(f32["path_sources"]) == {"wide", "thin_in", "thin_out"}
+    for path, src in f32["path_sources"].items():
+        assert (root / src["source"]).is_file()
+        assert src["kernel"] in (root / src["source"]).read_text()
+        assert f"int {src['entry']}(" in (root / src["source"]).read_text()
+    assert f32["path_sources"]["thin_out"]["source"].endswith(
+        "csrc/winograd_thin.cu")
+    assert chunks["by_path"] == {"thin_in": {"ms": 5, "device_ms": 3.0}}
+    assert "path_sources" not in bf16

@@ -183,23 +183,31 @@ def test_bf16_kernel_refuses_and_does_not_fall_back(cuda, monkeypatch):
 
 
 # the f32 kernel's paths at Glow's six coupling classes (batch 2; 8->512
-# stays wide), NCSN's begin_conv 1->192 and end_conv 192->1 and Flow++'s
-# 3->96, then the phase grids in place (d = 2) and ragged channels (C_out 5,
-# C_in 3); each launch counted once under its path, with both plain
-# versions and F.conv2d made to fail
+# stays wide, and so does 24x16 4->512 at 192 tiles), NCSN's begin_conv
+# 1->192 and end_conv 192->1 and Flow++'s 3->96 (batch 8), then the phase
+# grids in place (d = 2) and ragged channels (C_out 5, C_in 3), then the
+# image Glow's 4x4 512->16 (a box 2 tiles wide) at the separation's chunk
+# of 8 and its last chunk of 2, Glow's 24x16 4->512 at a chunk of 8 (boxes
+# of 8 tiles) and the image Glow's 16x16 2->512 at 8 (512 tiles: wide);
+# each launch counted once under its path, with both plain versions and
+# F.conv2d made to fail
 @pytest.mark.parametrize("shape,cout,d,path", [
     ((2, 48, 32, 2), 512, 1, "thin_in"),
     ((2, 48, 32, 512), 4, 1, "thin_out"),
-    ((2, 24, 16, 4), 512, 1, "thin_in"),
+    ((2, 24, 16, 4), 512, 1, "wide"),
     ((2, 24, 16, 512), 8, 1, "thin_out"),
     ((2, 12, 8, 8), 512, 1, "wide"),
     ((2, 12, 8, 512), 16, 1, "thin_out"),
     ((2, 96, 64, 192), 1, 1, "thin_out"),
     ((2, 96, 64, 1), 192, 1, "thin_in"),
-    ((2, 32, 16, 3), 96, 1, "thin_in"),
+    ((8, 32, 16, 3), 96, 1, "thin_in"),
     ((2, 16, 24, 64), 8, 2, "thin_out"),
-    ((2, 16, 24, 3), 16, 2, "thin_in"),
-    ((1, 12, 8, 36), 5, 1, "thin_out")])
+    ((6, 16, 24, 3), 16, 2, "thin_in"),
+    ((1, 12, 8, 36), 5, 1, "thin_out"),
+    ((8, 4, 4, 512), 16, 1, "thin_out"),
+    ((2, 4, 4, 512), 16, 1, "thin_out"),
+    ((8, 24, 16, 4), 512, 1, "thin_in"),
+    ((8, 16, 16, 2), 512, 1, "wide")])
 def test_f32_thin_paths_and_their_launch_counts(cuda, monkeypatch, shape,
                                                 cout, d, path):
     x, k = _inputs(shape, cout, torch.float32, seed=d)
@@ -230,6 +238,14 @@ def test_f32_thin_paths_and_their_launch_counts(cuda, monkeypatch, shape,
     assert W.f32_path_counts["wide"] == paths["wide"] + 1 + (path == "wide")
     assert (wide - want).abs().max().item() \
         <= tol_max * want.abs().max().item()
+    # where the wrapper keeps a thin conv wide (a small grid), the thin
+    # design forced on it computes the same
+    thin = [p for p in ("thin_in", "thin_out")
+            if W._thin_eligible(x.shape, cout, p)]
+    if path == "wide" and thin:
+        forced = W._winograd_cuda(x, u, d, path=thin[0])
+        assert (forced - want).abs().max().item() \
+            <= tol_max * want.abs().max().item()
 
 
 @pytest.mark.parametrize("shape,cout", [((30, 48, 32, 512), 4),
@@ -278,6 +294,32 @@ def test_f32_thin_path_refuses_and_does_not_fall_back(cuda):
             path, *geometry, stream)
         torch.cuda.synchronize()
         assert err != 0 and bool((y == 7.0).all()), (cin, cout, path)
+
+
+def test_f32_thin_out_copies_x_that_is_not_16_byte_aligned(cuda):
+    # the wrapper hands thin_out an aligned copy of x; the C entry refuses
+    # x that is not aligned (an error code, y left as it was)
+    x, k = _inputs((2, 12, 8, 64), 4, torch.float32)
+    u = W.transform_weights(k)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 and W.f32_path(xm.shape, 4) == "thin_out"
+    paths = dict(W.f32_path_counts)
+    got = W._winograd_cuda(xm, u)
+    assert W.f32_path_counts["thin_out"] == paths["thin_out"] + 1
+    want = W.winograd_conv2d_reference(x, k)
+    assert (got - want).abs().max().item() \
+        <= TOL[torch.float32][0] * want.abs().max().item()
+    from audiosourcesep_tpu_torch.kernels.build import load_library
+    y = torch.full((2, 12, 8, 4), 7.0, device=cuda)
+    geometry = W._thin_geometry(tuple(x.shape), 4, 1, "thin_out",
+                                W._sm_count(x.device.index))
+    err = load_library().winograd_f23_fwd_f32_thin(
+        xm.data_ptr(), u.data_ptr(), y.data_ptr(), 2, 12, 8, 64, 4, 1, 1,
+        *geometry, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0 and bool((y == 7.0).all())
 
 
 def test_bf16_kernel_takes_bf16_weights_only(cuda):

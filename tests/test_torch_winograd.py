@@ -624,6 +624,10 @@ def test_bf16_block_fills_the_cascade_grids(h, w, d, shape, idle):
 # its U in registers; the slab [C_in][pixels] and V [tiles][C_in][16] in
 # shared memory; tile warp w walks tiles w, w + Wt, ...
 
+# the SMs of the H100 on which the thin geometry was fitted
+H100_SMS = 132
+
+
 def _thin_box_grid(x_shape, d, box):
     b, h, w, _ = x_shape
     nimg, trb, tcb = box
@@ -683,11 +687,11 @@ def _thin_store(m, box, origin, grid, d, y, oc, written):
                 written[pix] += 1
 
 
-def _thin_out_model(x, u, d, y, written):
+def _thin_out_model(x, u, d, y, written, sms):
     bsz, h, w, cin = x.shape
     cout = u.shape[2]
     cb, g, co, kc, pixw = twino._thin_out_channels(cin, cout)
-    *box, n, warps = twino._thin_geometry(x.shape, cout, d, "thin_out")
+    *box, n, warps = twino._thin_geometry(x.shape, cout, d, "thin_out", sms)
     box = tuple(box)
     assert warps == twino.THIN_NT // 32
     nimg, trb, tcb = box
@@ -749,10 +753,11 @@ def _thin_out_model(x, u, d, y, written):
                 _thin_store(m, box, origin, grid, d, y, oc, written)
 
 
-def _thin_in_model(x, u, d, y, written):
+def _thin_in_model(x, u, d, y, written, sms):
     bsz, h, w, cin = x.shape
     cout = u.shape[2]
-    *box, twarps, cwarps = twino._thin_geometry(x.shape, cout, d, "thin_in")
+    *box, twarps, cwarps = twino._thin_geometry(x.shape, cout, d, "thin_in",
+                                                sms)
     box = tuple(box)
     assert cwarps == twino._thin_in_channel_warps(cout)
     im, tr, tc = _thin_tiles(box)
@@ -779,13 +784,14 @@ def _thin_in_model(x, u, d, y, written):
                                 oc, written)
 
 
-def _thin_kernel_model(x, u, d, path):
-    """The thin kernel, block by block, as numpy; returns y and how often
-    each output was written."""
+def _thin_kernel_model(x, u, d, path, sms=H100_SMS):
+    """The thin kernel, block by block, as numpy, in the geometry the
+    wrapper picks on a card of ``sms`` SMs; returns y and how often each
+    output was written."""
     y = np.zeros((*x.shape[:3], u.shape[2]), np.float32)
     written = np.zeros(y.shape, np.int64)
     (_thin_out_model if path == "thin_out" else _thin_in_model)(
-        x, u, d, y, written)
+        x, u, d, y, written, sms)
     return y, written
 
 
@@ -800,24 +806,37 @@ def _thin_kernel_model(x, u, d, path):
     ((2, 12, 8, 3), 32, 1, "thin_in"),
     ((2, 8, 8, 1), 8, 1, "thin_in"),
     ((1, 8, 8, 4), 40, 1, "thin_in"),        # C_out past a block
-    ((2, 16, 8, 3), 16, 2, "thin_in")])
+    ((2, 16, 8, 3), 16, 2, "thin_in"),
+    ((8, 4, 4, 64), 16, 1, "thin_out"),      # a box 2 tiles wide
+    ((2, 48, 24, 2), 16, 1, "thin_in")])     # 576 tiles: the wrapper's
 def test_thin_kernel_model_matches_pallas_interpret(shape, cout, d, path):
     """Each thin path's decomposition (the box the wrapper picks, the
     slab with its zero halo; thin_out's parity-split slots, two rows of V a
     thread for 4 channels from 3 patch rows, U's layout, the split of C_in
     over the cluster, the partial M in each rank's shared memory and the
     slice reduction in rank order; thin_in's one stage, V of each tile and
-    channel once, a lane's U and its register epilogue; the epilogue's
+    channel once, a lane's U and its register epilogue, at the box of 8
+    tiles that small grids take and at the box of 32; the epilogue's
     addressing, each output written once) against the JAX Pallas kernel in
     interpret mode, to 1e-5 of max|y| (f32, summation order only), and
     against the port's plain version within the card's f32 tolerance
-    (1e-4)."""
+    (1e-4). The wrapper sends thin_in grids of at most THIN_IN_MIN_TILES
+    tiles to the wide design; the kernel takes them when forced."""
     x, k = _inputs(70 + d + shape[-1], shape, cout, (1.0 / (9 * shape[-1]))
                    ** 0.5)
-    assert twino.f32_path(shape, cout, d) == path
+    tiles = shape[0] * shape[1] * shape[2] // 4
+    assert twino._thin_eligible(shape, cout, path)
+    assert twino.f32_path(shape, cout, d) == (
+        "wide" if path == "thin_in" and tiles <= twino.THIN_IN_MIN_TILES
+        else path)
     u = twino.transform_weights(torch.from_numpy(k)).numpy()
-    got, written = _thin_kernel_model(x, u, d, path)
-    assert (written == 1).all()
+    # thin_in: as on the H100, and with no floor on the warps a launch
+    # has (0 SMs), the box of 32 tiles
+    models = [_thin_kernel_model(x, u, d, path, sms)
+              for sms in ((H100_SMS, 0) if path == "thin_in" else
+                          (H100_SMS,))]
+    for _, written in models:
+        assert (written == 1).all()
     if d == 1:
         pallas = jwino.winograd_conv2d(jnp.asarray(x), jnp.asarray(k), True)
         plain = twino.winograd_conv2d_reference(torch.from_numpy(x),
@@ -828,8 +847,9 @@ def test_thin_kernel_model_matches_pallas_interpret(shape, cout, d, path):
         plain = twino.dilated_winograd_conv2d_reference(
             torch.from_numpy(x), torch.from_numpy(k), d)
     pallas, plain = np.asarray(pallas), plain.numpy()
-    assert np.abs(got - pallas).max() <= 1e-5 * np.abs(pallas).max()
-    assert np.abs(got - plain).max() <= 1e-4 * np.abs(plain).max()
+    for got, _ in models:
+        assert np.abs(got - pallas).max() <= 1e-5 * np.abs(pallas).max()
+        assert np.abs(got - plain).max() <= 1e-4 * np.abs(plain).max()
 
 
 def _ncsn_conv_classes():
@@ -872,7 +892,11 @@ def test_f32_path_picks_its_path_for_every_class():
         assert path == want, (cin, cout)
     paths = [twino.f32_path(key[:4], key[4], key[5]) for key in ncsn]
     assert (paths.count("thin_in"), paths.count("thin_out")) == (1, 1)
-    # C_in past 4 and not a multiple of 4, or C_out past 16: wide
+    # C_in past 4 and not a multiple of 4, or C_out past 16: wide; thin_in
+    # takes grids of more than 512 tiles (the image Glow's 16x16 2->512 at
+    # 8 images has 512: wide; Glow's 24x16 4->512 at 6 frames 576)
+    assert twino.f32_path((8, 16, 16, 2), 512) == "wide"
+    assert twino.f32_path((6, 24, 16, 4), 512) == "thin_in"
     assert twino.f32_path((2, 8, 8, 5), 4) == "wide"
     assert twino.f32_path((2, 8, 8, 8), 512) == "wide"
     assert twino.f32_path((2, 8, 8, 16), 17) == "wide"
@@ -897,7 +921,7 @@ def test_thin_geometry_fills_the_classes(shape, cout, geometry, idle):
     channels) or 3 (192, 96), and 2 tile warps where C_out has at most 3
     groups of 32 channels."""
     path = twino.f32_path(shape, cout)
-    got = twino._thin_geometry(shape, cout, 1, path)
+    got = twino._thin_geometry(shape, cout, 1, path, H100_SMS)
     assert got == geometry
     nimg, trb, tcb, split, cwarps = got
     b, h, w, cin = shape
@@ -914,7 +938,7 @@ def test_thin_geometry_fills_the_classes(shape, cout, geometry, idle):
     assert tiles * 2 * g == twino.THIN_NT
     assert cwarps == twino.THIN_NT // 32
     if cin == 512:
-        assert slots // tiles * split > twino.SM_COUNT
+        assert slots // tiles * split > H100_SMS
     assert -(-px * kc // 4 // twino.THIN_NT) <= twino.THIN_MAXPIECE
     words = max(twino.THIN_STAGES * (px * pixw + kc * 16 * co),
                 tiles * (16 * co + 4))
@@ -938,6 +962,81 @@ def test_thin_slab_reads_are_free_of_bank_conflicts():
                 unit = slot * pixw // 4 % 8
                 for q in range(4):
                     assert len(set(unit[8 * q:8 * q + 8])) == 8, (tcb, trb)
+
+
+def _thin_slab_units(box, pixw, tpb):
+    """The 16-byte bank group (of 8) that each lane of a warp reads at
+    each of a patch's 16 pixels on thin_out's slab, [16][32]."""
+    nimg, trb, tcb = box
+    sr, sc, hh = 2 * trb + 2, 2 * tcb + 2, tcb + 1
+    t = np.arange(32) % tpb
+    im, tr, tc = t // (tcb * trb), (t // tcb) % trb, t % tcb
+    return np.array([((im * sr + 2 * tr + i) * sc + (jj & 1) * hh + tc
+                      + (jj >> 1)) * pixw // 4 % 8
+                     for i in range(4) for jj in range(4)])
+
+
+@pytest.mark.parametrize("batch,classes", [(8, "GLOW_CLASSES"),
+                                           (6, "GLOW_CLASSES"),
+                                           (8, "IMAGE_GLOW_CLASSES"),
+                                           (2, "IMAGE_GLOW_CLASSES")])
+def test_thin_geometry_at_the_glow_separations_chunks(batch, classes):
+    """The Glow separations score in chunks of 8 frames (the last chunk of
+    30 frames 6, of 50 images 2): at each thin class of such a chunk the
+    box leaves no tile slot idle, unless the grid has fewer tiles than a
+    box (the image Glow's 4x4 512->16 at 2 images: 8 tiles, a box of 16);
+    a grid 2 tiles wide takes a box 2 tiles wide, whose slab reads meet at
+    most two lanes of a quarter warp in one bank group; wider boxes read
+    without bank conflicts. The box fits a thread's x pieces and three
+    blocks' shared memory on an SM."""
+    import chip_smoke
+    for h, w, cin, cout in getattr(chip_smoke, classes):
+        shape = (batch, h, w, cin)
+        path = twino.f32_path(shape, cout)
+        if path == "wide":
+            assert (cin, cout) == (8, 512) or (
+                cin <= 4 and batch * h * w // 4 <= twino.THIN_IN_MIN_TILES)
+            continue
+        nimg, trb, tcb, split, _ = twino._thin_geometry(shape, cout, 1, path,
+                                                        H100_SMS)
+        tiles, grid = nimg * trb * tcb, batch * (h // 2) * (w // 2)
+        slots = (-(-batch // nimg) * nimg * -(-(h // 2) // trb) * trb
+                 * -(-(w // 2) // tcb) * tcb)
+        assert slots - grid == max(tiles - grid, 0), (shape, cout)
+        if grid >= tiles:
+            assert tcb == 2 if w // 2 == 2 else tcb >= 4
+        if path == "thin_in":
+            # 48x32: boxes of 32 tiles; 24x16 (576 or 768 tiles): of 8
+            assert tiles == (32 if h == 48 else 8)
+            continue
+        cb, g, co, kc, pixw = twino._thin_out_channels(cin, cout)
+        assert tiles * 2 * g == twino.THIN_NT and split <= cin // kc
+        px = nimg * (2 * trb + 2) * (2 * tcb + 2)
+        assert -(-px * kc // 4 // twino.THIN_NT) <= twino.THIN_MAXPIECE
+        words = max(twino.THIN_STAGES * (px * pixw + kc * 16 * co),
+                    tiles * (16 * co + 4))
+        assert 4 * words <= twino.THIN_OUT_SMEM_MAX
+        units = _thin_slab_units((nimg, trb, tcb), pixw, tiles)
+        most = max(np.bincount(u[8 * q:8 * q + 8], minlength=8).max()
+                   for u in units for q in range(4))
+        assert most == (2 if tcb < 4 else 1), (shape, cout, tcb)
+
+
+def test_thin_limits_are_the_cuda_sources():
+    """The wrapper's copies of csrc/winograd_thin.cu's limits (the box and
+    the ring it fits, the channels each path takes) are the source's."""
+    import pathlib
+    import re
+    src = (pathlib.Path(twino.__file__).parent.parent / "csrc" /
+           "winograd_thin.cu").read_text()
+    limit = {m[0]: int(m[1]) for m in
+             re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (limit["NT"], limit["MAXPIECE"], limit["MAXSTAGE"]) == \
+        (twino.THIN_NT, twino.THIN_MAXPIECE, twino.THIN_STAGES)
+    assert (limit["MAXC"], limit["MAXCOUT"]) == \
+        (twino.THIN_IN_MAX_CIN, twino.THIN_OUT_MAX_COUT)
+    assert limit["MINB"] == twino.THIN_OUT_BLOCKS_PER_SM[4]
+    assert twino.THIN_IN_TILES <= 64         # the C entry's thin_in limit
 
 
 def test_thin_paths_refuse_what_they_do_not_take():
