@@ -92,6 +92,7 @@ constexpr int NTILE = 32;              // tiles per block
 constexpr int NB = 64;                 // output channels per block
 constexpr int KC = 8;                  // input channels per chunk
 constexpr int NT = 256;                // 8 warps
+constexpr int MAXDEV = 64;             // devices whose kernel limits are raised
 constexpr int DEPTH = 3;               // x and U stages of the ring
 constexpr int PIX = 48;                // bytes per slab pixel: 8 f32 + pad
 constexpr int SLAB = 180;              // slab pixels: 10 x 18 or 18 x 10
@@ -428,9 +429,20 @@ int launch(const void* x, const void* u, void* y, int B, int H, int W,
   const long long blocks = (long long)B * d * d * n_trb * n_tcb * n_cb;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   auto kernel = winograd_f23_f32_kernel<TR, XV, CV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  // the dynamic shared memory limit is raised on this instance's first
+  // launch on the current device, not on every launch (a race only sets it
+  // twice): a launch then makes no other runtime call, so a CUDA graph
+  // captures it as it is
+  static bool raised[MAXDEV];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= MAXDEV || !raised[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAXDEV) raised[dev] = true;
+  }
   kernel<<<(unsigned)blocks, NT, SMEM_BYTES, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(u),
       static_cast<float*>(y), H, W, Cin, Cout, d, n_trb, n_tcb, n_cb);

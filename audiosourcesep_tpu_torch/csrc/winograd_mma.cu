@@ -141,6 +141,7 @@ constexpr int STAGE_BYTES = 47104;      // U + two x boxes, 1024-aligned
 constexpr int BAR_OFF = STAGES * STAGE_BYTES;
 constexpr int SMEM_BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;
 constexpr int MAX_STRIDED_D = 4;        // TMA element strides stop at 8
+constexpr int MAXDEV = 64;               // devices whose kernel limits are kept
 static_assert(U_BYTES + 2 * X_HALF <= STAGE_BYTES, "stage layout");
 static_assert(STAGE_BYTES % 1024 == 0, "stages stay 1024-aligned");
 
@@ -721,11 +722,11 @@ extern "C" int winograd_f23_fwd_bf16(const void* x, const void* u, void* y,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.n_blocks = (int)blocks;
   // persistent: one block an SM, each walking blocks bid, bid + grid, ..
-  static int sm_count[64] = {};
+  static int sm_count[MAXDEV] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (dev >= MAXDEV) return (int)cudaErrorInvalidDevice;
   if (sm_count[dev] == 0) {
     err = cudaDeviceGetAttribute(&sm_count[dev],
                                  cudaDevAttrMultiProcessorCount, dev);
@@ -741,9 +742,15 @@ extern "C" int winograd_f23_fwd_bf16(const void* x, const void* u, void* y,
   }
   auto kernel = tma ? winograd_f23_bf16_wgmma<true>
                     : winograd_f23_bf16_wgmma<false>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  // each kernel's dynamic shared memory limit is raised on its first
+  // launch on this device, not on every launch (a race only sets it twice)
+  static bool raised[2][MAXDEV];
+  if (!raised[tma != 0][dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    raised[tma != 0][dev] = true;
+  }
   kernel<<<grid, NT, SMEM_BYTES,
            static_cast<cudaStream_t>(stream)>>>(tmx, tmu, p);
   return (int)cudaGetLastError();

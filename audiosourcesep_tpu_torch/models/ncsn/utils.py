@@ -12,6 +12,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ...separation import graphs
+
 
 def get_sigmas(sigma1: float, sigmaL: float, num_classes: int,
                progression: str = "geometric") -> np.ndarray:
@@ -68,31 +70,44 @@ def anneal_langevin_dynamics(score_fn: Callable, x_init: torch.Tensor,
                              = None, n_steps_each: int = 100,
                              step_lr: float = 2e-5,
                              return_arr: bool = False,
-                             noise_fn: Optional[Callable] = None):
-    """Annealed Langevin sampler (ncsn/utils.py:17-38), an eager loop over
-    levels x steps. Per level i: ``alpha = step_lr * (sigma_i /
-    sigma_L)^2``; per step: ``x <- x + alpha * s(x, i) + sqrt(2 alpha) *
-    eps``, ``eps`` from ``generator`` or ``noise_fn(level, step)``.
+                             noise_fn: Optional[Callable] = None,
+                             graphed: Optional[bool] = None):
+    """Annealed Langevin sampler (ncsn/utils.py:17-38), the counterpart of
+    the JAX package's jitted double scan. Per level i: ``alpha = step_lr *
+    (sigma_i / sigma_L)^2``; per step: ``x <- x + alpha * s(x, i) +
+    sqrt(2 alpha) * eps``, ``eps`` from ``generator`` or ``noise_fn(level,
+    step)``.
+
+    On a CUDA device each level is a CUDA graph of one step, captured once
+    and replayed ``n_steps_each`` times (``separation.graphs``); on the
+    CPU, or with ``graphed=False``, the same step runs eagerly. ``graphed``
+    as in ``separation.basis_separate_per_level``.
 
     Returns the final ``x`` or, with ``return_arr``, the per-level states
     ``[L+1, n, ...]`` with the init first.
     """
+    graphed = graphs.use_graphs(graphed, x_init.device)
     sig = np.asarray(sigmas, np.float32)
     n = x_init.shape[0]
-    x = x_init
+    # updated in place, the graphs' static input
+    x = x_init.clone()
     traj = [x_init] if return_arr else None
-    for level in range(sig.shape[0]):
+
+    def make_step(level):
         alpha = np.float32(step_lr) * np.square(sig[level] / sig[-1])
         noise_scale = float(np.sqrt(np.float32(2.0) * alpha))
         alpha = float(alpha)
         labels = torch.full((n,), level, dtype=torch.long, device=x.device)
-        for step in range(n_steps_each):
-            if noise_fn is not None:
-                eps = noise_fn(level, step).to(device=x.device, dtype=x.dtype)
-            else:
-                eps = torch.randn(x.shape, generator=generator,
-                                  device=x.device, dtype=x.dtype)
-            x = x + alpha * score_fn(x, labels) + eps * noise_scale
+
+        def step(x, noise):
+            x.add_(alpha * score_fn(x, labels)).add_(noise * noise_scale)
+
+        return step
+
+    def after_level(level, x):
         if return_arr:
-            traj.append(x)
+            traj.append(x.clone())
+
+    graphs.anneal(make_step, x, sig.shape[0], n_steps_each, graphed,
+                  generator, noise_fn, after_level)
     return torch.stack(traj) if return_arr else x

@@ -14,7 +14,10 @@ samples ``[--height, --width, 1]`` patches in the ``--scale`` range,
     python -m audiosourcesep_tpu_torch.ncsn_generate_samples CKPT_DIR \\
         --ema --T 100 --device cuda
 
-``--device`` defaults to ``cuda`` and never falls back to the CPU.
+``--device`` defaults to ``cuda`` and never falls back to the CPU. On
+the card each level runs as a CUDA graph of one Langevin step, replayed
+``--T`` times; ``Capture:`` and ``Duration:`` in ``out.log`` time the
+captures and the whole sampler.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ import torch
 from . import cli
 from .models.ncsn import (anneal_langevin_dynamics, get_score_model,
                           get_sigmas)
+from .separation import graphs
 from .training.checkpoint import restore_ncsn_params
 
 
@@ -92,9 +97,13 @@ def run(args: argparse.Namespace) -> None:
     if args.use_logit:
         x_mod = (1.0 - 2 * alpha) * x_mod + alpha
         x_mod = torch.log(x_mod) - torch.log1p(-x_mod)
-    samples = anneal_langevin_dynamics(
-        model, x_mod, sigmas, generator, n_steps_each=args.T,
-        step_lr=args.step_lr, return_arr=args.return_arr).cpu().numpy()
+    t0 = time.time()
+    with graphs.recording() as record:
+        samples = anneal_langevin_dynamics(
+            model, x_mod, sigmas, generator, n_steps_each=args.T,
+            step_lr=args.step_lr, return_arr=args.return_arr).cpu().numpy()
+    graphs.print_capture(record)
+    print(f"Duration: {round(time.time() - t0, 3)} seconds")
 
     # back to the data scale (run_basis_sep.py:82-96)
     if args.use_logit:

@@ -109,10 +109,21 @@ def _winograd_weights(cache: dict, kernel: torch.Tensor, hwio: torch.Tensor,
     """``transform_weights(hwio)`` in ``dtype``, recomputed only when
     ``kernel`` is another tensor, was written in place (``_version``), moved
     (``data_ptr``), or ``dtype`` changes. The cache holds ``kernel`` itself,
-    so its identity cannot pass to a new tensor."""
+    so its identity cannot pass to a new tensor.
+
+    A miss while a CUDA graph captures raises: U computed then would live
+    in the graph's memory pool, hold nothing until a replay, and stay in
+    the cache for eager calls afterwards. An eager warm-up fills the cache
+    first (``separation.graphs``)."""
     from .ops.winograd import transform_weights
     key = (kernel._version, kernel.data_ptr(), dtype)
     if cache.get("kernel") is not kernel or cache.get("key") != key:
+        if torch.cuda.is_initialized() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "nn.conv2d: the Winograd weights of a conv are not cached "
+                "while a CUDA graph captures; run the captured function "
+                "once eagerly first")
         with torch.no_grad():
             cache["u"] = transform_weights(hwio).to(dtype)
         cache["kernel"], cache["key"] = kernel, key

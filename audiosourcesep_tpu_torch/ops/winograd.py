@@ -29,7 +29,11 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
   conv VJP (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``), as the
   JAX custom VJP uses the XLA conv VJP; there is no backward kernel.
 * ``launch_count`` counts kernel launches (and nothing else);
-  ``launch_counts`` splits it by kernel name.
+  ``launch_counts`` splits it by kernel name. A launch made while a CUDA
+  graph captures runs nothing then: the graph's owner takes the
+  capture's counts back off and adds them again at every replay
+  (:func:`counters`, :func:`counters_since`, :func:`add_counters`;
+  ``separation.graphs``), so the counters hold the launches the card ran.
 * A dilated 3x3 conv runs the same kernels on its d*d phase grids
   (``dilated_winograd_conv2d``): the kernels take d, read each phase's
   pixels in place from the undilated ``x`` and write its outputs in
@@ -52,7 +56,8 @@ __all__ = ["transform_weights", "winograd_conv2d", "bf16_path", "f32_path",
            "winograd_conv2d_reference", "winograd_eligible",
            "dilated_eligible", "dilated_winograd_conv2d",
            "dilated_winograd_conv2d_reference", "launch_count",
-           "launch_counts"]
+           "launch_counts", "counters", "counters_since", "add_counters",
+           "prepare"]
 
 _BT = np.array([[1, 0, -1, 0],
                 [0, 1, 1, 0],
@@ -76,6 +81,8 @@ launch_counts = {name: 0 for name in KERNELS.values()}
 bf16_path_counts = {"tma": 0, "plain": 0}
 # the f32 kernel's launches by its path (see f32_path)
 f32_path_counts = {"wide": 0, "thin_in": 0, "thin_out": 0}
+# the counters above that map a name to a count
+_COUNTERS = ("launch_counts", "bf16_path_counts", "f32_path_counts")
 # the f32 kernel's thin paths (csrc/winograd_thin.cu): C_in up to this takes
 # thin_in (on grids of more tiles than THIN_IN_MIN_TILES), else C_out up to
 # this (C_in a multiple of 4) thin_out
@@ -100,6 +107,55 @@ THIN_OUT_BLOCKS_PER_SM = {4: 3, 1: 4}
 # (TMA's element strides stop at 8) and addresses 2d-pixel groups instead,
 # which needs C_in in whole 16-channel chunks
 BF16_STRIDED_MAX_DILATION = 4
+
+
+def counters() -> dict:
+    """A copy of every launch counter: ``{"launch_count": n,
+    "launch_counts": {...}, "bf16_path_counts": {...}, "f32_path_counts":
+    {...}}``."""
+    return {"launch_count": launch_count,
+            **{c: dict(globals()[c]) for c in _COUNTERS}}
+
+
+def counters_since(before: dict) -> dict:
+    """The launches counted since :func:`counters` gave ``before``, in its
+    layout."""
+    now = counters()
+    return {"launch_count": now["launch_count"] - before["launch_count"],
+            **{c: {k: n - before[c][k] for k, n in now[c].items()}
+               for c in _COUNTERS}}
+
+
+def add_counters(launches: dict, times: int) -> None:
+    """Add ``times`` x ``launches`` (:func:`counters_since`'s layout) to
+    the counters: a CUDA graph's replays add the launches its capture
+    counted, and the capture, which ran nothing, takes them off (``times =
+    -1``)."""
+    global launch_count
+    launch_count += times * launches["launch_count"]
+    for c in _COUNTERS:
+        counts = globals()[c]
+        for k, n in launches[c].items():
+            counts[k] += times * n
+
+
+def _count_launch(name: str, path: str, bf16: bool) -> None:
+    """One launch of kernel ``name`` on ``path``, counted."""
+    global launch_count
+    launch_count += 1
+    launch_counts[name] += 1
+    (bf16_path_counts if bf16 else f32_path_counts)[path] += 1
+
+
+def prepare(device: torch.device) -> None:
+    """Build and load the kernel library and read ``device``'s SM count:
+    the host work of a first launch, which must not run while a CUDA graph
+    captures (a build is seconds of ``nvcc``)."""
+    from ..kernels.build import load_library
+    device = torch.device(device)
+    load_library()
+    _sm_count(torch.cuda.current_device() if device.index is None
+              else device.index)
 
 
 def _const(a: np.ndarray, device) -> torch.Tensor:
@@ -351,7 +407,6 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
     kernel's design instead of :func:`f32_path`'s choice, so that a
     measurement can time two designs on one conv; a path that does not
     take the conv raises."""
-    global launch_count
     if not x.is_cuda or u.device != x.device:
         raise ValueError(f"winograd kernel needs x and U on one CUDA device, "
                          f"got {x.device} and {u.device}")
@@ -400,7 +455,11 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
         else:
             raise ValueError(f"the f32 kernel's path {path!r} does not take "
                              f"x {tuple(x.shape)} -> C_out {cout}")
-    from ..kernels.build import load_library
+    from ..kernels import build
+    if build._lib is None and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the winograd kernels are not loaded: call "
+                           "ops.winograd.prepare (or launch once) before a "
+                           "CUDA graph captures them")
     # the current stream's cudaStream_t (torch.cuda.current_stream builds a
     # Stream object: 5 us of host time a launch on the H100's host, against
     # 0.15 us)
@@ -409,16 +468,14 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
     # costs host time, so only when it is another)
     with (contextlib.nullcontext() if x.device.index ==
           torch.cuda.current_device() else torch.cuda.device(x.device)):
-        err = getattr(load_library(), entry)(
+        err = getattr(build.load_library(), entry)(
             x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, w, *sizes,
             *geometry, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, C_out {cout}, d={d}, "
                            f"path {path})")
-    launch_count += 1
-    launch_counts[name] += 1
-    (bf16_path_counts if bf16 else f32_path_counts)[path] += 1
+    _count_launch(name, path, bf16)
     return y
 
 

@@ -36,6 +36,11 @@ and the mixing gathers the other source's frames each step. Ranks that
 share a card use gloo. Rank 0 gathers the result and alone writes the
 outputs; ``Duration`` is its wall-clock between barriers.
 
+On one CUDA card each noise level runs as a CUDA graph of one Langevin
+step, captured once and replayed ``--T`` times (``separation.graphs``);
+``Capture:`` (printed before ``Duration:``) gives the captures' time and
+their warm-up steps'. Over several ranks the anneal runs eagerly.
+
     torchrun --nproc_per_node 2 -m audiosourcesep_tpu_torch.run_basis_sep \
         CKPT1 CKPT2 --song_dir SONG --shard_sources --compute_dtype bf16
 """
@@ -60,6 +65,7 @@ from .models import build_glow
 from .models.ncsn import get_score_model, get_sigmas
 from .ops.inversion import mel_to_audio
 from .ops.mel import db_to_power
+from .separation import graphs
 from .separation import (BasisConfig, basis_separate_per_level,
                          glow_score_fn, ncsn_score_fn, postprocess,
                          preprocess_mixture, source_sharded_glow_score,
@@ -289,13 +295,15 @@ def run(args: argparse.Namespace, device: torch.device) -> None:
               f"{layout.data_index} of {layout.data_size}")
         dist.barrier()
     t0 = time.time()
-    x_final, traj = basis_separate_per_level(
-        score_fn, mixed, x_init, sigmas, gen, cfg, callback=progress,
-        layout=layout)
+    with graphs.recording() as record:
+        x_final, traj = basis_separate_per_level(
+            score_fn, mixed, x_init, sigmas, gen, cfg, callback=progress,
+            layout=layout)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if layout is not None:
         dist.barrier()
+    graphs.print_capture(record)
     print(f"Duration: {round(time.time() - t0, 3)} seconds")
     if not is_main_process():
         return      # rank 0 holds the gathered result and writes it

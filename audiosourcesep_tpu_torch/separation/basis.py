@@ -9,9 +9,11 @@ the mixture:
            + sqrt(2 eta) * eps
 
 with ``eta = delta * (sigma / sigma_L)^2`` and ``lambda = 1 / sigma^2``.
-PyTorch runs eagerly, so the JAX package's jitted per-level scan becomes a
-Python loop over steps, and its single L*T program (``basis_separate``)
-the same loop over all levels in one call.
+The JAX package's jitted per-level scan becomes, on a CUDA device, a CUDA
+graph of one step captured each level and replayed T times
+(:mod:`.graphs`); on the CPU the same step runs in a Python loop. Its
+single L*T program (``basis_separate``) is the same anneal over all levels
+in one call.
 
 Over several ranks (a :class:`~..parallel.Layout`) each rank anneals its
 block of the sources: its frame shard of both sources (the frames are
@@ -21,7 +23,8 @@ layout one source's frames, whose model it alone holds
 the mixing then gathers the other source's block each step. Every draw
 is made over the global sources and sliced, so a layout changes no
 draw; a model that sees fewer frames a forward (frames sharded) rounds
-otherwise.
+otherwise. A layout of more than one rank anneals eagerly: its NCCL
+collectives are not captured in a graph yet.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from ..parallel import Layout
+from . import graphs
 from .mixing import mixing_process
 
 
@@ -145,7 +149,8 @@ def basis_separate_per_level(score_fn: Callable, mixed: torch.Tensor,
                              config: BasisConfig = BasisConfig(),
                              callback: Optional[Callable] = None,
                              noise_fn: Optional[Callable] = None,
-                             layout: Optional[Layout] = None):
+                             layout: Optional[Layout] = None,
+                             graphed: Optional[bool] = None):
     """Annealed BASIS separation, one noise level at a time.
 
     Args:
@@ -167,58 +172,78 @@ def basis_separate_per_level(score_fn: Callable, mixed: torch.Tensor,
             are copies of real ones and drawn alike, so they change
             nothing). Every rank draws every noise over the global
             ``x_init`` shape and keeps its block.
+        graphed: each level as a CUDA graph of one step, captured once and
+            replayed T times (:func:`.graphs.anneal`; one eager warm-up
+            step a level runs before its capture). ``None``: graphed on a
+            single-rank CUDA run, else eager. ``True`` on the CPU or with
+            a layout of more than one rank raises; ``False`` runs the same
+            step eagerly. The callback and the trajectory's snapshots run
+            between levels, outside the graphs.
     Returns:
         ``(x_final [K, N, ...], trajectory [L+1, K, N, ...] or None)``,
         with a ``layout`` gathered on rank 0 (``(None, None)`` on the
         other ranks).
     """
+    layout = layout or Layout()
+    graphed = graphs.use_graphs(graphed, x_init.device, layout.world_size)
     g, grad_g = mixing_process(config.data_type, config.scale)
     sig = np.asarray(sigmas, np.float32)
-    L = sig.shape[0]
-    layout = layout or Layout()
     n_frames = x_init.shape[1]
     rows = layout.sources
     mixed = layout.local(mixed, frame_axis=0, source_axis=None)
     # x is updated in place: the port's stand-in for the JAX package's
-    # buffer donation into the per-level program. The caller's x_init is
-    # copied first and each trajectory entry is a snapshot copy.
+    # buffer donation into the per-level program, and the graphs' static
+    # input. The caller's x_init is copied first and each trajectory entry
+    # is a snapshot copy.
     x = layout.local(x_init).clone()
     N = x.shape[1]
     traj = [x.clone()] if config.collect_trajectory else None
-    for level in range(L):
+
+    def make_step(level):
         sigma = sig[level]
         eta = np.float32(config.delta) * np.square(sigma / sig[-1])
         lam = float(np.float32(1.0) / np.square(sigma))
         noise_scale = float(np.sqrt(np.float32(2.0) * eta))
         eta = float(eta)
         labels = torch.full((N,), level, dtype=torch.long, device=x.device)
-        for step in range(config.T):
-            if noise_fn is not None:
-                noise = noise_fn(level, step).to(device=x.device,
-                                                 dtype=x.dtype)
-            else:
-                noise = torch.randn(x_init.shape, generator=generator,
-                                    device=x.device, dtype=x.dtype)
-            noise = layout.local(noise)
+
+        def step(x, noise):
             scores = _clip_scores(score_fn(x, labels, level), sigma,
                                   config.score_clip)
             # the mixing over every source of this rank's frames
             xs = layout.gather_sources(x)
             recon = lam * grad_g(xs)[rows] * (mixed - g(xs))
             x.add_(eta * (scores + recon)).add_(noise * noise_scale)
+
+        return step
+
+    if layout.world_size > 1:
+        given = noise_fn
+
+        def noise_fn(level, step):
+            # every rank draws over the global sources and keeps its block
+            noise = (torch.randn(x_init.shape, generator=generator,
+                                 device=x.device, dtype=x.dtype)
+                     if given is None else given(level, step))
+            return layout.local(noise.to(device=x.device, dtype=x.dtype))
+
+    def after_level(level, x):
         if callback is not None:
             callback(level, x)
-        if config.collect_trajectory:
+        if traj is not None:
             traj.append(x.clone())
+
+    graphs.anneal(make_step, x, sig.shape[0], config.T, graphed, generator,
+                  noise_fn, after_level)
     x = layout.gather(x, n_frames)
     if traj is not None:
         traj = layout.gather(torch.stack(traj), n_frames, frame_axis=2)
     return x, traj
 
 
-# The full annealed separation in one call (all L levels x T steps): in
-# eager PyTorch the same loop as basis_separate_per_level, with the same
-# arguments and results.
+# The full annealed separation in one call (all L levels x T steps): the
+# same anneal as basis_separate_per_level (one graph a level on a CUDA
+# device), with the same arguments and results.
 basis_separate = basis_separate_per_level
 
 

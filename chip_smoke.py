@@ -125,8 +125,10 @@ repository around this file, it exits non-zero and prints no result.
 """
 
 import contextlib
+import functools
 import io
 import json
+import math
 import os
 import shutil
 import socket
@@ -299,6 +301,10 @@ MULTI_SRC_TOL = (1e-3, 1e-3)
 # 15 frames against the same frames at 30). The readings of that batch
 # effect, 0.048 max and 0.0033 mean (10b, 2 ranks), set this bound.
 MULTI_FRAMES_TOL = (0.2, 1e-2)
+# phase 11: BASIS graphed against eager at full width, levels x T steps;
+# the graph's peak memory over the eager run's, at most
+GRAPH_LEVELS, GRAPH_T = 2, 5
+GRAPH_PEAK = 1.10
 # the train steps' times of phase 7d, beside which 10c prints its own
 STEP_TIMES = {}
 # technique 1: the f32 Gram distance on the card against float64 on the
@@ -767,16 +773,65 @@ def _reset_counts():
             counts[name] = 0
 
 
-def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
-    """One separation through the CLI; returns the launches of each
-    kernel during it, the wall-clock and the output directory."""
+def graphed_steps(L: int, T: int) -> int:
+    """The steps a graphed anneal of ``L`` levels x ``T`` steps runs on
+    the card (``separation.graphs``): one eager warm-up step a level before
+    its capture, then T replays (the capture itself runs nothing)."""
+    return L * (T + 1)
+
+
+@contextlib.contextmanager
+def _eager_anneals():
+    """The CLIs' anneals eager (``graphed=False``), for the ``Duration``
+    beside a graphed run's: ``run_basis_sep`` and ``ncsn_generate_samples``
+    call them by these names."""
+    from audiosourcesep_tpu_torch import ncsn_generate_samples, run_basis_sep
+    saved = (run_basis_sep.basis_separate_per_level,
+             ncsn_generate_samples.anneal_langevin_dynamics)
+    run_basis_sep.basis_separate_per_level = functools.partial(
+        saved[0], graphed=False)
+    ncsn_generate_samples.anneal_langevin_dynamics = functools.partial(
+        saved[1], graphed=False)
+    try:
+        yield
+    finally:
+        (run_basis_sep.basis_separate_per_level,
+         ncsn_generate_samples.anneal_langevin_dynamics) = saved
+
+
+def _log_times(out: str):
+    """The ``Capture`` and ``Duration`` lines of a CLI's ``out.log``."""
+    with open(os.path.join(out, "out.log")) as f:
+        return [ln.strip() for ln in f
+                if ln.startswith(("Capture", "Duration"))]
+
+
+def _compare_cli(tag: str, graphed_out: str, eager_out: str, smi: str):
+    """A CLI separation graphed against the same run eager: the
+    ``Capture`` / ``Duration`` lines side by side, and how far the results
+    (the same seed's draws) are apart."""
+    import numpy as np
+    a, b = (np.load(os.path.join(o, "results.npz"))
+            for o in (graphed_out, eager_out))
+    diff = {k: float(np.abs(a[k] - b[k]).max()) for k in ("x1", "x2")}
+    print(f"{tag} graphed {_log_times(graphed_out)} against eager "
+          f"{_log_times(eager_out)} [{smi}]; results max|graphed - eager| "
+          f"{diff} dB")
+
+
+def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False,
+              graphed: bool = True):
+    """One separation through the CLI, graphed as the CLI runs on the card
+    or (``graphed=False``) eager; returns the launches of each kernel
+    during it, the wall-clock and the output directory."""
     import numpy as np
     import torch
     from audiosourcesep_tpu_torch import run_basis_sep
     from audiosourcesep_tpu_torch.data import read_wav
     from audiosourcesep_tpu_torch.ops import winograd as W
     song, p1, p2 = (os.path.join(work, n) for n in ("song", "p1", "p2"))
-    out = os.path.join(work, f"sep_T{T}_{dtype}")
+    out = os.path.join(work, f"sep_T{T}_{dtype}"
+                       + ("" if graphed else "_eager"))
     if not os.path.isdir(song):
         for d in (song, p1, p2):
             os.makedirs(d, exist_ok=True)
@@ -787,34 +842,39 @@ def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
         print(f"[5] wrote 70 s of wavs and two JAX-format priors in "
               f"{time.time() - t0:.1f} s")
     L = 10
+    steps = graphed_steps(L, T) if graphed else L * T
     _reset_counts()
     t0 = time.time()
-    run_basis_sep.main([p1, p2, "--output", out, "--song_dir", song,
-                        "--model_type", "ncsn", "--version", "v1",
-                        "--n_filters", "192", "--num_classes", str(L),
-                        "--scale", "dB", "--n_mixed", str(BATCH),
-                        "--T", str(T), "--compute_dtype", dtype,
-                        "--winograd", "--device", "cuda"]
-                       + (["--inverse"] if inverse else []))
+    with contextlib.nullcontext() if graphed else _eager_anneals():
+        run_basis_sep.main([p1, p2, "--output", out, "--song_dir", song,
+                            "--model_type", "ncsn", "--version", "v1",
+                            "--n_filters", "192", "--num_classes", str(L),
+                            "--scale", "dB", "--n_mixed", str(BATCH),
+                            "--T", str(T), "--compute_dtype", dtype,
+                            "--winograd", "--device", "cuda"]
+                           + (["--inverse"] if inverse else []))
     wall = time.time() - t0
     launches = dict(W.launch_counts)
     paths = dict(W.bf16_path_counts if dtype == "bf16"
                  else W.f32_path_counts)
-    expected = 2 * L * T * ROUTED_PER_FORWARD
+    expected = 2 * steps * ROUTED_PER_FORWARD
     mine = W.KERNELS[torch.bfloat16 if dtype == "bf16" else torch.float32]
     res = np.load(os.path.join(out, "results.npz"))
     conv = np.load(os.path.join(out, "results_convergence.npz"))
     with open(os.path.join(out, "out.log")) as f:
         log = [ln for ln in f.read().splitlines()
-               if ln.startswith(("Data Loaded", "Duration",
+               if ln.startswith(("Data Loaded", "Capture", "Duration",
                                  "Inversion duration"))]
     inv_s = sum(float(ln.split()[2]) for ln in log
                 if ln.startswith("Inversion duration"))
-    print(f"[5] CLI T={T} {dtype}{' --inverse' if inverse else ''}: "
+    mode = "graphed" if graphed else "eager"
+    print(f"[5] CLI T={T} {dtype}{' --inverse' if inverse else ''}, {mode}: "
           f"wall-clock {wall:.2f} s (main(), data and model load included), "
           f"{wall - inv_s:.2f} s without the inversion; out.log: {log}")
-    print(f"[5] kernel launches {launches}, expected {mine}: 2 models x {L} "
-          f"levels x T={T} x {ROUTED_PER_FORWARD} = {expected}")
+    how = (f"{L} levels x (T={T} replays + 1 warm-up step)" if graphed
+           else f"{L} levels x T={T}")
+    print(f"[5] kernel launches {launches}, expected {mine}: 2 models x "
+          f"{how} x {ROUTED_PER_FORWARD} = {expected}")
     if launches != {name: expected if name == mine else 0
                     for name in launches}:
         raise AssertionError(f"the {dtype} path did not launch {mine} for "
@@ -824,7 +884,7 @@ def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False):
     per = ({"tma": ROUTED_PER_FORWARD - 1, "plain": 1} if dtype == "bf16"
            else {"wide": ROUTED_PER_FORWARD - 2, "thin_in": 1,
                  "thin_out": 1})
-    want = {k: 2 * L * T * n for k, n in per.items()}
+    want = {k: 2 * steps * n for k, n in per.items()}
     print(f"[5] {dtype} launches by path {paths}, expected {want}")
     if paths != want:
         raise AssertionError(f"the {dtype} kernel's paths are not the "
@@ -1203,7 +1263,8 @@ def phase_train_cli(work: str, ds: str, counts):
     out, gen = os.path.join(work, "ncsn"), os.path.join(work, "ncsn_gen")
     L, T = 10, 1
     steps = counts[0] // TRAIN_BATCH
-    forwards = steps + -(-counts[1] // TRAIN_BATCH) + L * T
+    # the Langevin snapshot is graphed: a warm-up step a level besides T
+    forwards = steps + -(-counts[1] // TRAIN_BATCH) + graphed_steps(L, T)
     try:
         nn.set_winograd(True)
         _reset_counts()
@@ -1236,8 +1297,8 @@ def phase_train_cli(work: str, ds: str, counts):
           f"out.log: {log}")
     want = {f32: forwards * ROUTED_PER_FORWARD, bf16: 0}
     print(f"[7d] kernel launches {train_launches}, expected {want}: "
-          f"({steps} steps + {forwards - steps - L * T} eval batches + "
-          f"{L}x{T} Langevin) x {ROUTED_PER_FORWARD}")
+          f"({steps} steps + {forwards - steps - graphed_steps(L, T)} eval "
+          f"batches + {L}x({T}+1) graphed Langevin) x {ROUTED_PER_FORWARD}")
     if train_launches != want:
         raise AssertionError("the training CLI did not launch the f32 "
                              "kernel for every routed conv, and only it")
@@ -1266,11 +1327,12 @@ def phase_train_cli(work: str, ds: str, counts):
           f"(params, ema_params, opt_state, step), step {step}; "
           f"restore_ncsn_params(ema=True) loaded {len(sd)} tensors; "
           f"snapshot {samples.shape}, finite")
-    gen_want = {f32: L * T * ROUTED_PER_FORWARD, bf16: 0}
+    gen_want = {f32: graphed_steps(L, T) * ROUTED_PER_FORWARD, bf16: 0}
     g = np.load(os.path.join(gen, "generated_samples.npy"))
     print(f"[7d] ncsn_generate_samples --ema --T {T} --n_samples 8: "
           f"{gen_wall:.2f} s, {g.shape} in [{g.min():.2f}, {g.max():.2f}] dB; "
-          f"launches {gen_launches}, expected {gen_want}")
+          f"out.log {_log_times(gen)}; launches {gen_launches}, expected "
+          f"{gen_want} ({L} levels x ({T} replays + 1 warm-up step))")
     if g.shape != (8, 96, 64, 1) or not np.isfinite(g).all() \
             or g.min() < -100.0 or g.max() > 20.0:
         raise AssertionError("generated samples")
@@ -1592,11 +1654,12 @@ def phase_glow_train(smi: str):
     return times
 
 
-def phase_glow_cli(work: str, ds: str, counts, full: bool):
+def phase_glow_cli(work: str, ds: str, counts, full: bool, smi: str):
     """8e: train_glow -> train_noisy_glow -> run_basis_sep --model_type
-    glow --winograd at full width on phase 7a's dataset; returns the f32
-    kernel's launches, in all and by path, in the T=2 separation at each
-    --score_chunk (8 and 0), by chunk."""
+    glow --winograd at full width on phase 7a's dataset, graphed as the
+    CLI runs on the card, and at T=2 also eager for the Duration beside;
+    returns the f32 kernel's launches, in all and by path, in the graphed
+    T=2 separation at each --score_chunk (8 and 0), by chunk."""
     import numpy as np
     import torch
     from audiosourcesep_tpu_torch import (run_basis_sep, train_glow,
@@ -1650,22 +1713,28 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
     launches = {}
     # the T=100 run takes all 30 frames at once: a score of 8 frames costs
     # most of one of 30 (the flow's launches, not its FLOPs, set it)
-    runs = [(2, 8), (2, 0)] + ([(100, 0)] if full else [])
-    for T, chunk in runs:
-        out = os.path.join(work, f"sep_glow_T{T}_c{chunk}")
+    # the CLI runs graphed; T=2 also eager, for the Duration beside
+    runs = [(2, 8, True), (2, 8, False), (2, 0, True), (2, 0, False)] + (
+        [(100, 0, True)] if full else [])
+    for T, chunk, graphed in runs:
+        out = os.path.join(work, f"sep_glow_T{T}_c{chunk}"
+                           + ("" if graphed else "_eager"))
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        run_basis_sep.main([noisy, noisy, "--output", out, "--song_dir",
-                            song, "--model_type", "glow", "--winograd",
-                            "--T", str(T), "--n_mixed", str(BATCH),
-                            "--num_classes", str(L), "--score_chunk",
-                            str(chunk), "--score_clip", "1", *width])
+        with contextlib.nullcontext() if graphed else _eager_anneals():
+            run_basis_sep.main([noisy, noisy, "--output", out, "--song_dir",
+                                song, "--model_type", "glow", "--winograd",
+                                "--T", str(T), "--n_mixed", str(BATCH),
+                                "--num_classes", str(L), "--score_chunk",
+                                str(chunk), "--score_clip", "1", *width])
         wall = time.time() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         got, paths = dict(W.launch_counts), dict(W.f32_path_counts)
         chunks = -(-BATCH // chunk) if chunk else 1
-        want = {name: L * T * 2 * chunks * GLOW_ROUTED
+        # graphed: a warm-up step a level besides the T replays
+        steps = graphed_steps(L, T) if graphed else L * T
+        want = {name: steps * 2 * chunks * GLOW_ROUTED
                 if dt == torch.float32 else 0
                 for dt, name in W.KERNELS.items()}
         # conv1 (2/4 -> 512) thin_in, (8 -> 512) wide, conv3 (512 ->
@@ -1675,18 +1744,20 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
         for (h, w, cin, cout), n in GLOW_CLASSES.items():
             for lo in range(0, BATCH, step):
                 b = min(step, BATCH - lo)
-                want_paths[W.f32_path((b, h, w, cin), cout)] += L * T * 2 * n
-        with open(os.path.join(out, "out.log")) as f:
-            dur = [ln.strip() for ln in f if ln.startswith("Duration")]
+                want_paths[W.f32_path((b, h, w, cin), cout)] += steps * 2 * n
+        dur = _log_times(out)
         res = np.load(os.path.join(out, "results.npz"))
         traj = np.load(os.path.join(out, "results_convergence.npz"))["x1"]
         finite = [float(np.isfinite(t).mean()) for t in traj]
+        how = (f"{L} levels x (T={T} replays + 1 warm-up step)" if graphed
+               else f"{L} levels x T={T}")
         print(f"[8e] run_basis_sep --model_type glow --winograd --T {T} "
-              f"--num_classes {L} --score_chunk {chunk} --score_clip 1: "
+              f"--num_classes {L} --score_chunk {chunk} --score_clip 1, "
+              f"{'graphed' if graphed else 'eager'}: "
               f"{dur}, finite share of x1 after each level {finite}, "
               f"wall-clock "
               f"{wall:.2f} s; peak memory {peak:.2f} GiB; launches {got}, "
-              f"expected {want} ({L} levels x T={T} x 2 sources x {chunks} "
+              f"expected {want} ({how} x 2 sources x {chunks} "
               f"chunks x {GLOW_ROUTED}); by path {paths}, expected "
               f"{want_paths}; x1 {res['x1'].shape} in "
               f"[{res['x1'].min():.2f}, {res['x1'].max():.2f}] dB")
@@ -1699,6 +1770,10 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool):
                     or not np.isfinite(res[key]).all() \
                     or res[key].min() < -100.0 or res[key].max() > 20.0:
                 raise AssertionError(f"results.npz {key}")
+        if not graphed:
+            _compare_cli(f"[8e] --score_chunk {chunk} T={T}:",
+                         out[:-len("_eager")], out, smi)
+            continue
         launches[(T, chunk)] = got[W.KERNELS[torch.float32]], paths
     return {chunk: launches[(2, chunk)] for chunk in (8, 0)}
 
@@ -1788,7 +1863,8 @@ def phase_image_ncsn(work: str, n_train: int, full: bool):
     width = ["--version", "v1", "--n_filters", "192", "--num_classes",
              str(L), "--device", "cuda"]
     steps = n_train // TRAIN_BATCH
-    forwards = steps + 1 + L * T            # steps, one eval batch, sampling
+    # steps, one eval batch, the graphed sampler (a warm-up step a level)
+    forwards = steps + 1 + graphed_steps(L, T)
     try:
         nn.set_winograd(True)
         _reset_counts()
@@ -1816,7 +1892,8 @@ def phase_image_ncsn(work: str, n_train: int, full: bool):
           f"ncsn_generate_samples: {samples.shape}, launches "
           f"{gen_launches}")
     if train_launches != {f32: forwards * per_fwd, bf16: 0} \
-            or gen_launches != {f32: L * T * per_fwd, bf16: 0}:
+            or gen_launches != {f32: graphed_steps(L, T) * per_fwd,
+                                bf16: 0}:
         raise AssertionError(f"the image NCSN's training did not launch "
                              f"the f32 kernel {per_fwd} times a forward")
     if samples.shape != (8, 32, 32, 1) or not np.isfinite(samples).all():
@@ -1834,11 +1911,11 @@ def phase_image_ncsn(work: str, n_train: int, full: bool):
         wall = time.time() - t0
         got = dict(W.launch_counts)
         mine = f32 if dtype == "f32" else bf16
-        want = {name: 2 * L * T_sep * per_fwd if name == mine else 0
-                for name in got}
+        want = {name: 2 * graphed_steps(L, T_sep) * per_fwd
+                if name == mine else 0 for name in got}
         with open(os.path.join(sep, "out.log")) as f:
             dur = [ln.strip() for ln in f if ln.startswith(
-                ("Data Loaded", "Duration"))]
+                ("Data Loaded", "Capture", "Duration"))]
         res = np.load(os.path.join(sep, "results.npz"), allow_pickle=True)
         print(f"[9b] run_basis_sep --dataset mnist --winograd --T {T_sep} "
               f"--compute_dtype {dtype}, {IMG_BATCH} mixtures: {dur}, "
@@ -2199,16 +2276,17 @@ def phase_image_glow(work: str, n_train: int, full: bool):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     got, paths = dict(W.launch_counts), dict(W.f32_path_counts)
     chunks = -(-IMG_BATCH // chunk)
-    want = {name: L * T * 2 * chunks * IMAGE_GLOW_ROUTED
+    # graphed: a warm-up step a level besides the T replays
+    steps = graphed_steps(L, T)
+    want = {name: steps * 2 * chunks * IMAGE_GLOW_ROUTED
             if dt == torch.float32 else 0 for dt, name in W.KERNELS.items()}
     # each class's path at each chunk's images (8, ..., 8, 2)
     want_paths = dict.fromkeys(W.f32_path_counts, 0)
     for (h, w, cin, cout), n in IMAGE_GLOW_CLASSES.items():
         for lo in range(0, IMG_BATCH, chunk):
             b = min(chunk, IMG_BATCH - lo)
-            want_paths[W.f32_path((b, h, w, cin), cout)] += L * T * 2 * n
-    with open(os.path.join(out, "out.log")) as f:
-        dur = [ln.strip() for ln in f if ln.startswith("Duration")]
+            want_paths[W.f32_path((b, h, w, cin), cout)] += steps * 2 * n
+    dur = _log_times(out)
     res = np.load(os.path.join(out, "results.npz"), allow_pickle=True)
     print(f"[9e] run_basis_sep --model_type glow --dataset mnist --winograd "
           f"--T {T} --score_chunk {chunk}, {IMG_BATCH} mixtures: {dur}, "
@@ -2681,14 +2759,16 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     rel = {p: _param_rel(flat, ref_tree, p)
            for p in ("['params']", "['ema_params']")}
     per_rank = [r["launches"] for r in reports]
-    forwards = len(losses) + len(vals) + L * T
+    # each rank samples on its own, graphed: a warm-up step a level
+    forwards = len(losses) + len(vals) + graphed_steps(L, T)
     print(f"[10c] train_ncsn --multihost, 2 processes on cuda:0: {backends}; "
           f"wall-clock {wall:.2f} s (2 process starts included); epoch "
           f"lines {lines}; one process on the same global batches: train "
           f"{want[0]:.3f}, val {want[1]:.6f}; params ||diff|| / ||one|| "
           f"{rel}; launches per rank {per_rank}, expected {f32} "
           f"{forwards * ROUTED_PER_FORWARD} each ({len(losses)} steps + "
-          f"{len(vals)} eval + {L}x{T} Langevin); peak memory per rank "
+          f"{len(vals)} eval + {L}x({T}+1) graphed Langevin); peak memory "
+          f"per rank "
           f"{[round(r['peak_mib'], 1) for r in reports]} MiB")
     n_grad = sum(t.numel() for t in state.params.values())
     for r, rep in enumerate(reports):
@@ -2749,6 +2829,245 @@ def phase_multi_tools(work: str):
           f"(the TFRecords written in {written:.2f} s)")
     if rel > TECH1_TOL:
         raise AssertionError("[10d] technique 1 differs from float64")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the anneal as CUDA graphs of one step a level
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(scale: float) -> float:
+    """One bf16 ulp at ``scale`` (8 bits of mantissa)."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _scaled(counts: dict, times: int) -> dict:
+    """``ops.winograd.counters_since``'s layout, every count x ``times``."""
+    return {k: v * times if isinstance(v, int)
+            else {n: c * times for n, c in v.items()}
+            for k, v in counts.items()}
+
+
+def _step_launches(kernel: str, paths: dict, n: int) -> dict:
+    """The launches of one anneal step that launches ``kernel`` on each
+    path of ``paths`` ({path: launches}) and ``n`` times in all, in
+    ``ops.winograd.counters_since``'s layout."""
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    zero = W.counters_since(W.counters())
+    return {"launch_count": n,
+            "launch_counts": {k: n * (k == kernel)
+                              for k in zero["launch_counts"]},
+            **{c: {p: paths.get(p, 0) for p in zero[c]}
+               for c in ("bf16_path_counts", "f32_path_counts")}}
+
+
+def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
+                seed=12):
+    """One BASIS anneal (``collect_trajectory`` off) graphed or eager, with
+    ``noise`` ([L, T, *x0.shape]) injected or drawn from a generator of
+    ``seed``: x, the graphs' record, the host seconds, the launches and the
+    peak memory above what was allocated before (GiB)."""
+    import torch
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.separation import (basis_separate_per_level,
+                                                     graphs)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = W.counters()
+    t0 = time.perf_counter()
+    with graphs.recording() as record:
+        x, _ = basis_separate_per_level(
+            score_fn, mixed, x0, sigmas, gen, cfg, graphed=graphed,
+            noise_fn=None if noise is None else
+            (lambda level, step: noise[level, step]))
+    torch.cuda.synchronize()
+    return {"x": x, "record": record, "wall": time.perf_counter() - t0,
+            "launches": W.counters_since(before),
+            "peak": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+
+def _agree(tag, what, a, b, rerun=None):
+    """Hold graphed ``a`` to eager ``b``: bit for bit, or else within one
+    bf16 ulp of x's scale, with the largest difference and its reason
+    (whether eager itself repeats: ``rerun()`` is a second eager x)."""
+    import torch
+    if torch.equal(a, b):
+        print(f"{tag} {what}: graphed x_final equals eager bit for bit")
+        return
+    diff = float((a - b).abs().max())
+    bound = _bf16_ulp(float(b.abs().max()))
+    again = rerun() if rerun is not None else None
+    reason = ("the eager run itself differs from run to run by "
+              f"{float((again - b).abs().max()):.3e} (kernels whose sums "
+              f"are not in a fixed order)" if again is not None
+              and not torch.equal(again, b) else
+              "eager repeats bit for bit, so the graph computes otherwise")
+    print(f"{tag} {what}: graphed x_final differs from eager by max "
+          f"{diff:.3e} (one bf16 ulp of max|x| {bound:.3e}); {reason}")
+    if not diff <= bound:
+        raise AssertionError(f"{tag} {what}: graphed and eager disagree")
+
+
+def _graph_case(tag, score_fn, mixed, x0, sigmas, cfg, want_step, smi):
+    """11: one anneal at full width graphed and eager, on injected noise
+    and on a generator's draws: the results held together (``_agree``),
+    each graph's launches a replay to an eager step's (``want_step``) and
+    the runs' totals to theirs, and per step the wall-clock (host clock,
+    and CUDA events around each level's steps), the device-busy share
+    (the graph's replay time over a step's wall-clock), the capture and
+    warm-up time and the peak memory. Returns the peaks (graphed,
+    eager)."""
+    import torch
+    L, T = len(sigmas), cfg.T
+    noise = torch.randn((L, T, *x0.shape), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(11))
+    runs = {(g, inj): _anneal_run(score_fn, mixed, x0, sigmas, cfg, g,
+                                  noise if inj else None)
+            for inj in (True, False) for g in (False, True)}
+    for inj in (True, False):
+        _agree(tag, "injected noise" if inj else "noise drawn from one seed",
+               runs[True, inj]["x"], runs[False, inj]["x"],
+               lambda: _anneal_run(score_fn, mixed, x0, sigmas, cfg, False,
+                                   noise if inj else None)["x"])
+    graphed, eager = runs[True, True], runs[False, True]
+    per_replay = [c.launches for c in graphed["record"].captures]
+    if eager["launches"] != _scaled(want_step, L * T) \
+            or per_replay != [want_step] * L \
+            or graphed["launches"] != _scaled(want_step, L * (T + 1)):
+        raise AssertionError(f"{tag} launches: eager {eager['launches']}, "
+                             f"a replay {per_replay}, graphed "
+                             f"{graphed['launches']}; a step {want_step}")
+    by_path = {p: n for c in ("bf16_path_counts", "f32_path_counts")
+               for p, n in want_step[c].items() if n}
+    print(f"{tag} launches: each of the {L} graphs' replays "
+          f"{want_step['launch_counts']}, by path {by_path}: an eager "
+          f"step's; graphed {graphed['launches']['launch_count']} = {L} x "
+          f"(T={T} replays + 1 warm-up step), eager "
+          f"{eager['launches']['launch_count']} = {L} x T={T}")
+
+    def per_step(run):
+        levels = run["record"].levels
+        return (1e3 * sum(s.host_s for s in levels) / (L * T),
+                sum(s.device_ms for s in levels) / (L * T))
+
+    (g_host, g_dev), (e_host, e_dev) = per_step(graphed), per_step(eager)
+    caps = graphed["record"].captures
+    print(f"{tag} per step, graphed: {g_host:.3f} ms wall-clock (host), "
+          f"{g_dev:.3f} ms between events (the replays, back to back); "
+          f"eager: {e_host:.3f} ms wall-clock, {e_dev:.3f} ms between "
+          f"events; device-busy share (the replay's {g_dev:.3f} ms over a "
+          f"step's wall-clock) graphed {g_dev / g_host:.3f}, eager "
+          f"{g_dev / e_host:.3f}; capture "
+          f"{[round(c.capture_s, 3) for c in caps]} s, warm-up steps "
+          f"{[round(c.warmup_s, 3) for c in caps]} s; "
+          f"whole anneal {graphed['wall']:.3f} s graphed, {eager['wall']:.3f}"
+          f" s eager; peak memory graphed {graphed['peak']:.3f} GiB, eager "
+          f"{eager['peak']:.3f} GiB [{smi}]")
+    return graphed["peak"], eager["peak"]
+
+
+def phase_graphs(smi: str):
+    """11: BASIS as CUDA graphs of one step a level (separation.graphs) at
+    full width, 2 levels x T=5, routing on: NCSN v1 (192 filters, 30 frames
+    of [96, 64, 1]) in bf16 and in f32, and the Glow of
+    configs/melspec_glow.yml (a flow a level and source) in the
+    separation's chunks of 8 frames and whole (--score_chunk 8 and 0),
+    graphed against eager (``_graph_case``); the Glow score's backward
+    captured on the capture stream, and the graph's peak memory within
+    GRAPH_PEAK of the eager run's."""
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.bijectors import ShiftAndLogScaleConvNet
+    from audiosourcesep_tpu_torch.models.ncsn import (get_score_model,
+                                                      get_sigmas)
+    from audiosourcesep_tpu_torch.ops import winograd as W
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     glow_score_fn,
+                                                     ncsn_score_fn)
+    L, T = GRAPH_LEVELS, GRAPH_T
+    sigmas = get_sigmas(1.0, 0.01, L)
+    g = torch.Generator().manual_seed(21)
+    mixed = torch.rand(BATCH, 96, 64, 1, generator=g).cuda()
+    x0 = torch.rand(2, BATCH, 96, 64, 1, generator=g).cuda()
+    cfg = BasisConfig(T=T, delta=2e-5, collect_trajectory=False)
+    try:
+        nn.set_winograd(True)
+        models = []
+        for seed in (31, 32):
+            m = get_score_model("v1", (96, 64, 1), 192, L, device="cuda")
+            m.reset_parameters(torch.Generator().manual_seed(seed))
+            models.append(m.eval().requires_grad_(False))
+        for dtype, paths in ((torch.bfloat16, {"tma": 2 * 63, "plain": 2}),
+                             (None, {"wide": 2 * 62, "thin_in": 2,
+                                     "thin_out": 2})):
+            for m in models:
+                m.compute_dtype = dtype
+            name = "bf16" if dtype else "f32"
+            kernel = W.KERNELS[dtype or torch.float32]
+            _graph_case(f"[11] NCSN v1 192 filters {name}, {BATCH} frames, "
+                        f"{L} levels x T={T}:", ncsn_score_fn(models), mixed,
+                        x0, sigmas, cfg, _step_launches(
+                            kernel, paths, 2 * ROUTED_PER_FORWARD), smi)
+        del models
+        torch.cuda.empty_cache()
+        # a flow a level and source: each level's graph warms its own up
+        chains = [[_glow("cuda").requires_grad_(False) for _ in range(2)]
+                  for _ in range(L)]
+        gmixed = mixed * 80.0 - 80.0
+        gx0 = x0 * 120.0 - 100.0
+        gcfg = cfg._replace(score_clip=1.0)
+        flags = []
+
+        def on_forward(module, inputs, out):
+            out[1].register_hook(lambda grad: flags.append(
+                torch.cuda.is_current_stream_capturing()))
+
+        net = next(m for m in chains[0][0].modules()
+                   if isinstance(m, ShiftAndLogScaleConvNet))
+        peaks = {}
+        for chunk in (8, 0):
+            step = chunk or BATCH
+            paths = dict.fromkeys(W.f32_path_counts, 0)
+            for (h, w, cin, cout), n in GLOW_CLASSES.items():
+                for lo in range(0, BATCH, step):
+                    b = min(step, BATCH - lo)
+                    paths[W.f32_path((b, h, w, cin), cout)] += 2 * n
+            chunks = -(-BATCH // step)
+            hook = net.register_forward_hook(on_forward)
+            flags.clear()
+            try:
+                peaks[chunk] = _graph_case(
+                    f"[11] Glow L={GLOW['L']} K={GLOW['K']} "
+                    f"{GLOW['n_filters']} filters f32, {BATCH} frames, "
+                    f"--score_chunk {chunk}, {L} levels x T={T}:",
+                    glow_score_fn(chains, frame_chunk=chunk or None), gmixed,
+                    gx0, sigmas, gcfg, _step_launches(
+                        W.KERNELS[torch.float32], paths,
+                        2 * chunks * GLOW_ROUTED), smi)
+            finally:
+                hook.remove()
+            # the hooked flow (level 0, source 0): per chunk, its backward
+            # in the eager runs (4 of them and a rerun or not), the
+            # warm-ups, and once while the graph captured
+            captured = sum(flags)
+            print(f"[11] Glow --score_chunk {chunk}: {captured} of "
+                  f"{len(flags)} backward passes of the hooked coupling ran "
+                  f"while its stream captured ({chunks} chunk(s) a capture, "
+                  f"2 graphed runs)")
+            if captured != 2 * chunks:
+                raise AssertionError("[11] the Glow score's backward did not "
+                                     "run on the capture stream")
+            ratio = peaks[chunk][0] / peaks[chunk][1]
+            print(f"[11] Glow --score_chunk {chunk}: peak memory graphed / "
+                  f"eager {ratio:.3f} (at most {GRAPH_PEAK})")
+            if ratio > GRAPH_PEAK:
+                raise AssertionError("[11] the graph's peak memory exceeds "
+                                     "the eager run's")
+    finally:
+        nn.set_winograd(False)
+    torch.cuda.empty_cache()
 
 
 def kernels_line(res, routes):
@@ -2846,6 +3165,8 @@ def main(argv):
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         bf16_launches, _, bf16_out = phase_cli(work, 2, "bf16", inverse=True)
+        _compare_cli("[5] T=2 bf16:", bf16_out,
+                     phase_cli(work, 2, "bf16", graphed=False)[2], smi)
         f32_launches, _, _ = phase_cli(work, 1, "f32")
         launches = {"bfloat16": bf16_launches, "float32": f32_launches}
         phase_inversion(bf16_out)
@@ -2857,7 +3178,7 @@ def main(argv):
                     phase_glow_kernel(smi).items()})
         phase_glow_score()
         phase_glow_train(smi)
-        glow_launches = phase_glow_cli(work, ds, counts, full)
+        glow_launches = phase_glow_cli(work, ds, counts, full, smi)
         if full:
             phase_cli(work, 100, "bf16")
         n_train = phase_image_data(work)
@@ -2873,6 +3194,7 @@ def main(argv):
                  "multihost_train": phase_multi_train(work, ds,
                                                       train_launches, smi)}
         phase_multi_tools(work)
+        phase_graphs(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2911,7 +3233,7 @@ def main(argv):
         dt = f32 if key == "multihost_train" else bf16
         next(k for k in kernels if k["name"] == name[dt])[
             f"{key}_launches"] = n
-    print(f"[10] card: {smi}; chip_smoke.py ran {time.time() - t_start:.0f}"
+    print(f"[11] card: {smi}; chip_smoke.py ran {time.time() - t_start:.0f}"
           f" s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

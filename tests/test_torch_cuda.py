@@ -977,3 +977,156 @@ def test_song_front_end_on_the_card_matches_the_cpu(cuda, tmp_path):
     for a, b in zip(card[0], cpu[0]):
         assert a.shape == b.shape == (3, 96, 64, 1)
         assert np.abs(a - b).max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the anneal as CUDA graphs of one step a level (separation.graphs)
+# ---------------------------------------------------------------------------
+
+def _scaled(counts, times):
+    """``ops.winograd.counters_since``'s layout, every count x ``times``."""
+    return {k: v * times if isinstance(v, int)
+            else {n: c * times for n, c in v.items()}
+            for k, v in counts.items()}
+
+
+def _graphed_and_eager(cuda, run, T):
+    """``run(graphed)`` graphed and eager, routing on, with the launch
+    counts of each; the graphed run's counts hold one eager warm-up step
+    a level besides its T replays, so ``T x graphed == (T + 1) x eager``.
+    Returns the two results."""
+    out, launched = {}, {}
+    try:
+        nn.set_winograd(True)
+        for graphed in (True, False):
+            before = W.counters()
+            out[graphed] = run(graphed)
+            torch.cuda.synchronize()
+            launched[graphed] = W.counters_since(before)
+    finally:
+        nn.set_winograd(False)
+    assert launched[False]["launch_count"] > 0
+    assert _scaled(launched[True], T) == _scaled(launched[False], T + 1)
+    return out[True], out[False]
+
+
+def test_graphed_ncsn_anneal_equals_eager_on_the_card(cuda):
+    """A small NCSN (v1, 16 filters, 32x32, bf16 compute) routed to the
+    bf16 kernel on both its producer paths: BASIS and the Langevin sampler
+    graphed (one graph a level) equal the eager loops bit for bit, on
+    injected noise and on a generator's draws from one seed; the kernel
+    runs inside the graphs (launches by path per replay those of an eager
+    step)."""
+    from audiosourcesep_tpu_torch.models.ncsn import anneal_langevin_dynamics
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     ncsn_score_fn)
+    L, T, N, shape = 2, 3, 4, (32, 32, 1)
+    models = []
+    for seed in (1, 2):
+        m = get_score_model("v1", shape, 16, L, compute_dtype=torch.bfloat16,
+                            device=cuda)
+        m.reset_parameters(torch.Generator().manual_seed(seed))
+        models.append(m.eval().requires_grad_(False))
+    g = torch.Generator().manual_seed(3)
+    mixed = torch.rand((N, *shape), generator=g).to(cuda)
+    x0 = torch.rand((2, N, *shape), generator=g).to(cuda)
+    noise = torch.randn((L, T, 2, N, *shape), generator=g).to(cuda)
+    cfg = BasisConfig(T=T, delta=2e-3, data_type="melspec", scale="dB")
+    sigmas = get_sigmas(1.0, 0.1, L)
+
+    def separate(noise_fn=None, seed=None):
+        def run(graphed):
+            gen = None if seed is None else \
+                torch.Generator(device=cuda).manual_seed(seed)
+            return basis_separate_per_level(
+                ncsn_score_fn(models), mixed, x0, sigmas, gen, cfg,
+                noise_fn=noise_fn, graphed=graphed)
+        return run
+
+    for run in (separate(lambda level, step: noise[level, step]),
+                separate(seed=5)):
+        (x, traj), (x_e, traj_e) = _graphed_and_eager(cuda, run, T)
+        assert torch.isfinite(x).all() and (x - x0).abs().max() > 1e-2
+        assert torch.equal(x, x_e) and torch.equal(traj, traj_e)
+
+    def sample(graphed):
+        return anneal_langevin_dynamics(
+            models[0], x0[0], sigmas,
+            torch.Generator(device=cuda).manual_seed(7), n_steps_each=T,
+            return_arr=True, graphed=graphed)
+
+    got, eager = _graphed_and_eager(cuda, sample, T)
+    assert torch.equal(got, eager) and torch.equal(got[0], x0[0])
+
+
+@pytest.mark.parametrize("chunk", [2, None])
+def test_graphed_glow_anneal_equals_eager_on_the_card(cuda, chunk):
+    """Small Glows (L=3, K=2, 16 filters, f32, routed: the coupling convs on
+    the f32 kernel's wide, thin_in and thin_out paths), a pair a level:
+    BASIS graphed, its score (a forward and autograd's input gradient, in
+    frame chunks of 2 or whole) captured in each level's graph, equals the
+    eager loop bit for bit on injected noise, with cuDNN's deterministic
+    algorithms in both."""
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     glow_score_fn)
+    L, T, N = 2, 2, 4
+    g = torch.Generator().manual_seed(0)
+    mb = torch.rand(4, 96, 64, 1, generator=g) * 120.0 - 100.0
+    chains = []
+    for _ in range(L):
+        row = []
+        for _ in range(2):
+            m = build_glow((96, 64, 1), minibatch=mb, generator=g, L=3, K=2,
+                           n_filters=16, learntop=True, data_type="melspec")
+            with torch.no_grad():
+                for name, p in m.named_parameters():
+                    if "conv3.kernel" in name:
+                        p.copy_(1e-3 * torch.randn(p.shape, generator=g))
+            row.append(m.to(cuda).eval().requires_grad_(False))
+        chains.append(row)
+    mixed = (torch.rand(N, 96, 64, 1, generator=g) * 80.0 - 80.0).to(cuda)
+    x0 = (torch.rand(2, N, 96, 64, 1, generator=g) * 120.0 - 100.0).to(cuda)
+    noise = torch.randn((L, T, 2, N, 96, 64, 1), generator=g).to(cuda)
+    cfg = BasisConfig(T=T, delta=2e-3, data_type="melspec", scale="dB",
+                      score_clip=1.0)
+
+    def run(graphed):
+        return basis_separate_per_level(
+            glow_score_fn(chains, frame_chunk=chunk), mixed, x0,
+            [1.0, 0.5], config=cfg, graphed=graphed,
+            noise_fn=lambda level, step: noise[level, step])
+
+    before = W.counters()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (x, traj), (x_e, traj_e) = _graphed_and_eager(cuda, run, T)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    paths = W.counters_since(before)["f32_path_counts"]
+    assert all(paths[p] > 0 for p in ("wide", "thin_in", "thin_out"))
+    assert torch.isfinite(x).all() and (x - x0).abs().max() > 1e-3
+    assert torch.equal(x, x_e) and torch.equal(traj, traj_e)
+
+
+def test_graphed_anneal_raises_on_a_host_sync_and_does_not_run_eagerly(
+        cuda):
+    """A score that reads a value on the host (``.item()``) cannot be
+    captured: the graphed anneal raises, after its warm-up step and the
+    failed capture, and runs no eager step in its place."""
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level)
+    calls = []
+
+    def score(x, sigma_idx, level):
+        calls.append(level)
+        return -x * x.abs().max().item()
+
+    x0 = torch.rand(2, 3, 8, 8, 1, device=cuda)
+    with pytest.raises(RuntimeError):
+        basis_separate_per_level(score, x0[0], x0, [1.0, 0.5],
+                                 config=BasisConfig(T=2))
+    assert calls == [0, 0]
+    torch.cuda.synchronize()
