@@ -256,8 +256,10 @@ def frozen_batchnorm(x: torch.Tensor, gamma: torch.Tensor,
     ``x``: the reference's Keras BatchNormalization inside the flows'
     coupling nets, whose moving statistics stay at (0, 1) because it only
     ever runs in inference mode (JAX ``frozen_batchnorm``)."""
+    # the constant filled on the device (no copy from the host, which a
+    # CUDA graph cannot capture), then rounded there as the JAX package does
     g = gamma.to(x.dtype) * torch.rsqrt(
-        torch.tensor(1.0 + eps, dtype=x.dtype, device=x.device))
+        torch.full((), 1.0 + eps, dtype=x.dtype, device=x.device))
     return x * g[:, None, None] + beta.to(x.dtype)[:, None, None]
 
 

@@ -56,8 +56,7 @@ __all__ = ["transform_weights", "winograd_conv2d", "bf16_path", "f32_path",
            "winograd_conv2d_reference", "winograd_eligible",
            "dilated_eligible", "dilated_winograd_conv2d",
            "dilated_winograd_conv2d_reference", "launch_count",
-           "launch_counts", "counters", "counters_since", "add_counters",
-           "prepare"]
+           "launch_counts", "counters", "counters_since", "add_counters"]
 
 _BT = np.array([[1, 0, -1, 0],
                 [0, 1, 1, 0],
@@ -145,17 +144,6 @@ def _count_launch(name: str, path: str, bf16: bool) -> None:
     launch_count += 1
     launch_counts[name] += 1
     (bf16_path_counts if bf16 else f32_path_counts)[path] += 1
-
-
-def prepare(device: torch.device) -> None:
-    """Build and load the kernel library and read ``device``'s SM count:
-    the host work of a first launch, which must not run while a CUDA graph
-    captures (a build is seconds of ``nvcc``)."""
-    from ..kernels.build import load_library
-    device = torch.device(device)
-    load_library()
-    _sm_count(torch.cuda.current_device() if device.index is None
-              else device.index)
 
 
 def _const(a: np.ndarray, device) -> torch.Tensor:
@@ -457,9 +445,10 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
                              f"x {tuple(x.shape)} -> C_out {cout}")
     from ..kernels import build
     if build._lib is None and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("the winograd kernels are not loaded: call "
-                           "ops.winograd.prepare (or launch once) before a "
-                           "CUDA graph captures them")
+        # the first launch builds and loads the library (seconds of nvcc):
+        # a warm-up before the capture makes it (separation.graphs)
+        raise RuntimeError("the winograd kernels are not loaded: launch "
+                           "them once before a CUDA graph captures them")
     # the current stream's cudaStream_t (torch.cuda.current_stream builds a
     # Stream object: 5 us of host time a launch on the H100's host, against
     # 0.15 us)

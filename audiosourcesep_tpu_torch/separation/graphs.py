@@ -51,7 +51,6 @@ from typing import Callable, Iterator, List, NamedTuple, Optional
 
 import torch
 
-from .. import nn
 from ..ops import winograd
 
 Body = Callable[[torch.Tensor, torch.Tensor], None]
@@ -166,8 +165,6 @@ def capture_step(body: Body, x: torch.Tensor, noise: torch.Tensor,
     ``body(x, noise)`` into one graph; ``generator``, if not None, is
     registered with the graph."""
     record = _RECORD.get()
-    if nn.winograd_enabled():
-        winograd.prepare(x.device)
     t0 = time.perf_counter()
     current = torch.cuda.current_stream(x.device)
     side = torch.cuda.Stream(device=x.device)

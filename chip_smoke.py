@@ -34,11 +34,15 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
 5. the separation CLI in-process (``run_basis_sep.main``) on ~70 s of
    synthetic piano/violin wavs with two random-init priors written as
    JAX-format checkpoints: 30 frames, 10 noise levels, ``--winograd``,
-   T=2 in bf16 with ``--inverse`` (sep1/sep2.wav) and T=1 in f32; each run
-   must launch its dtype's kernel exactly 2 models x 10 levels x T x routed
-   convs per forward times and the other kernel never (so ``nn.conv2d``
-   routed no dilated conv), the bf16 kernel on its producer paths and the
-   f32 kernel on its paths (2 thin, 62 wide a forward);
+   T=2 in bf16 with ``--inverse`` (sep1/sep2.wav), the same T=2 run eager
+   (``graphed=False``) for its ``Duration`` beside the graphed one, and
+   T=1 in f32; the CLI anneals as CUDA graphs, one a level after one eager
+   warm-up step (``separation.graphs``), so each graphed run must launch
+   its dtype's kernel exactly 2 models x 10 levels x (T + 1) x routed
+   convs per forward times (the eager run T, not T + 1) and the other
+   kernel never (so ``nn.conv2d`` routed no dilated conv), the bf16 kernel
+   on its producer paths and the f32 kernel on its paths (2 thin, 62 wide
+   a forward);
 6. the inversion CLI (``melspec_inversion_basis.main``) on the card on the
    bf16 run's ``results.npz`` in three modes (reuse_phase with the Wiener
    filter, reuse_phase over the whole track, griffin), launching no
@@ -60,7 +64,8 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    training CLI (``train_ncsn.main``, ``--ema``, one epoch, a T=1 Langevin
    snapshot) and ``ncsn_generate_samples.main`` on its checkpoint, both
    with routing on, each launching the f32 kernel exactly 64 times per
-   forward it runs; the checkpoint holds the JAX train state's keys and
+   forward it runs (the graphed sampler a warm-up step a level besides its
+   T); the checkpoint holds the JAX train state's keys and
    ``restore_ncsn_params(ema=True)`` loads it.
 8. the Glow prior at the width of ``configs/melspec_glow.yml`` (L=3, K=40,
    512 filters, learntop, f32, TF32 off unless said): (a) the f32 kernel
@@ -77,9 +82,11 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    against its bound; (e) ``train_glow`` (one epoch on phase 7's dataset)
    -> ``train_noisy_glow`` (2 levels, 10 with ``--full``) ->
    ``run_basis_sep --model_type glow --winograd`` (T=2) at
-   ``--score_chunk 8`` and ``0``, with the f32 kernel's launches (80
-   ``thin_in``, 120 ``thin_out`` and 40 ``wide`` a forward),
-   ``Duration`` and the peak memory (``--full`` adds T=100 at ``0``).
+   ``--score_chunk 8`` and ``0``, graphed and (for the ``Duration``
+   beside) eager, with the f32 kernel's launches (80 ``thin_in``, 120
+   ``thin_out`` and 40 ``wide`` a forward; graphed, T + 1 steps a level),
+   ``Capture`` / ``Duration`` and the peak memory (``--full`` adds T=100
+   at ``0``).
 9. the image path, on random uint8 images written in the MNIST and
    CIFAR-10 npz layouts (``ASR_MNIST_NPZ`` / ``ASR_CIFAR10_NPZ``): (a) both
    kernels at the image NCSN's conv classes (32x32 and 16x16, batch 50)
@@ -117,7 +124,23 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    and ``technique1_ncsnv2`` on 2,000 synthetic spectrograms against
    float64. 10a prints the mixing ``all_gather``'s time a step and 10c
    the train steps' and their gradient all-reduces' (ranks sharing the
-   card).
+   card). Over several ranks the separation anneals eagerly.
+11. BASIS as CUDA graphs of one step a level (``separation.graphs``) at
+   full width, 2 levels x T=5 (the Glow's T=3), routing on, graphed
+   against eager: NCSN v1
+   (192 filters, 30 frames of [96, 64, 1], two random priors) in bf16
+   (the bf16 kernel's ``tma`` and ``plain`` paths) and in f32 (wide,
+   thin_in, thin_out), and the Glow of ``configs/melspec_glow.yml`` (a
+   flow a level and source) at ``--score_chunk 8`` and 0. On injected
+   noise and on one seed's draws x_final must agree bit for bit, or within
+   one bf16 ulp of x's scale with the reason printed (whether eager itself
+   repeats); each graph's launches a replay, by path, must be an eager
+   step's; the Glow score's backward must run while its stream captures,
+   and the graph's peak memory stay within GRAPH_PEAK of the eager run's.
+   Per step it prints the wall-clock (host clock and CUDA events), the
+   device-busy share (the replay's time over a step's wall-clock), the
+   capture and warm-up time and the peak memory, beside the card's name
+   and power limit.
 
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -301,9 +324,11 @@ MULTI_SRC_TOL = (1e-3, 1e-3)
 # 15 frames against the same frames at 30). The readings of that batch
 # effect, 0.048 max and 0.0033 mean (10b, 2 ranks), set this bound.
 MULTI_FRAMES_TOL = (0.2, 1e-2)
-# phase 11: BASIS graphed against eager at full width, levels x T steps;
-# the graph's peak memory over the eager run's, at most
-GRAPH_LEVELS, GRAPH_T = 2, 5
+# phase 11: BASIS graphed against eager at full width, levels x T steps
+# (the Glow's at T=3: its eager steps, 2.5 s at --score_chunk 8, are most
+# of the phase's time); the graph's peak memory over the eager run's, at
+# most
+GRAPH_LEVELS, GRAPH_T, GRAPH_GLOW_T = 2, 5, 3
 GRAPH_PEAK = 1.10
 # the train steps' times of phase 7d, beside which 10c prints its own
 STEP_TIMES = {}
@@ -2887,22 +2912,22 @@ def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
             "peak": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
 
 
-def _agree(tag, what, a, b, rerun=None):
+def _agree(tag, what, a, b, spread):
     """Hold graphed ``a`` to eager ``b``: bit for bit, or else within one
-    bf16 ulp of x's scale, with the largest difference and its reason
-    (whether eager itself repeats: ``rerun()`` is a second eager x)."""
+    bf16 ulp of x's scale, printing the largest difference and its reason:
+    ``spread()``, the max|difference| of two eager runs (0 where eager
+    repeats bit for bit)."""
     import torch
     if torch.equal(a, b):
         print(f"{tag} {what}: graphed x_final equals eager bit for bit")
         return
     diff = float((a - b).abs().max())
     bound = _bf16_ulp(float(b.abs().max()))
-    again = rerun() if rerun is not None else None
-    reason = ("the eager run itself differs from run to run by "
-              f"{float((again - b).abs().max()):.3e} (kernels whose sums "
-              f"are not in a fixed order)" if again is not None
-              and not torch.equal(again, b) else
-              "eager repeats bit for bit, so the graph computes otherwise")
+    eager = spread()
+    reason = (f"the eager run itself differs from run to run by {eager:.3e} "
+              f"(kernels whose sums are not in a fixed order)" if eager
+              else "eager repeats bit for bit, so the graph computes "
+              "otherwise")
     print(f"{tag} {what}: graphed x_final differs from eager by max "
           f"{diff:.3e} (one bf16 ulp of max|x| {bound:.3e}); {reason}")
     if not diff <= bound:
@@ -2923,14 +2948,21 @@ def _graph_case(tag, score_fn, mixed, x0, sigmas, cfg, want_step, smi):
     noise = torch.randn((L, T, *x0.shape), device="cuda",
                         generator=torch.Generator(device="cuda")
                         .manual_seed(11))
+    # an eager step a level first, so that no run below pays the first
+    # call's set-up (the library, cuDNN's and cuBLAS' handles)
+    _anneal_run(score_fn, mixed, x0, sigmas, cfg._replace(T=1), False)
     runs = {(g, inj): _anneal_run(score_fn, mixed, x0, sigmas, cfg, g,
                                   noise if inj else None)
             for inj in (True, False) for g in (False, True)}
+    @functools.lru_cache(maxsize=None)
+    def spread():
+        # a second eager run on the injected noise, against the first
+        again = _anneal_run(score_fn, mixed, x0, sigmas, cfg, False, noise)
+        return float((again["x"] - runs[False, True]["x"]).abs().max())
+
     for inj in (True, False):
         _agree(tag, "injected noise" if inj else "noise drawn from one seed",
-               runs[True, inj]["x"], runs[False, inj]["x"],
-               lambda: _anneal_run(score_fn, mixed, x0, sigmas, cfg, False,
-                                   noise if inj else None)["x"])
+               runs[True, inj]["x"], runs[False, inj]["x"], spread)
     graphed, eager = runs[True, True], runs[False, True]
     per_replay = [c.launches for c in graphed["record"].captures]
     if eager["launches"] != _scaled(want_step, L * T) \
@@ -2970,10 +3002,11 @@ def _graph_case(tag, score_fn, mixed, x0, sigmas, cfg, want_step, smi):
 
 def phase_graphs(smi: str):
     """11: BASIS as CUDA graphs of one step a level (separation.graphs) at
-    full width, 2 levels x T=5, routing on: NCSN v1 (192 filters, 30 frames
-    of [96, 64, 1]) in bf16 and in f32, and the Glow of
+    full width, routing on: NCSN v1 (192 filters, 30 frames of [96, 64,
+    1]) in bf16 and in f32, 2 levels x T=5, and the Glow of
     configs/melspec_glow.yml (a flow a level and source) in the
     separation's chunks of 8 frames and whole (--score_chunk 8 and 0),
+    2 levels x T=3,
     graphed against eager (``_graph_case``); the Glow score's backward
     captured on the capture stream, and the graph's peak memory within
     GRAPH_PEAK of the eager run's."""
@@ -3017,7 +3050,7 @@ def phase_graphs(smi: str):
                   for _ in range(L)]
         gmixed = mixed * 80.0 - 80.0
         gx0 = x0 * 120.0 - 100.0
-        gcfg = cfg._replace(score_clip=1.0)
+        gcfg = cfg._replace(T=GRAPH_GLOW_T, score_clip=1.0)
         flags = []
 
         def on_forward(module, inputs, out):
@@ -3041,7 +3074,7 @@ def phase_graphs(smi: str):
                 peaks[chunk] = _graph_case(
                     f"[11] Glow L={GLOW['L']} K={GLOW['K']} "
                     f"{GLOW['n_filters']} filters f32, {BATCH} frames, "
-                    f"--score_chunk {chunk}, {L} levels x T={T}:",
+                    f"--score_chunk {chunk}, {L} levels x T={GRAPH_GLOW_T}:",
                     glow_score_fn(chains, frame_chunk=chunk or None), gmixed,
                     gx0, sigmas, gcfg, _step_launches(
                         W.KERNELS[torch.float32], paths,

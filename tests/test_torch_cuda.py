@@ -1061,13 +1061,15 @@ def test_graphed_ncsn_anneal_equals_eager_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("chunk", [2, None])
-def test_graphed_glow_anneal_equals_eager_on_the_card(cuda, chunk):
-    """Small Glows (L=3, K=2, 16 filters, f32, routed: the coupling convs on
+def test_graphed_glow_anneal_equals_eager_on_the_card(cuda, monkeypatch,
+                                                      chunk):
+    """Small Glows (L=3, K=2, 32 filters, f32, routed: the coupling convs on
     the f32 kernel's wide, thin_in and thin_out paths), a pair a level:
     BASIS graphed, its score (a forward and autograd's input gradient, in
     frame chunks of 2 or whole) captured in each level's graph, equals the
-    eager loop bit for bit on injected noise, with cuDNN's deterministic
-    algorithms in both."""
+    eager loop bit for bit on injected noise, with deterministic algorithms
+    in both (without them the eager Glow score itself differs from run to
+    run in its last bits: chip_smoke.py phase 11)."""
     from audiosourcesep_tpu_torch.separation import (BasisConfig,
                                                      basis_separate_per_level,
                                                      glow_score_fn)
@@ -1079,7 +1081,7 @@ def test_graphed_glow_anneal_equals_eager_on_the_card(cuda, chunk):
         row = []
         for _ in range(2):
             m = build_glow((96, 64, 1), minibatch=mb, generator=g, L=3, K=2,
-                           n_filters=16, learntop=True, data_type="melspec")
+                           n_filters=32, learntop=True, data_type="melspec")
             with torch.no_grad():
                 for name, p in m.named_parameters():
                     if "conv3.kernel" in name:
@@ -1099,12 +1101,17 @@ def test_graphed_glow_anneal_equals_eager_on_the_card(cuda, chunk):
             noise_fn=lambda level, step: noise[level, step])
 
     before = W.counters()
-    saved = torch.backends.cudnn.deterministic
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
     try:
         (x, traj), (x_e, traj_e) = _graphed_and_eager(cuda, run, T)
     finally:
-        torch.backends.cudnn.deterministic = saved
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
     paths = W.counters_since(before)["f32_path_counts"]
     assert all(paths[p] > 0 for p in ("wide", "thin_in", "thin_out"))
     assert torch.isfinite(x).all() and (x - x0).abs().max() > 1e-3
