@@ -10,6 +10,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from .core import Bijector, sum_event
 
 
@@ -63,6 +64,7 @@ class ActNorm(Bijector):
             ld = x.shape[1] * x.shape[2] * ld
         return ld.expand(x.shape[0]).to(x.dtype)
 
+    @spanned("norm")
     def forward(self, x, noise=None):
         return x * torch.exp(self.log_scale) + self.shift, self._log_det(x)
 
@@ -123,6 +125,7 @@ class Invertible1x1Conv(Bijector):
         return (x.shape[1] * x.shape[2] * self.log_s.sum()).expand(
             x.shape[0]).to(x.dtype)
 
+    @spanned("conv")
     def forward(self, x, noise=None):
         L, U, _ = self._assemble()
         W = self.P @ (L @ U)

@@ -11,6 +11,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..utils.profiling import span
 from .core import Bijector
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -116,10 +117,15 @@ class FlowModel(torch.nn.Module):
 
     def score(self, x: torch.Tensor) -> torch.Tensor:
         """``grad_x log p(x)``, the Glow-prior score BASIS uses; no
-        gradient reaches the parameters."""
+        gradient reaches the parameters. The log-density and its input
+        gradient are the module spans ``score.forward`` and
+        ``score.backward``."""
         with torch.enable_grad():
             v = x.detach().requires_grad_(True)
-            return torch.autograd.grad(self.log_prob(v).sum(), v)[0]
+            with span("score.forward"):
+                log_p = self.log_prob(v).sum()
+            with span("score.backward"):
+                return torch.autograd.grad(log_p, v)[0]
 
     def sample(self, z: torch.Tensor) -> torch.Tensor:
         """The data point of latent ``z`` (``prior.sample`` draws one)."""

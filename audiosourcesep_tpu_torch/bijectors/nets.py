@@ -45,9 +45,9 @@ class ShiftAndLogScaleConvNet(torch.nn.Module):
         self.bn2.reset_parameters()
 
     def forward(self, x: torch.Tensor):
-        h = torch.relu(self.conv1(x.permute(0, 3, 1, 2)))
+        h = nn.relu(self.conv1(x.permute(0, 3, 1, 2)))
         h = self.bn1(h)
-        h = torch.relu(nn.conv1x1(h, self.conv2.kernel, self.conv2.bias))
+        h = nn.relu(nn.conv1x1(h, self.conv2.kernel, self.conv2.bias))
         h = self.bn2(h)
         log_s, t = self.conv3(h).permute(0, 2, 3, 1).chunk(2, dim=-1)
         return torch.tanh(log_s), t
@@ -65,8 +65,8 @@ class _ResBlock(torch.nn.Module):
         self.conv2 = nn.WNConv2d(f, f, 3, device=device)
 
     def forward(self, x):
-        h = self.conv1(torch.relu(self.bn1(x)))
-        return x + self.conv2(torch.relu(self.bn2(h)))
+        h = self.conv1(nn.relu(self.bn1(x)))
+        return x + self.conv2(nn.relu(self.bn2(h)))
 
 
 class ShiftAndLogScaleResNet(torch.nn.Module):
@@ -106,12 +106,12 @@ class ShiftAndLogScaleResNet(torch.nn.Module):
 
     def forward(self, x: torch.Tensor):
         h = self.bn_in(x.permute(0, 3, 1, 2))
-        h = self.conv_in(torch.relu(torch.cat([h, -h], dim=1)))
+        h = self.conv_in(nn.relu(torch.cat([h, -h], dim=1)))
         skip = self.skip_in(h)
         for i in range(self.n_blocks):
             h = self._modules[f"block_{i}"](h)
             skip = skip + self._modules[f"skip_{i}"](h)
-        out = self.conv_out(torch.relu(self.bn_out(skip)))
+        out = self.conv_out(nn.relu(self.bn_out(skip)))
         log_s, t = out.permute(0, 2, 3, 1).chunk(2, dim=-1)
         return torch.tanh(log_s), t
 
@@ -136,7 +136,7 @@ class ShiftAndLogScaleDenseNet(torch.nn.Module):
     def forward(self, x: torch.Tensor):
         h = x
         for i in range(4):
-            h = torch.relu(self._modules[f"dense{i + 1}"](h))
+            h = nn.relu(self._modules[f"dense{i + 1}"](h))
         log_s, t = self.dense5(h).chunk(2, dim=-1)
         return torch.tanh(log_s), t
 

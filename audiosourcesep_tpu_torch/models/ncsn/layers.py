@@ -12,9 +12,9 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from ... import nn
+from ...utils.profiling import spanned
 
 
 def _norm2dplus(x, scale, alpha, bias, eps_in=1e-3, eps_means=1e-5):
@@ -83,6 +83,7 @@ class InstanceNorm2dPlus(torch.nn.Module):
         if self.beta is not None:
             self.beta.zero_()
 
+    @spanned("norm")
     def forward(self, x, y=None):
         n = x.shape[0]
         inn = self._modules["in"]
@@ -120,6 +121,7 @@ class ConditionalInstanceNorm2dPlus(torch.nn.Module):
         if self.embed_beta is not None:
             self.embed_beta.zero_()
 
+    @spanned("norm")
     def forward(self, x, y):
         inn = self._modules["in"]
         gamma = self.embed_gamma[y]                            # [N, C]
@@ -149,7 +151,7 @@ class ResidualBlock(torch.nn.Module):
 
     def __init__(self, input_dim: int, output_dim: int,
                  num_classes: Optional[int], resample: Optional[str] = None,
-                 dilation: Optional[int] = None, act=F.elu, device=None):
+                 dilation: Optional[int] = None, act=nn.elu, device=None):
         super().__init__()
         self.resample = resample
         self.dilation = dilation
@@ -203,7 +205,7 @@ class CRPBlock(torch.nn.Module):
     pooling -> conv per stage; v2: 5x5 max pooling -> conv."""
 
     def __init__(self, features: int, n_stages: int,
-                 num_classes: Optional[int], act=F.elu, device=None):
+                 num_classes: Optional[int], act=nn.elu, device=None):
         super().__init__()
         self.n_stages = n_stages
         self.conditional = num_classes is not None
@@ -234,7 +236,7 @@ class RCUBlock(torch.nn.Module):
     conv x n_stages (no activations, as in the reference)."""
 
     def __init__(self, features: int, n_blocks: int, n_stages: int,
-                 num_classes: Optional[int], act=F.elu, device=None):
+                 num_classes: Optional[int], act=nn.elu, device=None):
         super().__init__()
         self.n_blocks = n_blocks
         self.n_stages = n_stages
@@ -289,7 +291,7 @@ class RefineBlock(torch.nn.Module):
     RCU."""
 
     def __init__(self, in_planes: Sequence[int], features: int,
-                 num_classes: Optional[int], act=F.elu, start: bool = False,
+                 num_classes: Optional[int], act=nn.elu, start: bool = False,
                  end: bool = False, device=None):
         super().__init__()
         self.n_inputs = len(in_planes)

@@ -11,9 +11,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ... import nn
+from ...utils.profiling import spanned
 from .layers import RefineBlock, ResidualBlock, make_normalizer
 
 
@@ -44,7 +44,7 @@ class RefineNetDilated(torch.nn.Module):
         self.num_classes = num_classes
         self.logit_transform = logit_transform
         self.compute_dtype = compute_dtype
-        self.act = F.elu
+        self.act = nn.elu
         if sigmas is None:
             self.sigmas = None
         else:
@@ -116,6 +116,8 @@ class RefineNetDilated(torch.nn.Module):
     def count_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    # a traced capture times the convs inside, for the non-conv share
+    @spanned("score.forward", leaves=("conv",))
     def forward(self, x: torch.Tensor, sigma_idx: torch.Tensor
                 ) -> torch.Tensor:
         y = sigma_idx

@@ -12,6 +12,11 @@ tensors.
 
 Initialisation follows the JAX package (Keras defaults: Glorot-uniform
 kernels, zero biases), drawn from an explicit ``torch.Generator``.
+
+Each call of a conv, a norm, an activation, a pool or a resize is a module
+span of that kind (``utils.profiling``: ``conv``, ``norm``, ``act``,
+``pool``, ``resize``; a conv's Winograd weight transform on a cache miss
+is ``conv.weights``), recorded while an anneal level is traced.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .utils.profiling import span, spanned
 
 # When enabled, every conv the Winograd kernel computes (3x3, stride 1,
 # undilated, even H and W) routes through ops.winograd: on a CUDA tensor
@@ -65,6 +72,7 @@ def normal_init(shape: Sequence[int], stddev: float = 0.02,
 # conv
 # ---------------------------------------------------------------------------
 
+@spanned("conv")
 def conv2d(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None,
            dilation: int = 1, winograd_cache: Optional[dict] = None
@@ -124,7 +132,7 @@ def _winograd_weights(cache: dict, kernel: torch.Tensor, hwio: torch.Tensor,
                 "nn.conv2d: the Winograd weights of a conv are not cached "
                 "while a CUDA graph captures; run the captured function "
                 "once eagerly first")
-        with torch.no_grad():
+        with torch.no_grad(), span("conv.weights"):
             cache["u"] = transform_weights(hwio).to(dtype)
         cache["kernel"], cache["key"] = kernel, key
     return cache["u"]
@@ -155,6 +163,7 @@ class Conv2d(torch.nn.Module):
                       self._winograd_cache)
 
 
+@spanned("conv")
 def wnconv2d(x: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weight-normalised SAME stride-1 conv of NCHW ``x``: the kernel is
@@ -233,6 +242,7 @@ class Dense(torch.nn.Module):
         return dense(x, self.kernel, self.bias)
 
 
+@spanned("conv")
 def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """1x1 conv of NCHW ``x`` with an OIHW ``[C_out, C_in, 1, 1]``
@@ -250,6 +260,7 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
 # normalisation
 # ---------------------------------------------------------------------------
 
+@spanned("norm")
 def frozen_batchnorm(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     """Per-channel affine ``gamma * x / sqrt(1 + eps) + beta`` of NCHW
@@ -283,6 +294,7 @@ class FrozenBatchNorm(torch.nn.Module):
         return frozen_batchnorm(x, self.gamma, self.beta)
 
 
+@spanned("norm")
 def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                   beta: Optional[torch.Tensor] = None,
                   eps: float = 1e-3) -> torch.Tensor:
@@ -299,6 +311,7 @@ def instance_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
     return h
 
 
+@spanned("norm")
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-3) -> torch.Tensor:
     """Normalisation over the last axis (the channels of an NHWC tensor),
@@ -384,12 +397,14 @@ class _AvgPoolSame(torch.autograd.Function):
                                 count_include_pad=False), None
 
 
+@spanned("pool")
 def avg_pool_same(x: torch.Tensor, window: int) -> torch.Tensor:
     """Stride-1 average pooling with SAME padding that counts only valid
     elements (JAX ``avg_pool_same``, odd ``window``)."""
     return _AvgPoolSame.apply(x, window)
 
 
+@spanned("pool")
 def max_pool_same(x: torch.Tensor, window: int,
                   stride: int = 1) -> torch.Tensor:
     """Max pooling of NCHW ``x`` with SAME padding (padding never wins:
@@ -406,6 +421,7 @@ def max_pool_same(x: torch.Tensor, window: int,
     return F.max_pool2d(F.pad(x, pad, value=float("-inf")), window, stride)
 
 
+@spanned("pool")
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 average pooling, stride 2, VALID."""
     return F.avg_pool2d(x, 2, 2)
@@ -416,5 +432,22 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     ``jax.image.resize`` for upsampling); identity at the same size."""
     if tuple(x.shape[2:]) == tuple(size):
         return x
-    return F.interpolate(x, size=tuple(size), mode="bilinear",
-                         align_corners=False)
+    with span("resize"):
+        return F.interpolate(x, size=tuple(size), mode="bilinear",
+                             align_corners=False)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+@spanned("act")
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """``F.elu``, the NCSN nets' activation."""
+    return F.elu(x)
+
+
+@spanned("act")
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``torch.relu``, the coupling nets' activation."""
+    return torch.relu(x)

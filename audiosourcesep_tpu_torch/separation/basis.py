@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..parallel import Layout
+from ..utils.profiling import span
 from . import graphs
 from .mixing import mixing_process
 
@@ -63,7 +64,11 @@ def ncsn_score_fn(models: Sequence[torch.nn.Module]) -> Callable:
     def score(x: torch.Tensor, sigma_idx: torch.Tensor,
               level: int) -> torch.Tensor:
         del level
-        return torch.stack([m(x[k], sigma_idx) for k, m in enumerate(models)])
+        scores = []
+        for k, m in enumerate(models):
+            with span("score"):
+                scores.append(m(x[k], sigma_idx))
+        return torch.stack(scores)
 
     return score
 
@@ -84,10 +89,13 @@ def glow_score_fn(models_per_level: Sequence[Sequence[torch.nn.Module]],
     def score(x: torch.Tensor, sigma_idx: torch.Tensor,
               level: int) -> torch.Tensor:
         del sigma_idx
-        return torch.stack([
-            torch.cat([m.score(xc) for xc in (x[k].split(frame_chunk)
-                                              if frame_chunk else (x[k],))])
-            for k, m in enumerate(models_per_level[level])])
+        scores = []
+        for k, m in enumerate(models_per_level[level]):
+            with span("score"):
+                scores.append(torch.cat([
+                    m.score(xc) for xc in (x[k].split(frame_chunk)
+                                           if frame_chunk else (x[k],))]))
+        return torch.stack(scores)
 
     return score
 
@@ -117,7 +125,8 @@ def source_sharded_ncsn_score(models: Sequence[torch.nn.Module],
               level: int) -> torch.Tensor:
         del level
         _one_model_per_rank(len(models), x, "score")
-        return models[0](x[0], sigma_idx)[None]
+        with span("score"):
+            return models[0](x[0], sigma_idx)[None]
 
     return score
 
@@ -208,12 +217,13 @@ def basis_separate_per_level(score_fn: Callable, mixed: torch.Tensor,
         labels = torch.full((N,), level, dtype=torch.long, device=x.device)
 
         def step(x, noise):
-            scores = _clip_scores(score_fn(x, labels, level), sigma,
-                                  config.score_clip)
-            # the mixing over every source of this rank's frames
-            xs = layout.gather_sources(x)
-            recon = lam * grad_g(xs)[rows] * (mixed - g(xs))
-            x.add_(eta * (scores + recon)).add_(noise * noise_scale)
+            scores = score_fn(x, labels, level)
+            with span("basis.update"):
+                scores = _clip_scores(scores, sigma, config.score_clip)
+                # the mixing over every source of this rank's frames
+                xs = layout.gather_sources(x)
+                recon = lam * grad_g(xs)[rows] * (mixed - g(xs))
+                x.add_(eta * (scores + recon)).add_(noise * noise_scale)
 
         return step
 

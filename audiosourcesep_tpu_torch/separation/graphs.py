@@ -23,7 +23,7 @@ labels and constants, the mixture, the models). Per level, graphed:
 2. capture: the draw of the noise (``noise.normal_`` from the caller's
    ``torch.Generator``, registered with the graph so that every replay
    draws the next numbers, as the eager loop would) and the body, into one
-   graph;
+   graph, then its instantiation;
 3. replay, T times. Where ``noise_fn`` gives the noise (tests feed the JAX
    package's draws), each step's noise is copied into the buffer before
    its replay, and the graph draws nothing.
@@ -40,27 +40,47 @@ snapshots run between levels, outside any graph.
 Kernel launches made while a graph captures run nothing: the counters of
 ``ops.winograd`` take the capture's counts back off and add them again at
 every replay (:class:`StepGraph`), so they count what the card ran.
+
+Inside a :func:`recording` block every level is cut into spans
+(``utils.profiling``, host clock), one after another: ``anneal.warmup``
+(the warm-up step and the wait for it), ``anneal.capture`` (from the
+graph's making to the body's return: in it ``anneal.begin_capture``, the
+graph made and ``torch.cuda.graph``'s entry, which waits for the card,
+collects garbage, empties the allocator's cache and ends in
+``cudaStreamBeginCapture``; then the Python and autograd that build the
+graph, while the card runs nothing), ``anneal.instantiate``
+(``cudaStreamEndCapture`` and ``cudaGraphInstantiate``),
+``anneal.replays`` (the T replays and the wait that ends them; the first
+replay's launch, which uploads the graph, in ``anneal.first_replay``;
+``anneal.steps`` for T eager steps) and ``anneal.release`` (the events
+read, the graph freed, ``after_level``). A level whose warm-up and capture
+start while a ``torch.profiler`` profile runs also records module spans
+(``utils.profiling``): a graphed level in its capture, with CUDA events
+that the capture puts into the graph as event nodes; an eager level in
+its first step.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-import time
 from typing import Callable, Iterator, List, NamedTuple, Optional
 
 import torch
 
 from ..ops import winograd
+from ..utils import profiling
 
 Body = Callable[[torch.Tensor, torch.Tensor], None]
 
 
 class Capture(NamedTuple):
     """One level's graph: the seconds of its warm-up step (run to its end
-    on the card) and of its capture (host time, the graph's instantiation
-    included), and the kernel launches of one replay
-    (:func:`ops.winograd.counters_since`'s layout)."""
+    on the card; the ``anneal.warmup`` span) and of its capture (host
+    time from the warm-up's end: ``anneal.capture`` plus
+    ``anneal.instantiate``), and the kernel
+    launches of one replay (:func:`ops.winograd.counters_since`'s
+    layout)."""
     level: int
     warmup_s: float
     capture_s: float
@@ -77,10 +97,13 @@ class LevelSteps(NamedTuple):
     device_ms: Optional[float]
 
 
-class Record:
-    """What :func:`anneal` did inside a :func:`recording` block."""
+class Record(profiling.Spans):
+    """What :func:`anneal` did inside a :func:`recording` block: its spans
+    (:class:`utils.profiling.Spans`), and per level its capture and its
+    steps."""
 
     def __init__(self):
+        super().__init__()
         self.captures: List[Capture] = []
         self.levels: List[LevelSteps] = []
 
@@ -99,7 +122,7 @@ _RECORD: contextvars.ContextVar = contextvars.ContextVar("anneal_record",
 
 @contextlib.contextmanager
 def recording() -> Iterator[Record]:
-    """Record every capture and every level's step times that
+    """Record every capture, every level's step times and spans that
     :func:`anneal` makes in this block (the CLIs print the capture time).
     Each level's steps then end in a wait for the card."""
     record = Record()
@@ -138,6 +161,45 @@ def use_graphs(graphed: Optional[bool], device, ranks: int = 1) -> bool:
     return bool(graphed)
 
 
+class LevelGraph:
+    """The CUDA side of a level's graph (the CPU tests stand in for it):
+    the warm-up on a side stream, the capture and instantiation, the
+    replays. ``generator``, if not None, is registered with the graph."""
+
+    def __init__(self, device, generator: Optional[torch.Generator] = None):
+        self.device = torch.device(device)
+        self.generator = generator
+        self.graph = None
+
+    def warm_up(self, fn: Callable[[], None]) -> None:
+        """``fn()`` on a side stream, then a wait for the card."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            fn()
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+
+    def capture(self, fn: Callable[[], None], begun: Callable[[], None],
+                ended: Callable[[], None]) -> None:
+        """Make the graph, capture ``fn()`` and instantiate the graph;
+        ``begun()`` runs just after the capture begins, ``ended()`` after
+        ``fn``."""
+        # kept until freed, so that the instantiation is a call of its own
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if self.generator is not None:
+            self.graph.register_generator_state(self.generator)
+        with torch.cuda.graph(self.graph):
+            begun()
+            fn()
+            ended()
+        self.graph.instantiate()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
 class StepGraph:
     """A captured step: ``replay()`` runs ``graph`` and adds the kernel
     launches counted during ``capture()`` to ``ops.winograd``'s counters,
@@ -156,6 +218,13 @@ class StepGraph:
         winograd.add_counters(self.launches, 1)
 
 
+def _traced(record: Optional[Record]) -> Optional[Record]:
+    """``record`` where a level starting now records its module spans."""
+    if record is not None and profiling.profiler_running():
+        return record
+    return None
+
+
 def capture_step(body: Body, x: torch.Tensor, noise: torch.Tensor,
                  draw: Optional[Callable[[], None]],
                  generator: Optional[torch.Generator],
@@ -165,31 +234,40 @@ def capture_step(body: Body, x: torch.Tensor, noise: torch.Tensor,
     ``body(x, noise)`` into one graph; ``generator``, if not None, is
     registered with the graph."""
     record = _RECORD.get()
-    t0 = time.perf_counter()
-    current = torch.cuda.current_stream(x.device)
-    side = torch.cuda.Stream(device=x.device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        body(x.clone(), noise)
-    current.wait_stream(side)
-    torch.cuda.synchronize(x.device)
-    t1 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    if draw is not None and generator is not None:
-        graph.register_generator_state(generator)
+    spans = record if record is not None else profiling.Spans()
+    traced = _traced(record)
+    leaves = profiling.graphed_leaves()
+    graph = LevelGraph(x.device, generator if draw is not None else None)
+    with spans.block("anneal.warmup", level, "warmup") as warm, \
+            profiling.tracing(traced if leaves else None, level, "warmup",
+                              x.device, leaves):
+        graph.warm_up(lambda: body(x.clone(), noise))
+    held = {}
 
-    def capture():
-        with torch.cuda.graph(graph):
+    def ended():
+        spans.close(held["capture"])
+        held["instantiate"] = spans.open("anneal.instantiate", level,
+                                         "capture")
+
+    def step():
+        with profiling.tracing(traced, level, "capture", x.device, leaves):
             if draw is not None:
                 draw()
             body(x, noise)
 
-    step = StepGraph(graph, capture)
+    def capture():
+        held["capture"] = spans.open("anneal.capture", level, "capture")
+        begin = spans.open("anneal.begin_capture", level, "capture")
+        graph.capture(step, lambda: spans.close(begin), ended)
+        spans.close(held["instantiate"])
+
+    out = StepGraph(graph, capture)
     if record is not None:
-        record.captures.append(Capture(level, t1 - t0,
-                                       time.perf_counter() - t1,
-                                       step.launches))
-    return step
+        record.captures.append(Capture(
+            level, warm.seconds,
+            held["capture"].seconds + held["instantiate"].seconds,
+            out.launches))
+    return out
 
 
 def anneal(make_step: Callable[[int], Body], x: torch.Tensor,
@@ -212,40 +290,54 @@ def anneal(make_step: Callable[[int], Body], x: torch.Tensor,
         after_level: ``after_level(level, x)`` after each level.
     """
     record = _RECORD.get()
+    spans = record if record is not None else profiling.Spans()
     timed = record is not None and x.device.type == "cuda"
     noise = torch.zeros_like(x)
 
     def draw():
-        noise.normal_(generator=generator)
+        with profiling.span("anneal.noise"):
+            noise.normal_(generator=generator)
 
     for level in range(n_levels):
         body = make_step(level)
+        traced = None if graphed else _traced(record)
         step = capture_step(body, x, noise,
                             None if noise_fn is not None else draw,
                             generator, level) if graphed else None
         if timed:
             events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
             events[0].record()
-        t0 = time.perf_counter()
-        for t in range(T):
-            if noise_fn is not None:
-                noise.copy_(noise_fn(level, t))
-            if step is not None:
-                step.replay()
-            else:
-                if noise_fn is None:
-                    draw()
-                body(x, noise)
-        if record is not None:
-            device_ms = None
+        with spans.block("anneal.replays" if graphed else "anneal.steps",
+                         level, "eager") as steps:
+            for t in range(T):
+                if noise_fn is not None:
+                    noise.copy_(noise_fn(level, t))
+                if step is not None:
+                    if t == 0:
+                        with spans.block("anneal.first_replay", level,
+                                         "eager"):
+                            step.replay()
+                    else:
+                        step.replay()
+                    continue
+                # module spans of an eager level: its first step only
+                with profiling.tracing(traced if t == 0 else None, level,
+                                       "eager", x.device,
+                                       profiling.LEAVES):
+                    if noise_fn is None:
+                        draw()
+                    body(x, noise)
             if timed:
                 events[1].record()
                 events[1].synchronize()
-                device_ms = events[0].elapsed_time(events[1])
-            record.levels.append(LevelSteps(level, T,
-                                            time.perf_counter() - t0,
-                                            device_ms))
-        del step
-        if after_level is not None:
-            after_level(level, x)
+        if record is not None:
+            record.levels.append(LevelSteps(
+                level, T, steps.seconds,
+                events[0].elapsed_time(events[1]) if timed else None))
+        with spans.block("anneal.release", level, "eager"):
+            if timed:
+                record.read_device()
+            del step
+            if after_level is not None:
+                after_level(level, x)
     return x

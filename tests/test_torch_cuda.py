@@ -1137,3 +1137,109 @@ def test_graphed_anneal_raises_on_a_host_sync_and_does_not_run_eagerly(
                                  config=BasisConfig(T=2))
     assert calls == [0, 0]
     torch.cuda.synchronize()
+
+
+def _traced_basis(cuda, traced, L=2, T=3):
+    """A routed bf16 NCSN BASIS (v1, 64 filters, 8 frames of 96x64),
+    graphed, in a recording; ``traced``: under a profiler of the card's
+    rows alone, as the benchmark's traced run starts one. Returns the
+    result, the record and the device ms of each replay (an event pair
+    around each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     graphs, ncsn_score_fn)
+    shape, N = (96, 64, 1), 8
+    models = []
+    for seed in (1, 2):
+        m = get_score_model("v1", shape, 64, L, compute_dtype=torch.bfloat16,
+                            device=cuda)
+        m.reset_parameters(torch.Generator().manual_seed(seed))
+        models.append(m.eval().requires_grad_(False))
+    g = torch.Generator().manual_seed(3)
+    mixed = torch.rand((N, *shape), generator=g).to(cuda)
+    x0 = torch.rand((2, N, *shape), generator=g).to(cuda)
+    prof = profile(activities=[ProfilerActivity.CUDA]) if traced else None
+    replays, original = [], torch.cuda.CUDAGraph.replay
+
+    def replay(graph):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        pair[0].record()
+        original(graph)
+        pair[1].record()
+        replays.append(pair)
+
+    try:
+        nn.set_winograd(True)
+        torch.cuda.CUDAGraph.replay = replay
+        if prof is not None:
+            prof.start()
+        with graphs.recording() as record:
+            x, _ = basis_separate_per_level(
+                ncsn_score_fn(models), mixed, x0, get_sigmas(1.0, 0.1, L),
+                torch.Generator(device=cuda).manual_seed(5),
+                BasisConfig(T=T, delta=2e-3), graphed=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = original
+        if prof is not None:
+            prof.stop()
+        nn.set_winograd(False)
+    return x, record, [a.elapsed_time(b) for a, b in replays]
+
+
+@pytest.mark.parametrize("every_leaf", [False, True])
+def test_device_spans_read_inside_a_graphed_level(cuda, every_leaf):
+    """Under a profiler of the card's rows each level records the module
+    spans of its capture, and the event pairs captured into the graph
+    read the last replay's milliseconds: the outer spans' and a RefineNet
+    forward's convs', and no other leaf; the warm-up step records none.
+    Inside ``every_leaf`` the warm-up (eager events) and the capture span
+    and time every leaf."""
+    from audiosourcesep_tpu_torch.utils import profiling
+    with profiling.every_leaf() if every_leaf else contextlib.nullcontext():
+        _, record, _ = _traced_basis(cuda, True)
+    assert record.traced == [0, 1]
+    outer = {"anneal.noise", "score", "score.forward", "conv",
+             "basis.update"}
+    leaves = {"norm", "act", "pool", "resize"} if every_leaf else set()
+    for level in (0, 1):
+        spans = {phase: [s for s in record.spans if s.level == level
+                         and s.phase == phase and not (
+                             s.name.startswith("anneal.")
+                             and s.name != "anneal.noise")]
+                 for phase in ("warmup", "capture")}
+        assert all(s.device_ms is not None and s.device_ms >= 0
+                   for p in spans.values() for s in p)
+        assert {s.name for s in spans["capture"]} == outer | leaves
+        # (the warm-up draws no noise; level 0's transforms the weights)
+        assert {s.name for s in spans["warmup"]} - {"conv.weights"} == (
+            outer - {"anneal.noise"} | leaves if every_leaf else set())
+        assert all(s.events is None for s in record.spans)
+        forwards = [s for s in spans["capture"] if s.name == "score.forward"]
+        assert len(forwards) == 2 and all(f.device_ms > 0 for f in forwards)
+
+
+def test_top_device_spans_add_up_to_the_replay(cuda):
+    """A level's outermost captured spans (the draw, the two scores, the
+    update) add up to within 3% of the replay they timed, the level's
+    last."""
+    T = 3
+    _, record, replays = _traced_basis(cuda, True, T=T)
+    for steps in record.levels:
+        top = [s for s in record.spans if s.level == steps.level
+               and s.phase == "capture" and s.device_ms is not None
+               and record.spans[s.parent].device_ms is None]
+        assert sorted(s.name for s in top) == [
+            "anneal.noise", "basis.update", "score", "score"]
+        last = replays[(steps.level + 1) * T - 1]
+        assert abs(sum(s.device_ms for s in top) - last) <= 0.03 * last
+
+
+def test_graphed_basis_is_the_same_with_tracing_on_and_off(cuda):
+    off, record_off, _ = _traced_basis(cuda, False)
+    on, record_on, _ = _traced_basis(cuda, True)
+    assert record_off.traced == [] and record_on.traced == [0, 1]
+    assert torch.isfinite(on).all()
+    assert torch.equal(on, off)

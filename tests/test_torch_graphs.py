@@ -58,27 +58,33 @@ def _draws(key, n_levels, T, shape):
 @pytest.fixture
 def stand_in_graphs(monkeypatch):
     """The graphed loop on the CPU: ``use_graphs`` grants graphs, and the
-    capture is a stand-in with the real one's contract (a warm-up of the
-    body on a copy of x, then a graph whose replay draws the noise, when
-    the graph draws it, and runs the body on the static buffers). Yields
-    the levels captured, in order."""
+    CUDA side of a level's graph (``graphs.LevelGraph``) is a stand-in with
+    the real one's contract: the warm-up runs the body on a copy of x; the
+    capture runs nothing on the buffers but keeps the captured function
+    (the draw, when the graph draws it, and the body on the static
+    buffers), which each replay runs. Yields the levels captured, in
+    order (one capture a level)."""
     captured = []
 
-    def capture_step(body, x, noise, draw, generator, level=0):
-        body(x.clone(), noise)                    # the warm-up
+    class LevelGraph:
+        def __init__(self, device, generator=None):
+            self.fn = None
 
-        class Replay:
-            def replay(self):
-                if draw is not None:
-                    draw()
-                body(x, noise)
+        def warm_up(self, fn):
+            fn()
 
-        captured.append(level)
-        return graphs.StepGraph(Replay(), lambda: None)
+        def capture(self, fn, begun, ended):
+            begun()
+            ended()
+            self.fn = fn
+            captured.append(len(captured))
+
+        def replay(self):
+            self.fn()
 
     monkeypatch.setattr(graphs, "use_graphs",
                         lambda graphed, device, ranks=1: graphed is not False)
-    monkeypatch.setattr(graphs, "capture_step", capture_step)
+    monkeypatch.setattr(graphs, "LevelGraph", LevelGraph)
     yield captured
 
 

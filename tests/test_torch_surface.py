@@ -29,13 +29,15 @@ JAX_PKG = os.path.join(os.path.dirname(os.path.dirname(
 # what the port leaves out on purpose, by subpackage (ROADMAP, "Do not
 # port"): the split real/imag complex transfer, a TPU workaround; the jax
 # Mesh helpers that torch.distributed replaced; the vmapped NCSN score's
-# stacked parameters
+# stacked parameters; the phase timer and the annotation decorator, whose
+# place the port's spans take (utils.profiling, separation.graphs.Record)
 DO_NOT_PORT = {
     "ops": {"as_device_complex"},
     "parallel": {"make_mesh", "make_source_mesh", "source_sharding",
                  "params_by_source", "batch_sharding", "replicated",
                  "shard_batch", "replicate", "put_global_batch"},
     "separation": {"make_stacked_ncsn_score", "stack_pytrees"},
+    "utils": {"PhaseTimer", "annotate"},
 }
 
 

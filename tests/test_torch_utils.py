@@ -19,9 +19,11 @@ from audiosourcesep_tpu.data import save_tf_records
 from audiosourcesep_tpu.models.flow_builder import build_glow as jbuild_glow
 from audiosourcesep_tpu.models.ncsn import RefineNetDilated as JRefineNet
 from audiosourcesep_tpu_torch import technique1_ncsnv2, technique2and4_ncsnv2
+from audiosourcesep_tpu_torch import nn as tnn
 from audiosourcesep_tpu_torch import utils
 from audiosourcesep_tpu_torch.models import build_glow
 from audiosourcesep_tpu_torch.models.ncsn import RefineNetDilated
+from audiosourcesep_tpu_torch.separation import graphs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -148,30 +150,23 @@ def test_trainable_variables_and_summary_match_jax(kind):
         assert sorted(got) == sorted(want)
 
 
-def test_phase_timer():
-    t = utils.PhaseTimer()
-    with t.phase("a"):
-        pass
-    x = torch.ones(3)
-    with t.phase("b", block_on=x + 1):
-        pass
-    with t.phase("b", block_on={"y": x, "z": [x]}):
-        pass
-    assert set(t.totals) == {"a", "b"}
-    assert "a:" in t.summary() and "b:" in t.summary()
-
-
 def test_trace_noop_and_trace_with_annotations(tmp_path):
+    """No log dir: nothing. With one: a trace file, and an anneal level
+    that starts inside records its module spans (the port's
+    annotations)."""
     with utils.trace(None) as prof:
         x = torch.ones(3) + 1
     assert prof is None and float(x[0]) == 2.0
 
-    @utils.annotate("port_phase")
-    def work(v):
-        return v * 2
+    def make_step(level):
+        def step(x, noise):
+            x.add_(tnn.elu(x) * 0.0 + noise)
+        return step
 
-    with utils.trace(str(tmp_path)) as prof:
-        y = work(torch.ones(8))
-    assert float(y.sum()) == 16.0 and work.__name__ == "work"
-    assert "port_phase" in {e.key for e in prof.key_averages()}
+    with utils.trace(str(tmp_path)) as prof, graphs.recording() as record:
+        y = graphs.anneal(make_step, torch.zeros(8), 1, 2, False,
+                          torch.Generator().manual_seed(0))
+    assert prof is not None and torch.isfinite(y).all()
+    assert [s.name for s in record.spans] == [
+        "anneal.steps", "anneal.noise", "act", "anneal.release"]
     assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path))
