@@ -48,6 +48,11 @@ SIGNATURES = {
     # () -> dynamic shared memory bytes per block of each kernel
     "winograd_f23_f32_smem_bytes": ([], _I),
     "winograd_f23_bf16_smem_bytes": ([], _I),
+    # (x, y, labels, gamma, alpha, beta, in_gamma, in_beta, scratch,
+    #  N, C, HW, K, bf16, slices, elu, stream) -> cudaError_t
+    "instnorm_plus_fwd": ([*[_P] * 9, *[_I] * 7, _P], _I),
+    # (C, bf16) -> the statistics kernel's blocks an SM holds at once
+    "instnorm_plus_blocks_per_sm": ([_I, _I], _I),
 }
 
 _lib = None

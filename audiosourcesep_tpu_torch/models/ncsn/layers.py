@@ -14,30 +14,25 @@ from typing import List, Optional, Sequence
 import torch
 
 from ... import nn
+from ...ops import instnorm
 from ...utils.profiling import spanned
 
 
-def _norm2dplus(x, scale, alpha, bias, eps_in=1e-3, eps_means=1e-5):
-    """InstanceNorm2d+ with folded ``[N, C]`` affine rows (NCHW ``x``):
+# the composite of InstanceNorm2d+ with folded [N, C] rows, under the JAX
+# package's name (the tests hold the two together)
+_norm2dplus = instnorm.norm2dplus
 
-        out = scale * (x - mean_hw) * rsqrt(var_hw + eps)
-              + alpha * norm_c(mean_hw) + bias
 
-    One-pass f32 statistics (E[x], E[x^2]), both variances clamped at 0
-    (the one-pass form can go slightly negative under cancellation), and
-    the whole normalisation as one multiply-add ``x * a + b``; the output
-    keeps ``x``'s dtype.
-    """
-    xf = x.float()
-    s1 = xf.mean(dim=(2, 3), keepdim=True)                     # [N,C,1,1]
-    s2 = (xf * xf).mean(dim=(2, 3), keepdim=True)
-    var = torch.clamp(s2 - s1 * s1, min=0.0)
-    m = s1.mean(dim=1, keepdim=True)
-    v = torch.clamp((s1 * s1).mean(dim=1, keepdim=True) - m * m, min=0.0)
-    means_n = (s1 - m) * torch.rsqrt(v + eps_means)
-    a = scale[:, :, None, None] * torch.rsqrt(var + eps_in)
-    b = alpha[:, :, None, None] * means_n + bias[:, :, None, None] - a * s1
-    return (xf * a + b).to(x.dtype)
+def _norm(x, labels, tables, act):
+    """InstanceNorm2d+ of ``x`` with ``tables`` (gamma, alpha, beta,
+    in.gamma, in.beta), then ``act``: on a CUDA tensor the card's kernel
+    (``ops.instnorm``) with an ``nn.elu`` ``act`` fused into it, any other
+    ``act`` after it; on the CPU the composite with ``act`` after it."""
+    if not x.is_cuda:
+        return instnorm.composite(x, labels, *tables, act=act)
+    fused = act is nn.elu
+    out = instnorm.instnorm_plus(x, labels, *tables, elu=fused)
+    return out if act is None or fused else act(out)
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +79,10 @@ class InstanceNorm2dPlus(torch.nn.Module):
             self.beta.zero_()
 
     @spanned("norm")
-    def forward(self, x, y=None):
-        n = x.shape[0]
+    def forward(self, x, y=None, act=None):
         inn = self._modules["in"]
-        scale = self.gamma * inn.gamma
-        bias = self.gamma * inn.beta
-        if self.beta is not None:
-            bias = bias + self.beta
-        tile = lambda r: r[None, :].expand(n, self.num_features)
-        return _norm2dplus(x, tile(scale), tile(self.alpha), tile(bias))
+        return _norm(x, None, (self.gamma, self.alpha, self.beta, inn.gamma,
+                               inn.beta), act)
 
 
 class ConditionalInstanceNorm2dPlus(torch.nn.Module):
@@ -122,14 +112,10 @@ class ConditionalInstanceNorm2dPlus(torch.nn.Module):
             self.embed_beta.zero_()
 
     @spanned("norm")
-    def forward(self, x, y):
+    def forward(self, x, y, act=None):
         inn = self._modules["in"]
-        gamma = self.embed_gamma[y]                            # [N, C]
-        scale = gamma * inn.gamma
-        bias = gamma * inn.beta
-        if self.embed_beta is not None:
-            bias = bias + self.embed_beta[y]
-        return _norm2dplus(x, scale, self.embed_alpha[y], bias)
+        return _norm(x, y, (self.embed_gamma, self.embed_alpha,
+                            self.embed_beta, inn.gamma, inn.beta), act)
 
 
 def make_normalizer(num_features: int, num_classes: Optional[int],
@@ -183,8 +169,8 @@ class ResidualBlock(torch.nn.Module):
 
     def forward(self, x, y=None):
         pool = self.resample == "down" and self.dilation is None
-        h = self.conv1(self.act(self.norm1(x, y)))
-        h = self.conv2(self.act(self.norm2(h, y)))
+        h = self.conv1(self.norm1(x, y, act=self.act))
+        h = self.conv2(self.norm2(h, y, act=self.act))
         if pool:
             h = nn.avg_pool2(h)
         if self.shortcut is None:

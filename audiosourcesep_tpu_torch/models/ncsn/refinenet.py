@@ -142,7 +142,7 @@ class RefineNetDilated(torch.nn.Module):
             ref = self._modules[f"refine{i + 1}"]([skip, ref],
                                                   skip.shape[2:], y)
 
-        out = self.act(self.normalizer(ref, y))
+        out = self.normalizer(ref, y, act=self.act)
         out = self.end_conv(out).to(in_dtype)
         if self.sigmas is not None:
             out = out / self.sigmas[y].to(out.dtype)[:, None, None, None]

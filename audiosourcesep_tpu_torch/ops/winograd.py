@@ -52,6 +52,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .counting import Counters
+
 __all__ = ["transform_weights", "winograd_conv2d", "bf16_path", "f32_path",
            "winograd_conv2d_reference", "winograd_eligible",
            "dilated_eligible", "dilated_winograd_conv2d",
@@ -108,34 +110,13 @@ THIN_OUT_BLOCKS_PER_SM = {4: 3, 1: 4}
 BF16_STRIDED_MAX_DILATION = 4
 
 
-def counters() -> dict:
-    """A copy of every launch counter: ``{"launch_count": n,
-    "launch_counts": {...}, "bf16_path_counts": {...}, "f32_path_counts":
-    {...}}``."""
-    return {"launch_count": launch_count,
-            **{c: dict(globals()[c]) for c in _COUNTERS}}
-
-
-def counters_since(before: dict) -> dict:
-    """The launches counted since :func:`counters` gave ``before``, in its
-    layout."""
-    now = counters()
-    return {"launch_count": now["launch_count"] - before["launch_count"],
-            **{c: {k: n - before[c][k] for k, n in now[c].items()}
-               for c in _COUNTERS}}
-
-
-def add_counters(launches: dict, times: int) -> None:
-    """Add ``times`` x ``launches`` (:func:`counters_since`'s layout) to
-    the counters: a CUDA graph's replays add the launches its capture
-    counted, and the capture, which ran nothing, takes them off (``times =
-    -1``)."""
-    global launch_count
-    launch_count += times * launches["launch_count"]
-    for c in _COUNTERS:
-        counts = globals()[c]
-        for k, n in launches[c].items():
-            counts[k] += times * n
+# the counters and their arithmetic (ops.counting): counters() gives
+# {"launch_count": n, "launch_counts": {...}, "bf16_path_counts": {...},
+# "f32_path_counts": {...}}; counters_since(before) the launches since;
+# add_counters(launches, times) adds times x launches
+_COUNTED = Counters(globals(), ("launch_count",), _COUNTERS)
+counters, counters_since, add_counters = (_COUNTED.get, _COUNTED.since,
+                                          _COUNTED.add)
 
 
 def _count_launch(name: str, path: str, bf16: bool) -> None:

@@ -38,8 +38,9 @@ raises; nothing falls back to the eager loop. Per-level callbacks and
 snapshots run between levels, outside any graph.
 
 Kernel launches made while a graph captures run nothing: the counters of
-``ops.winograd`` take the capture's counts back off and add them again at
-every replay (:class:`StepGraph`), so they count what the card ran.
+the op modules in ``COUNTED`` take the capture's counts back off and add
+them again at every replay (:class:`StepGraph`), so they count what the
+card ran.
 
 Inside a :func:`recording` block every level is cut into spans
 (``utils.profiling``, host clock), one after another: ``anneal.warmup``
@@ -68,7 +69,7 @@ from typing import Callable, Iterator, List, NamedTuple, Optional
 
 import torch
 
-from ..ops import winograd
+from ..ops import instnorm, winograd
 from ..utils import profiling
 
 Body = Callable[[torch.Tensor, torch.Tensor], None]
@@ -79,8 +80,7 @@ class Capture(NamedTuple):
     on the card; the ``anneal.warmup`` span) and of its capture (host
     time from the warm-up's end: ``anneal.capture`` plus
     ``anneal.instantiate``), and the kernel
-    launches of one replay (:func:`ops.winograd.counters_since`'s
-    layout)."""
+    launches of one replay (:func:`counters_since`' layout)."""
     level: int
     warmup_s: float
     capture_s: float
@@ -200,22 +200,61 @@ class LevelGraph:
         self.graph.replay()
 
 
+# the op modules whose kernel launches a replay adds, each with its key in
+# the layout below: ops.winograd's counters at its top level (a replay's
+# "launch_count" is its routed convs), every other module's under its key
+COUNTED = ((None, winograd), ("instnorm", instnorm))
+
+
+def _layout(parts) -> dict:
+    out = {}
+    for (key, _), part in zip(COUNTED, parts):
+        if key is None:
+            out.update(part)
+        else:
+            out[key] = part
+    return out
+
+
+def _part(launches: dict, key: Optional[str]) -> dict:
+    return launches if key is None else launches[key]
+
+
+def counters() -> dict:
+    """Every counted module's counters: ``ops.winograd.counters()``, with
+    each other module's ``counters()`` under its key in ``COUNTED``."""
+    return _layout(mod.counters() for _, mod in COUNTED)
+
+
+def counters_since(before: dict) -> dict:
+    """The counts since :func:`counters` gave ``before``, in its layout."""
+    return _layout(mod.counters_since(_part(before, key))
+                   for key, mod in COUNTED)
+
+
+def add_counters(launches: dict, times: int) -> None:
+    """Add ``times`` x ``launches`` (:func:`counters_since`' layout) to
+    every counted module's counters."""
+    for key, mod in COUNTED:
+        mod.add_counters(_part(launches, key), times)
+
+
 class StepGraph:
     """A captured step: ``replay()`` runs ``graph`` and adds the kernel
-    launches counted during ``capture()`` to ``ops.winograd``'s counters,
-    from which the capture, which ran nothing on the card, took them off.
-    ``launches`` holds them (:func:`ops.winograd.counters_since`)."""
+    launches counted during ``capture()`` (``launches``,
+    :func:`counters_since`) to the counters, from which the capture, which
+    ran nothing on the card, took them off."""
 
     def __init__(self, graph, capture: Callable[[], None]):
-        before = winograd.counters()
+        before = counters()
         capture()
-        self.launches = winograd.counters_since(before)
-        winograd.add_counters(self.launches, -1)
+        self.launches = counters_since(before)
+        add_counters(self.launches, -1)
         self.graph = graph
 
     def replay(self) -> None:
         self.graph.replay()
-        winograd.add_counters(self.launches, 1)
+        add_counters(self.launches, 1)
 
 
 def _traced(record: Optional[Record]) -> Optional[Record]:

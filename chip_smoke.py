@@ -142,6 +142,16 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    capture and warm-up time and the peak memory, beside the card's name
    and power limit.
 
+12. the InstanceNorm++ kernel pair (``ops.instnorm``) alone, bf16 and
+   f32: ptxas' report (a spill fails the phase); the norms of one v1
+   forward at the separation cell's shapes (batch 30, 192 filters) as it
+   makes them, counted; a step's norms as one CUDA graph, the kernel's
+   and the composite's device time against the bytes bound; per shape
+   class its output against the composite's in f32, its times and a
+   replay in a CUDA graph bit for bit against eager (``--norm`` runs
+   phases 1, 2 and 12 alone). It runs after phase 3; phase 11 adds the
+   norms of a graphed step to its entry of the JSON line.
+
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository around this file, it exits non-zero and prints no result.
@@ -330,6 +340,10 @@ MULTI_FRAMES_TOL = (0.2, 1e-2)
 # most
 GRAPH_LEVELS, GRAPH_T, GRAPH_GLOW_T = 2, 5, 3
 GRAPH_PEAK = 1.10
+# the InstanceNorm++ calls of one v1 forward (ROUTED_PER_FORWARD's
+# counterpart): what the phases hold ops.instnorm's counter to; phase 12
+# checks it against the norm modules a forward calls
+NORMS_PER_FORWARD = 71
 # the train steps' times of phase 7d, beside which 10c prints its own
 STEP_TIMES = {}
 # technique 1: the f32 Gram distance on the card against float64 on the
@@ -789,13 +803,9 @@ def _write_prior(path: str, seed: int):
 
 
 def _reset_counts():
-    from audiosourcesep_tpu_torch.ops import winograd as W
-    W.launch_count = 0
-    for name in W.launch_counts:
-        W.launch_counts[name] = 0
-    for counts in (W.bf16_path_counts, W.f32_path_counts):
-        for name in counts:
-            counts[name] = 0
+    """Every kernel launch counter (``separation.graphs.COUNTED``) to 0."""
+    from audiosourcesep_tpu_torch.separation import graphs
+    graphs.add_counters(graphs.counters(), -1)
 
 
 def graphed_steps(L: int, T: int) -> int:
@@ -1191,11 +1201,12 @@ def _step_split(state, step, x, idx, noise, sigmas_dev):
 
 
 def phase_train_routing(smi: str):
-    """7c: two full-width steps at batch 32, routing off and on, then the
-    step times."""
+    """7c: two full-width steps at batch 32, routing off and on (the norms
+    on their kernel in both), then the step times."""
     import torch
     from audiosourcesep_tpu_torch import nn
     from audiosourcesep_tpu_torch.models.ncsn import get_sigmas
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
     from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.training import make_ncsn_train_step
     sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")
@@ -1215,10 +1226,12 @@ def phase_train_routing(smi: str):
                 _, loss = step(state, x, sigma_idx=idx, noise=noise)
                 losses[routed].append(float(loss))
                 want = {f32: ROUTED_PER_FORWARD if routed else 0, bf16: 0}
-                if dict(W.launch_counts) != want:
+                if dict(W.launch_counts) != want \
+                        or IN.launch_count != NORMS_PER_FORWARD:
                     raise AssertionError(f"train step launches "
-                                         f"{W.launch_counts}, expected "
-                                         f"{want}")
+                                         f"{W.launch_counts} and "
+                                         f"{IN.launch_count} norms, expected "
+                                         f"{want} and {NORMS_PER_FORWARD}")
             if routed:
                 # the weights moved in step 2's optimizer update after its
                 # forward cached U: a routed forward now must agree with
@@ -1251,7 +1264,8 @@ def phase_train_routing(smi: str):
           f"{rel[0]:.2e}), step 2 {losses[True][1]:.4f} vs "
           f"{losses[False][1]:.4f} (rel {rel[1]:.2e}; tol "
           f"{MODEL_TOL['float32']:g}; the loss moved {moved:.2e} between "
-          f"the steps); {ROUTED_PER_FORWARD} f32 launches per step, no bf16")
+          f"the steps); {ROUTED_PER_FORWARD} f32 launches per step, no bf16, "
+          f"{NORMS_PER_FORWARD} norms on their kernel")
     print(f"[7c] after the routed steps, the scores of the updated weights "
           f"routed vs cuDNN: mean|on-off|/mean|off| {u_rel:.2e} (tol "
           f"{MODEL_TOL['float32']:g})")
@@ -1275,12 +1289,14 @@ def phase_train_routing(smi: str):
 
 def phase_train_cli(work: str, ds: str, counts):
     """7d: train_ncsn and ncsn_generate_samples in-process at full width,
-    routing on; returns the f32 launches of each."""
+    routing on, every norm on its kernel; returns the f32 launches of
+    each."""
     import numpy as np
     import torch
     from audiosourcesep_tpu_torch import (nn, ncsn_generate_samples,
                                           train_ncsn)
     from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
     from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.training.checkpoint import (
         CheckpointManager, load_flat, restore_ncsn_params)
@@ -1303,6 +1319,7 @@ def phase_train_cli(work: str, ds: str, counts):
         wall = time.time() - t0
         STEP_TIMES["7d"] = times["step"]
         train_launches = dict(W.launch_counts)
+        train_norms = IN.launch_count
         _reset_counts()
         t0 = time.time()
         ncsn_generate_samples.main([out, "--output", gen, "--ema",
@@ -1311,6 +1328,7 @@ def phase_train_cli(work: str, ds: str, counts):
                                     "--n_samples", "8", "--device", "cuda"])
         gen_wall = time.time() - t0
         gen_launches = dict(W.launch_counts)
+        gen_norms = IN.launch_count
     finally:
         nn.set_winograd(False)
     with open(os.path.join(out, "out.log")) as f:
@@ -1323,10 +1341,15 @@ def phase_train_cli(work: str, ds: str, counts):
     want = {f32: forwards * ROUTED_PER_FORWARD, bf16: 0}
     print(f"[7d] kernel launches {train_launches}, expected {want}: "
           f"({steps} steps + {forwards - steps - graphed_steps(L, T)} eval "
-          f"batches + {L}x({T}+1) graphed Langevin) x {ROUTED_PER_FORWARD}")
+          f"batches + {L}x({T}+1) graphed Langevin) x {ROUTED_PER_FORWARD}; "
+          f"norms on their kernel {train_norms}, expected "
+          f"{forwards * NORMS_PER_FORWARD}")
     if train_launches != want:
         raise AssertionError("the training CLI did not launch the f32 "
                              "kernel for every routed conv, and only it")
+    if train_norms != forwards * NORMS_PER_FORWARD:
+        raise AssertionError("the training CLI did not run every norm on "
+                             "its kernel")
     if not os.path.isfile(os.path.join(out, "ckpts", "checkpoint.json")):
         raise AssertionError("no ckpts/checkpoint.json")
     latest = CheckpointManager(os.path.join(out, "ckpts")).latest()
@@ -1357,13 +1380,17 @@ def phase_train_cli(work: str, ds: str, counts):
     print(f"[7d] ncsn_generate_samples --ema --T {T} --n_samples 8: "
           f"{gen_wall:.2f} s, {g.shape} in [{g.min():.2f}, {g.max():.2f}] dB; "
           f"out.log {_log_times(gen)}; launches {gen_launches}, expected "
-          f"{gen_want} ({L} levels x ({T} replays + 1 warm-up step))")
+          f"{gen_want} ({L} levels x ({T} replays + 1 warm-up step)); norms "
+          f"on their kernel {gen_norms}, expected "
+          f"{graphed_steps(L, T) * NORMS_PER_FORWARD}")
     if g.shape != (8, 96, 64, 1) or not np.isfinite(g).all() \
             or g.min() < -100.0 or g.max() > 20.0:
         raise AssertionError("generated samples")
-    if gen_launches != gen_want:
+    if gen_launches != gen_want \
+            or gen_norms != graphed_steps(L, T) * NORMS_PER_FORWARD:
         raise AssertionError("the sampler did not launch the f32 kernel "
-                             "for every routed conv, and only it")
+                             "for every routed conv, and only it, or the "
+                             "norm kernel for every norm")
     return train_launches[f32], gen_launches[f32]
 
 
@@ -2439,6 +2466,7 @@ def rank_worker(argv):
     memory and times to ``OUT`` (``{rank}`` replaced by the rank)."""
     import torch
     from audiosourcesep_tpu_torch import nn, run_basis_sep, train_ncsn
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
     from audiosourcesep_tpu_torch.ops import winograd as W
     out, name, args = argv[0], argv[1], argv[2:]
     rank = os.environ.get("RANK") or args[args.index("--process_id") + 1]
@@ -2451,6 +2479,7 @@ def rank_worker(argv):
             name].main(args)
     with open(out.replace("{rank}", rank), "w") as f:
         json.dump({"launches": dict(W.launch_counts),
+                   "norms": IN.launch_count,
                    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
                    "times": times}, f)
 
@@ -2669,8 +2698,8 @@ def _param_rel(flat_a, flat_b, prefix):
 
 def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     """10c: train_ncsn --multihost, 1 process over NCCL and 2 over gloo,
-    with their step and all-reduce times; returns the f32 launches of the
-    2 ranks together."""
+    with their step and all-reduce times, every norm on its kernel;
+    returns the f32 launches of the 2 ranks together."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2678,6 +2707,7 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     from audiosourcesep_tpu_torch.data import load_melspec_ds
     from audiosourcesep_tpu_torch.models.ncsn import (get_score_model,
                                                       get_sigmas)
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
     from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.training import (init_train_state,
                                                    make_ncsn_train_step,
@@ -2710,6 +2740,9 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     finally:
         nn.set_winograd(False)
     launches = W.launch_counts[f32]
+    # phase 7d's forwards, each with its norms on their kernel
+    norms = IN.launch_count
+    want_norms = train_launches // ROUTED_PER_FORWARD * NORMS_PER_FORWARD
     init = _log_lines(os.path.join(out, "out.log"), ("Multi-host",))
     line = _epoch_line(os.path.join(out, "out.log"))
     flat, step = load_flat(latest_checkpoint(os.path.join(out, "ckpts")))
@@ -2718,7 +2751,8 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     print(f"[10c] train_ncsn --multihost --num_processes 1: {init}, "
           f"wall-clock {wall:.2f} s; '{line}' vs phase 7d's '{ref_line}'; "
           f"params ||diff|| / ||7d|| {rel}; f32 launches {launches} "
-          f"(7d {train_launches}); steps {_ms(times['step'])} ms (7d's "
+          f"(7d {train_launches}); norms on their kernel {norms} (expected "
+          f"{want_norms}); steps {_ms(times['step'])} ms (7d's "
           f"{_ms(STEP_TIMES['7d'])}; at world size 1 the step has no "
           f"collective) [{smi}]")
     if init != ["Multi-host initialised: process 0 of 1, backend nccl"]:
@@ -2726,7 +2760,7 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     if dist.is_initialized():
         raise AssertionError("[10c] the process group outlived the CLI")
     if not _close(_losses(line), _losses(ref_line)) or step != ref_step \
-            or launches != train_launches \
+            or launches != train_launches or norms != want_norms \
             or max(rel.values()) > TRAIN_TOL["param"]:
         raise AssertionError("[10c] the NCCL run differs from phase 7d")
 
@@ -2784,6 +2818,7 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     rel = {p: _param_rel(flat, ref_tree, p)
            for p in ("['params']", "['ema_params']")}
     per_rank = [r["launches"] for r in reports]
+    rank_norms = [r["norms"] for r in reports]
     # each rank samples on its own, graphed: a warm-up step a level
     forwards = len(losses) + len(vals) + graphed_steps(L, T)
     print(f"[10c] train_ncsn --multihost, 2 processes on cuda:0: {backends}; "
@@ -2792,7 +2827,9 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
           f"{want[0]:.3f}, val {want[1]:.6f}; params ||diff|| / ||one|| "
           f"{rel}; launches per rank {per_rank}, expected {f32} "
           f"{forwards * ROUTED_PER_FORWARD} each ({len(losses)} steps + "
-          f"{len(vals)} eval + {L}x({T}+1) graphed Langevin); peak memory "
+          f"{len(vals)} eval + {L}x({T}+1) graphed Langevin); norms on their "
+          f"kernel per rank {rank_norms}, expected "
+          f"{forwards * NORMS_PER_FORWARD} each; peak memory "
           f"per rank "
           f"{[round(r['peak_mib'], 1) for r in reports]} MiB")
     n_grad = sum(t.numel() for t in state.params.values())
@@ -2812,8 +2849,10 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
         raise AssertionError("[10c] 2 ranks differ from one process")
     if os.path.exists(os.path.join(outs[1], "ckpts", "checkpoint.json")):
         raise AssertionError("[10c] rank 1 wrote a checkpoint")
-    if any(r.get(f32) != forwards * ROUTED_PER_FORWARD for r in per_rank):
-        raise AssertionError(f"[10c] launches {per_rank}")
+    if any(r.get(f32) != forwards * ROUTED_PER_FORWARD for r in per_rank) \
+            or rank_norms != [forwards * NORMS_PER_FORWARD] * 2:
+        raise AssertionError(f"[10c] launches {per_rank}, norms "
+                             f"{rank_norms}")
     print("[10c] rank 0 alone wrote ckpts/ (rank 1's --output has none)")
     return sum(r[f32] for r in per_rank)
 
@@ -2866,23 +2905,25 @@ def _bf16_ulp(scale: float) -> float:
 
 
 def _scaled(counts: dict, times: int) -> dict:
-    """``ops.winograd.counters_since``'s layout, every count x ``times``."""
-    return {k: v * times if isinstance(v, int)
-            else {n: c * times for n, c in v.items()}
+    """``separation.graphs.counters_since``' layout, every count x
+    ``times``."""
+    return {k: v * times if isinstance(v, int) else _scaled(v, times)
             for k, v in counts.items()}
 
 
-def _step_launches(kernel: str, paths: dict, n: int) -> dict:
+def _step_launches(kernel: str, paths: dict, n: int, norms: int = 0) -> dict:
     """The launches of one anneal step that launches ``kernel`` on each
-    path of ``paths`` ({path: launches}) and ``n`` times in all, in
-    ``ops.winograd.counters_since``'s layout."""
-    from audiosourcesep_tpu_torch.ops import winograd as W
-    zero = W.counters_since(W.counters())
+    path of ``paths`` ({path: launches}) and ``n`` times in all, and the
+    InstanceNorm++ kernel ``norms`` times (no layout copy), in
+    ``separation.graphs.counters_since``' layout."""
+    from audiosourcesep_tpu_torch.separation import graphs
+    zero = graphs.counters_since(graphs.counters())
     return {"launch_count": n,
             "launch_counts": {k: n * (k == kernel)
                               for k in zero["launch_counts"]},
             **{c: {p: paths.get(p, 0) for p in zero[c]}
-               for c in ("bf16_path_counts", "f32_path_counts")}}
+               for c in ("bf16_path_counts", "f32_path_counts")},
+            "instnorm": {"launch_count": norms, "layout_copies": 0}}
 
 
 def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
@@ -2892,14 +2933,13 @@ def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
     ``seed``: x, the graphs' record, the host seconds, the launches and the
     peak memory above what was allocated before (GiB)."""
     import torch
-    from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.separation import (basis_separate_per_level,
                                                      graphs)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    before = W.counters()
+    before = graphs.counters()
     t0 = time.perf_counter()
     with graphs.recording() as record:
         x, _ = basis_separate_per_level(
@@ -2908,7 +2948,7 @@ def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
             (lambda level, step: noise[level, step]))
     torch.cuda.synchronize()
     return {"x": x, "record": record, "wall": time.perf_counter() - t0,
-            "launches": W.counters_since(before),
+            "launches": graphs.counters_since(before),
             "peak": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
 
 
@@ -2977,7 +3017,8 @@ def _graph_case(tag, score_fn, mixed, x0, sigmas, cfg, want_step, smi):
           f"{want_step['launch_counts']}, by path {by_path}: an eager "
           f"step's; graphed {graphed['launches']['launch_count']} = {L} x "
           f"(T={T} replays + 1 warm-up step), eager "
-          f"{eager['launches']['launch_count']} = {L} x T={T}")
+          f"{eager['launches']['launch_count']} = {L} x T={T}; "
+          f"InstanceNorm++ a replay {want_step['instnorm']}")
 
     def per_step(run):
         levels = run["record"].levels
@@ -2997,7 +3038,7 @@ def _graph_case(tag, score_fn, mixed, x0, sigmas, cfg, want_step, smi):
           f"whole anneal {graphed['wall']:.3f} s graphed, {eager['wall']:.3f}"
           f" s eager; peak memory graphed {graphed['peak']:.3f} GiB, eager "
           f"{eager['peak']:.3f} GiB [{smi}]")
-    return graphed["peak"], eager["peak"]
+    return graphed["peak"], eager["peak"], caps[0].launches
 
 
 def phase_graphs(smi: str):
@@ -3009,7 +3050,8 @@ def phase_graphs(smi: str):
     2 levels x T=3,
     graphed against eager (``_graph_case``); the Glow score's backward
     captured on the capture stream, and the graph's peak memory within
-    GRAPH_PEAK of the eager run's."""
+    GRAPH_PEAK of the eager run's. Returns the InstanceNorm++ launches of
+    a bf16 NCSN replay."""
     import torch
     from audiosourcesep_tpu_torch import nn
     from audiosourcesep_tpu_torch.bijectors import ShiftAndLogScaleConvNet
@@ -3039,10 +3081,13 @@ def phase_graphs(smi: str):
                 m.compute_dtype = dtype
             name = "bf16" if dtype else "f32"
             kernel = W.KERNELS[dtype or torch.float32]
-            _graph_case(f"[11] NCSN v1 192 filters {name}, {BATCH} frames, "
-                        f"{L} levels x T={T}:", ncsn_score_fn(models), mixed,
-                        x0, sigmas, cfg, _step_launches(
-                            kernel, paths, 2 * ROUTED_PER_FORWARD), smi)
+            replay = _graph_case(
+                f"[11] NCSN v1 192 filters {name}, {BATCH} frames, {L} "
+                f"levels x T={T}:", ncsn_score_fn(models), mixed, x0, sigmas,
+                cfg, _step_launches(kernel, paths, 2 * ROUTED_PER_FORWARD,
+                                    2 * NORMS_PER_FORWARD), smi)[2]
+            if dtype:
+                norms = replay["instnorm"]["launch_count"]
         del models
         torch.cuda.empty_cache()
         # a flow a level and source: each level's graph warms its own up
@@ -3101,6 +3146,219 @@ def phase_graphs(smi: str):
     finally:
         nn.set_winograd(False)
     torch.cuda.empty_cache()
+    return norms
+
+
+def _norm_call(x, y, rows, elu, kernel):
+    """One norm of the v1 score net on ``x``: the kernel pair, or (not
+    ``kernel``) the composite the norm modules ran on the card before it
+    (the rows gathered and folded, ``norm2dplus`` in x's dtype, ``F.elu``
+    after it)."""
+    import torch.nn.functional as F
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    if kernel:
+        return IN.instnorm_plus(x, y, *rows, elu=elu)
+    return IN.composite(x, y, *rows, act=F.elu if elu else None)
+
+
+def _norm_err(x, y, rows, elu):
+    """The kernel's output on ``x`` against the composite's in f32 on the
+    same values: max|difference|, and the figure held to 1 (bf16: in bf16
+    ulps of the composite, beyond the f32 kernel's 2e-5, which near 0 sets
+    the difference; f32: over 2e-5)."""
+    import torch
+    got = _norm_call(x, y, rows, elu, True).float()
+    want = _norm_call(x.float(), y, rows, elu, False)
+    diff = (got - want).abs()
+    if x.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - 7)
+        held = float((diff.sub(2e-5).clamp_min(0) / ulp).max())
+    else:
+        held = float(diff.max()) / 2e-5
+    return float(diff.max()), held
+
+
+def _forward_norms(dtype):
+    """The norms one v1 forward (192 filters, BATCH frames of [96, 64, 1],
+    compute dtype ``dtype``) makes on the card, recorded as it makes them
+    by a forward pre-hook on every norm module: each call's input (a
+    copy), labels, tables and whether the ELU is fused into it; and the
+    norms the kernel ran in that forward (``ops.instnorm``'s counter)."""
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.models.ncsn import get_score_model
+    from audiosourcesep_tpu_torch.models.ncsn.layers import (
+        ConditionalInstanceNorm2dPlus)
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    m = get_score_model("v1", (96, 64, 1), 192, 10, device="cuda")
+    m.reset_parameters(torch.Generator().manual_seed(41))
+    m.eval().requires_grad_(False)
+    m.compute_dtype = dtype
+    calls = []
+
+    def keep(mod, args, kwargs):
+        inn = mod._modules["in"]
+        calls.append((args[0].clone(), args[1] if len(args) > 1 else
+                      kwargs["y"], (mod.embed_gamma, mod.embed_alpha,
+                                    mod.embed_beta, inn.gamma, inn.beta),
+                      kwargs.get("act") is nn.elu))
+
+    hooks = [mod.register_forward_pre_hook(keep, with_kwargs=True)
+             for mod in m.modules()
+             if isinstance(mod, ConditionalInstanceNorm2dPlus)]
+    g = torch.Generator().manual_seed(42)
+    x = torch.rand(BATCH, 96, 64, 1, generator=g).cuda()
+    idx = torch.randint(10, (BATCH,), generator=g).cuda()
+    before = IN.counters()
+    try:
+        with torch.no_grad():
+            m(x, idx)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls, IN.counters_since(before)["launch_count"]
+
+
+def _replayed_equals_eager(fn) -> bool:
+    """Whether ``fn()`` captured in a CUDA graph and replayed gives the
+    eager call's output bit for bit."""
+    import torch
+    eager = fn()
+    buf = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        buf.copy_(fn())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        buf.copy_(fn())
+    buf.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(buf, eager)
+    del graph
+    return same
+
+
+def phase_norm(smi: str) -> dict:
+    """12: the InstanceNorm++ kernel pair (``ops.instnorm``,
+    ``csrc/instnorm_plus.cu``) alone, bf16 and f32: ptxas' report of its
+    twelve instances (a spill fails the phase); the norms of one v1
+    forward at the separation cell's shapes as the forward makes them
+    (``_forward_norms``: their count, held to NORMS_PER_FORWARD, and the
+    kernel's count of them); a step's norms (that forward's, twice: the
+    two sources) as one CUDA graph of the kernel and one of the composite
+    the norm modules ran before it (``graph_ms``: device time), against
+    the bytes bound (x read twice and y written once at the HBM rate),
+    and the kernel's error on them; then per shape class of the forward,
+    on inputs of each channel's own mean and spread, the error (bf16
+    within one bf16 ulp of the composite in f32, f32 within 2e-5), the
+    times and a capture and replay bit for bit against eager. Returns the
+    kernel's entry of the JSON line: the bf16 step at its top level (the
+    separation cell's dtype), the f32 step and the classes under their
+    dtype."""
+    import collections
+    import torch
+    from audiosourcesep_tpu_torch.kernels import build
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    report = _ptxas_report(build.build_log, "instnorm")
+    for line in report:
+        print(f"[12] ptxas: {line}")
+    if len([ln for ln in report if ln.startswith("Compiling")]) != 12 \
+            or any(_spills(ln) for ln in report):
+        raise AssertionError(f"the instnorm kernels are missing from ptxas' "
+                             f"report or spill: {report}")
+    entry = {"name": IN.ENTRY, "route": "cuda",
+             "source": "audiosourcesep_tpu_torch/csrc/instnorm_plus.cu",
+             "replaces": "audiosourcesep_tpu_torch/ops/instnorm.py:"
+                         "composite (PyTorch; no TPU kernel)"}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        calls, launched = _forward_norms(dtype)
+        if len(calls) != NORMS_PER_FORWARD or launched != len(calls):
+            raise AssertionError(f"[12] {dname}: a forward made {len(calls)}"
+                                 f" norms, the kernel ran {launched}; "
+                                 f"expected {NORMS_PER_FORWARD}")
+        errs = [_norm_err(*c) for c in calls]
+        held = max(e[1] for e in errs)
+        if not held <= 1.0:
+            raise AssertionError(f"[12] {dname}: a forward's norm off the "
+                                 f"composite by {held} of its limit")
+        step = calls * 2
+
+        def run(kernel):
+            for x, y, rows, elu in step:
+                _norm_call(x, y, rows, elu, kernel)
+
+        t = {k: graph_ms(functools.partial(run, k), iters=1)
+             for k in (True, False)}
+        bound = sum(1e3 * 3 * x.numel() * x.element_size() / HBM
+                    for x, *_ in step)
+        numbers = {"ms": t[True], "plain_ms": t[False], "bound_ms": bound,
+                   "max_abs_err": max(e[0] for e in errs),
+                   "norms_a_step": len(step)}
+        print(f"[12] {dname} a step's {len(step)} norms (one forward's "
+              f"{launched}, counted on the kernel, twice) as one graph: "
+              f"kernel {t[True]:.3f} ms, composite {t[False]:.3f} ms, bound "
+              f"{bound:.3f} ms (bytes: x twice, y once; "
+              f"{100 * bound / t[True]:.1f}% of it); max|err| "
+              f"{numbers['max_abs_err']:.3g} [{smi}]")
+        if dtype == torch.bfloat16:
+            entry.update(numbers, launches_forward=launched)
+        else:
+            entry[dname] = numbers
+        shapes = collections.Counter(tuple(x.shape) for x, *_ in calls)
+        fused = collections.Counter(tuple(x.shape) for x, _, _, e in calls
+                                    if e)
+        del calls, step
+        torch.cuda.empty_cache()
+        classes = {}
+        for (n, c, h, w), per_fwd in shapes.items():
+            g = torch.Generator(device="cuda").manual_seed(c + h)
+            spread = 0.5 + 1.5 * torch.rand(c, device="cuda", generator=g)
+            x = (torch.randn((n, c, h, w), device="cuda", generator=g)
+                 * spread[:, None, None]
+                 + torch.randn(c, device="cuda", generator=g)[:, None, None])
+            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+            y = torch.randint(10, (n,), device="cuda", generator=g)
+            rows = (*(0.5 * torch.randn((10, c), device="cuda", generator=g)
+                      for _ in range(3)),
+                    1.0 + 0.1 * torch.randn(c, device="cuda", generator=g),
+                    0.1 * torch.randn(c, device="cuda", generator=g))
+            err = max(_norm_err(x, y, rows, elu)[1] for elu in (False, True))
+            if not err <= 1.0:
+                raise AssertionError(f"[12] {dname} {(n, c, h, w)}: kernel "
+                                     f"off the composite by {err} of its "
+                                     f"limit")
+            t = {(k, elu): graph_ms(functools.partial(_norm_call, x, y,
+                                                      rows, elu, k))
+                 for k in (True, False) for elu in (False, True)}
+            bound = 1e3 * 3 * x.numel() * x.element_size() / HBM
+            blocks = IN._resident_blocks(0, c, dtype == torch.bfloat16)
+            if not _replayed_equals_eager(
+                    lambda: _norm_call(x, y, rows, True, True)):
+                raise AssertionError(f"[12] {dname} {(n, c, h, w)}: the "
+                                     f"replayed kernel differs from eager")
+            label = f"{n}x{c}x{h}x{w}"
+            classes[label] = {
+                "norms_per_forward": per_fwd, "elu_fused": fused[n, c, h, w],
+                "ms": t[True, False], "elu_ms": t[True, True],
+                "composite_ms": t[False, False],
+                "composite_elu_ms": t[False, True], "bound_ms": bound,
+                "resident_blocks": blocks,
+                "slices": IN.slices(n, c, h * w, blocks), "err": err}
+            print(f"[12] {dname} {label} ({per_fwd} norms a forward, "
+                  f"{fused[n, c, h, w]} with the ELU): kernel "
+                  f"{t[True, False]:.4f} ms (ELU fused {t[True, True]:.4f}), "
+                  f"composite {t[False, False]:.4f} ms (+F.elu "
+                  f"{t[False, True]:.4f}); bound {bound:.4f} ms, "
+                  f"{100 * bound / t[True, True]:.1f}% of it; {blocks} "
+                  f"blocks resident; error {err:.3g} of its limit; "
+                  f"replayed == eager [{smi}]")
+        entry.setdefault(dname, {})["classes"] = classes
+    return entry
 
 
 def kernels_line(res, routes):
@@ -3190,9 +3448,17 @@ def main(argv):
         _print_host_us(_thin_host_us(GLOW_CLASSES, 8))
         return
 
+    if argv[:1] == ["--norm"]:
+        # phase 12 alone: the InstanceNorm++ kernel at the cell's classes
+        smi = phase_device()
+        phase_build()
+        print(json.dumps({"kernels": [phase_norm(smi)]}))
+        return
+
     smi = phase_device()
     phase_build()
     res = phase_kernel(smi)
+    norm = phase_norm(smi)
     phase_model(torch.bfloat16)
     phase_model(torch.float32)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3227,7 +3493,8 @@ def main(argv):
                  "multihost_train": phase_multi_train(work, ds,
                                                       train_launches, smi)}
         phase_multi_tools(work)
-        phase_graphs(smi)
+        # the InstanceNorm++ kernel's launches of one bf16 NCSN replay
+        norm["launches"] = phase_graphs(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3259,7 +3526,7 @@ def main(argv):
                # this to 0
                "flowpp": flowpp_launches[name[bf16]]},
     }
-    kernels = kernels_line(res, routes)
+    kernels = kernels_line(res, routes) + [norm]
     # phase 10's launches, all ranks together: the two separation layouts
     # (bf16) and the 2-rank training CLI (f32)
     for key, n in multi.items():

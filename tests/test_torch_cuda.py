@@ -1243,3 +1243,224 @@ def test_graphed_basis_is_the_same_with_tracing_on_and_off(cuda):
     assert record_off.traced == [] and record_on.traced == [0, 1]
     assert torch.isfinite(on).all()
     assert torch.equal(on, off)
+
+
+# ---------------------------------------------------------------------------
+# the InstanceNorm++ kernel (ops.instnorm, csrc/instnorm_plus.cu)
+# ---------------------------------------------------------------------------
+
+def _norm_inputs(shape, dtype, labels=True, seed=0, classes=10):
+    """x (channels_last) with each channel's own mean and spread, as a
+    score net's activations have; N(0, 0.5^2) embedding tables, the inner
+    norm's rows near (1, 0); labels or None (v2)."""
+    n, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, device="cuda", generator=g)
+
+    spread = 0.5 + 1.5 * torch.rand(c, device="cuda", generator=g)
+    x = randn(n, c, h, w) * spread[:, None, None] + randn(c)[:, None, None]
+    k = classes if labels else 1
+    tables = [0.5 * randn(k, c) for _ in range(3)]
+    if not labels:
+        tables = [t[0] for t in tables]
+    rows = (*tables, 1.0 + 0.1 * randn(c), 0.1 * randn(c))
+    y = (torch.randint(classes, (n,), device="cuda", generator=g)
+         if labels else None)
+    return (x.to(dtype).contiguous(memory_format=torch.channels_last), y,
+            rows)
+
+
+def _norm_composite(x, y, rows, act=None):
+    """The PyTorch composite the norm modules run off the card, in f32 on
+    x's values: the embedding rows gathered and folded, norm2dplus, act."""
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    return IN.composite(x.float(), y, *rows, act=act)
+
+
+def _bf16_ulps(got, want, atol=2e-5):
+    """|got - want| less ``atol`` (the f32 kernel's own agreement with the
+    composite, which bounds the f32 result that bf16 rounds once) in bf16
+    ulps of ``want`` (8 bits of mantissa). Near 0 an f32 result's error,
+    not its rounding, sets the difference."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    return ((got.float() - want).abs().sub(atol).clamp_min(0) / ulp).max() \
+        .item()
+
+
+# the separation cell's three classes (v1, 192 filters, 30 frames), the
+# image NCSN's 32x32 at 192 filters (batch 50), v2's 12x8 at 128 filters
+# (256 channels); C not a multiple of 8 (element loads)
+NORM_SHAPES = [(30, 192, 96, 64), (30, 384, 48, 32), (30, 192, 48, 32),
+               (50, 192, 32, 32), (8, 256, 12, 8), (3, 20, 10, 6),
+               (2, 3, 5, 7)]
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels", [True, False])
+@pytest.mark.parametrize("elu", [False, True])
+def test_instnorm_kernel_matches_the_composite(cuda, shape, dtype, labels,
+                                               elu):
+    """The kernel against the composite in f32 on the same values: f32
+    within the atol TestNorm2dPlus.test_matches_jax holds the composite to
+    against the JAX package; bf16 within one bf16 ulp of the f32 composite
+    (beyond that atol), and bit for bit the f32 kernel's result on the
+    same values rounded once to bf16."""
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    x, y, rows = _norm_inputs(shape, dtype, labels)
+    before = IN.counters()
+    got = IN.instnorm_plus(x, y, *rows, elu=elu)
+    assert IN.counters_since(before) == {"launch_count": 1,
+                                         "layout_copies": 0}
+    assert got.dtype == dtype and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = _norm_composite(x, y, rows, F.elu if elu else None)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        assert _bf16_ulps(got, want) <= 1.0
+        once = IN.instnorm_plus(x.float(), y, *rows, elu=elu).bfloat16()
+        assert torch.equal(got, once)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instnorm_kernel_large_means_and_constant_channels(cuda, dtype):
+    """Channels of large mean and ~0 variance stay finite (the statistics
+    sum x less a shift); a channel of constants hits the clamp at 0 and
+    comes out constant, as in the composite."""
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    g = torch.Generator(device="cuda").manual_seed(0)
+    means = torch.tensor([1e4, -1e4, 3e4, 1.0, 3.0, 0.0, -2.0, 5.0],
+                         device="cuda")
+    x = means[None, :, None, None] + 1e-2 * torch.randn(
+        (2, 8, 8, 8), device="cuda", generator=g)
+    x[:, 4] = 3.0                                       # constant
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    ones, zeros = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
+    rows = (ones, 0.5 * ones, zeros, ones, zeros)
+    out = IN.instnorm_plus(x, None, *rows)
+    assert torch.isfinite(out).all()
+    const = out[:, 4].float()
+    assert (const == const[:, :1, :1]).all()
+    want = _norm_composite(x, None, rows)[:, 4]
+    if dtype == torch.float32:
+        torch.testing.assert_close(const, want, atol=2e-5, rtol=0)
+    else:
+        assert _bf16_ulps(const, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instnorm_kernel_in_a_graph_equals_eager_and_counts_replays(
+        cuda, dtype):
+    """Captured and replayed, the kernel pair gives the eager call's output
+    bit for bit (its tickets, zeroed in the graph, start clean at every
+    replay), and each replay adds the capture's count to the kernel's
+    counters."""
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    from audiosourcesep_tpu_torch.separation import graphs
+    x, y, rows = _norm_inputs((30, 384, 48, 32), dtype)
+    eager = IN.instnorm_plus(x, y, *rows, elu=True)
+    out = torch.empty_like(eager)
+
+    def step():
+        out.copy_(IN.instnorm_plus(x, y, *rows, elu=True))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph):
+            step()
+
+    before = IN.counters()
+    sg = graphs.StepGraph(graph, capture)
+    assert IN.counters() == before
+    assert sg.launches["instnorm"]["launch_count"] == 1
+    for _ in range(3):
+        out.zero_()
+        sg.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert IN.counters_since(before)["launch_count"] == 3
+
+
+def test_instnorm_kernel_refuses_and_does_not_fall_back(cuda, monkeypatch):
+    """A dtype or layout the kernel does not take raises; through the norm
+    module a CUDA tensor's forward never reaches the composite, with grad
+    mode on or off."""
+    from audiosourcesep_tpu_torch.models.ncsn import layers
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    x, y, rows = _norm_inputs((2, 16, 8, 8), torch.float32)
+    with pytest.raises(TypeError):
+        IN._instnorm_cuda(x.half(), y, *rows)
+    with pytest.raises(ValueError, match="channels_last"):
+        IN._instnorm_cuda(x.contiguous(), y, *rows)
+    with pytest.raises(ValueError):
+        IN._instnorm_cuda(x, y, *(t.double() for t in rows))
+    # the public call copies another layout into channels_last, counted
+    before = IN.counters()
+    got = IN.instnorm_plus(x.contiguous(), y, *rows)
+    assert IN.counters_since(before)["layout_copies"] == 1
+    assert torch.equal(got, IN.instnorm_plus(x, y, *rows))
+    norm = layers.ConditionalInstanceNorm2dPlus(16, 10, device="cuda")
+    norm.reset_parameters(torch.Generator().manual_seed(0))
+    monkeypatch.setattr(IN, "norm2dplus", _no_fallback)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            norm(x.half(), y)
+        norm(x, y, act=nn.elu)
+    assert norm(x, y, act=nn.elu).requires_grad
+
+
+def test_ncsn_forward_takes_the_kernel_under_autograd_too(cuda):
+    """A v1 forward on the card runs its 71 norms on the kernel (17 with
+    the ELU fused), with grad mode on or off, and agrees with the CPU's
+    composite forward; under autograd its gradients are the CPU's."""
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    m = get_score_model("v1", (32, 16, 1), 16, 4, device=cuda)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    ref = get_score_model("v1", (32, 16, 1), 16, 4)
+    ref.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(3, 32, 16, 1, generator=g)
+    idx = torch.tensor([0, 3, 1])
+    for grad in (False, True):
+        before = IN.counters()
+        with torch.set_grad_enabled(grad):
+            out = m(x.to(cuda), idx.to(cuda))
+        assert IN.counters_since(before) == {"launch_count": 71,
+                                             "layout_copies": 0}
+    want = ref(x, idx)
+    torch.testing.assert_close(out.detach().cpu(), want.detach(),
+                               rtol=1e-4, atol=1e-4)
+    (out * out).mean().backward()
+    (want * want).mean().backward()
+    got = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    for k, p in ref.named_parameters():
+        scale = p.grad.abs().max().item()
+        assert (got[k] - p.grad).abs().max().item() <= 1e-3 * scale + 1e-7, k
+
+
+@pytest.mark.parametrize("labels", [True, False])
+@pytest.mark.parametrize("elu", [False, True])
+def test_instnorm_kernel_backward_is_the_composites_vjp(cuda, labels, elu):
+    """Gradients through the kernel (forward) are the composite's VJP: in
+    x and in every table, against autograd through the composite itself."""
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    x, y, rows = _norm_inputs((4, 24, 12, 8), torch.float32, labels)
+    gy = torch.randn(x.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(5))
+    leaves = [[t.clone().requires_grad_(True) for t in (x, *rows)]
+              for _ in range(2)]
+    IN.instnorm_plus(leaves[0][0], y, *leaves[0][1:], elu=elu).backward(gy)
+    IN.composite(leaves[1][0], y, *leaves[1][1:],
+                 act=F.elu if elu else None).backward(gy)
+    for got, want in zip(*leaves):
+        torch.testing.assert_close(got.grad, want.grad)

@@ -264,6 +264,56 @@ def test_replays_count_what_the_capture_launched():
     assert W.counters() == before
 
 
+def test_replays_count_the_norms_the_capture_ran():
+    """The InstanceNorm++ kernel's counters (``ops.instnorm``) follow the
+    capture and its replays as the Winograd launches do, under their own
+    key of ``launches``; the Winograd keys keep their meaning."""
+    from audiosourcesep_tpu_torch.ops import instnorm
+
+    def capture():
+        instnorm.launch_count += 3
+        instnorm.layout_copies += 1
+        W._count_launch(W.KERNELS[torch.bfloat16], "tma", True)
+
+    class Graph:
+        def replay(self):
+            pass
+
+    before, before_w = instnorm.counters(), W.counters()
+    step = graphs.StepGraph(Graph(), capture)
+    assert instnorm.counters() == before and W.counters() == before_w
+    assert step.launches["launch_count"] == 1
+    assert step.launches["instnorm"] == {"launch_count": 3,
+                                         "layout_copies": 1}
+    for _ in range(4):
+        step.replay()
+    got = instnorm.counters_since(before)
+    assert (got["launch_count"], got["layout_copies"]) == (12, 4)
+    assert W.counters_since(before_w)["launch_count"] == 4
+    instnorm.add_counters(got, -1)
+    W.add_counters(W.counters_since(before_w), -1)
+    assert instnorm.counters() == before and W.counters() == before_w
+
+
+def test_counters_keep_winograd_at_the_top_and_nest_the_others():
+    """``graphs.counters()``: ``ops.winograd.counters()``'s keys, unchanged,
+    at the top (a replay's ``launch_count`` is its routed convs), and each
+    other counted module's counters under its own key."""
+    from audiosourcesep_tpu_torch.ops import instnorm
+    assert set(W.counters()) == {"launch_count", "launch_counts",
+                                 "bf16_path_counts", "f32_path_counts"}
+    got = graphs.counters()
+    assert got == {**W.counters(), "instnorm": instnorm.counters()}
+    zero = graphs.counters_since(got)
+    assert zero["launch_count"] == 0 and zero["instnorm"] == {
+        "launch_count": 0, "layout_copies": 0}
+    graphs.add_counters(got, -1)
+    assert graphs.counters_since(graphs.counters()) == zero
+    assert W.launch_count == 0 and instnorm.launch_count == 0
+    graphs.add_counters(got, 1)
+    assert graphs.counters() == got
+
+
 @pytest.mark.parametrize("graphed,device,ranks,want", [
     (None, "cuda", 1, True), (None, "cpu", 1, False),
     (None, "cuda", 2, False), (False, "cuda", 1, False),
