@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ... import nn
-from ...utils.profiling import spanned
+from ...utils.profiling import span
 from .layers import RefineBlock, ResidualBlock, make_normalizer
 
 
@@ -45,6 +45,10 @@ class RefineNetDilated(torch.nn.Module):
         self.logit_transform = logit_transform
         self.compute_dtype = compute_dtype
         self.act = nn.elu
+        # the leaves a traced capture times inside a forward: the convs,
+        # for the non-conv share, and v2's pools (its max-pool CRP)
+        self.traced_leaves = ("conv",) if sigmas is None else ("conv",
+                                                               "pool")
         if sigmas is None:
             self.sigmas = None
         else:
@@ -116,10 +120,13 @@ class RefineNetDilated(torch.nn.Module):
     def count_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    # a traced capture times the convs inside, for the non-conv share
-    @spanned("score.forward", leaves=("conv",))
     def forward(self, x: torch.Tensor, sigma_idx: torch.Tensor
                 ) -> torch.Tensor:
+        with span("score.forward", leaves=self.traced_leaves):
+            return self._forward(x, sigma_idx)
+
+    def _forward(self, x: torch.Tensor, sigma_idx: torch.Tensor
+                 ) -> torch.Tensor:
         y = sigma_idx
         in_dtype = x.dtype
         if self.num_classes is not None and not self.logit_transform:

@@ -28,8 +28,16 @@ labels and constants, the mixture, the models). Per level, graphed:
    package's draws), each step's noise is copied into the buffer before
    its replay, and the graph draws nothing.
 
-A level's graph is freed before the next level's capture, so one step's
-working memory is held at a time, as in the eager loop.
+Every level's warm-up and capture run on one side stream, and every
+level's graph is captured into one memory pool, which the last level's
+graph keeps alive until the next capture ends: a capture reuses the pool
+the last one filled, a warm-up the blocks the last one cached on that
+stream, so one step's working memory is held at a time and no cache is
+emptied between levels. (``torch.cuda.graph``'s entry empties the
+allocator's caches at every capture, so that each level allocated its
+memory anew, in host time that swung from level to level; and blocks are
+cached per stream, so a new side stream a level would leave each level's
+blocks cached and unused.)
 
 The eager path (the CPU, or ``graphed=False``) runs the same body on the
 same buffers, drawing or copying the noise before each step: the two
@@ -46,16 +54,21 @@ Inside a :func:`recording` block every level is cut into spans
 (``utils.profiling``, host clock), one after another: ``anneal.warmup``
 (the warm-up step and the wait for it), ``anneal.capture`` (from the
 graph's making to the body's return: in it ``anneal.begin_capture``, the
-graph made and ``torch.cuda.graph``'s entry, which waits for the card,
-collects garbage, empties the allocator's cache and ends in
-``cudaStreamBeginCapture``; then the Python and autograd that build the
-graph, while the card runs nothing), ``anneal.instantiate``
+graph made, a wait for the card and ``cudaStreamBeginCapture``; then the
+Python and autograd that build the graph, while the card runs nothing),
+``anneal.instantiate``
 (``cudaStreamEndCapture`` and ``cudaGraphInstantiate``),
 ``anneal.replays`` (the T replays and the wait that ends them; the first
 replay's launch, which uploads the graph, in ``anneal.first_replay``;
 ``anneal.steps`` for T eager steps) and ``anneal.release`` (the events
-read, the graph freed, ``after_level``). A level whose warm-up and capture
-start while a ``torch.profiler`` profile runs also records module spans
+read, ``after_level``; the last level's graph is freed in the next
+capture). Across them, ``anneal.turnover`` runs from the end of the last
+level's replays (or steps; for level 0, from the anneal's entry) to the
+start of this level's: the release, the caller's callback, ``make_step``,
+the warm-up, the capture and the instantiation, the time a level costs
+besides its steps. It is stamped on the host clock alone, with no wait
+and no work on the card. A level whose warm-up and capture start while a
+``torch.profiler`` profile runs also records module spans
 (``utils.profiling``): a graphed level in its capture, with CUDA events
 that the capture puts into the graph as event nodes; an eager level in
 its first step.
@@ -65,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import time
 from typing import Callable, Iterator, List, NamedTuple, Optional
 
 import torch
@@ -162,38 +176,50 @@ def use_graphs(graphed: Optional[bool], device, ranks: int = 1) -> bool:
 
 
 class LevelGraph:
-    """The CUDA side of a level's graph (the CPU tests stand in for it):
-    the warm-up on a side stream, the capture and instantiation, the
-    replays. ``generator``, if not None, is registered with the graph."""
+    """The CUDA side of an anneal's graphs, one level's at a time (the CPU
+    tests stand in for it): the warm-up and the capture on one side stream,
+    the capture into the memory pool of the last level's graph, the
+    instantiation, the replays. ``generator``, if not None, is registered
+    with each graph."""
 
     def __init__(self, device, generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
         self.generator = generator
         self.graph = None
+        self.side = torch.cuda.Stream(device=self.device)
 
     def warm_up(self, fn: Callable[[], None]) -> None:
-        """``fn()`` on a side stream, then a wait for the card."""
+        """``fn()`` on the side stream, then a wait for the card."""
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
+        self.side.wait_stream(current)
+        with torch.cuda.stream(self.side):
             fn()
-        current.wait_stream(side)
+        current.wait_stream(self.side)
         torch.cuda.synchronize(self.device)
 
     def capture(self, fn: Callable[[], None], begun: Callable[[], None],
                 ended: Callable[[], None]) -> None:
-        """Make the graph, capture ``fn()`` and instantiate the graph;
+        """Make a graph, capture ``fn()`` into the last graph's memory pool
+        (a new one at the first capture) and instantiate the graph;
         ``begun()`` runs just after the capture begins, ``ended()`` after
-        ``fn``."""
+        ``fn``. The last graph is freed once the capture ends: the caching
+        allocators drop a pool that no graph holds."""
+        last = self.graph
         # kept until freed, so that the instantiation is a call of its own
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         if self.generator is not None:
             self.graph.register_generator_state(self.generator)
-        with torch.cuda.graph(self.graph):
-            begun()
-            fn()
-            ended()
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.stream(self.side):
+            self.graph.capture_begin(
+                pool=None if last is None else last.pool())
+            try:
+                begun()
+                fn()
+                ended()
+            finally:
+                self.graph.capture_end()
+        del last
         self.graph.instantiate()
 
     def replay(self) -> None:
@@ -265,18 +291,15 @@ def _traced(record: Optional[Record]) -> Optional[Record]:
 
 
 def capture_step(body: Body, x: torch.Tensor, noise: torch.Tensor,
-                 draw: Optional[Callable[[], None]],
-                 generator: Optional[torch.Generator],
+                 draw: Optional[Callable[[], None]], graph: LevelGraph,
                  level: int = 0) -> StepGraph:
-    """Warm ``body`` up on a side stream, on a copy of ``x``, then capture
-    ``draw()`` (if given: the noise drawn into ``noise``) and
-    ``body(x, noise)`` into one graph; ``generator``, if not None, is
-    registered with the graph."""
+    """Warm ``body`` up on ``graph``'s side stream, on a copy of ``x``,
+    then capture ``draw()`` (if given: the noise drawn into ``noise``) and
+    ``body(x, noise)`` into ``graph``'s next graph."""
     record = _RECORD.get()
     spans = record if record is not None else profiling.Spans()
     traced = _traced(record)
     leaves = profiling.graphed_leaves()
-    graph = LevelGraph(x.device, generator if draw is not None else None)
     with spans.block("anneal.warmup", level, "warmup") as warm, \
             profiling.tracing(traced if leaves else None, level, "warmup",
                               x.device, leaves):
@@ -337,17 +360,22 @@ def anneal(make_step: Callable[[int], Body], x: torch.Tensor,
         with profiling.span("anneal.noise"):
             noise.normal_(generator=generator)
 
+    graph = LevelGraph(x.device, generator if noise_fn is None else None) \
+        if graphed else None
+    turnover_ns = time.perf_counter_ns()
     for level in range(n_levels):
         body = make_step(level)
         traced = None if graphed else _traced(record)
         step = capture_step(body, x, noise,
                             None if noise_fn is not None else draw,
-                            generator, level) if graphed else None
+                            graph, level) if graphed else None
         if timed:
             events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
             events[0].record()
         with spans.block("anneal.replays" if graphed else "anneal.steps",
                          level, "eager") as steps:
+            spans.add("anneal.turnover", level, "eager", turnover_ns,
+                      steps.start_ns)
             for t in range(T):
                 if noise_fn is not None:
                     noise.copy_(noise_fn(level, t))
@@ -379,4 +407,5 @@ def anneal(make_step: Callable[[int], Body], x: torch.Tensor,
             del step
             if after_level is not None:
                 after_level(level, x)
+        turnover_ns = steps.end_ns
     return x

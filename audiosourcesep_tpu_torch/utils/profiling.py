@@ -186,6 +186,16 @@ class Spans:
             s.events[1].record()
         self._stack.pop()
 
+    def add(self, name: str, level, phase: str, start_ns: int,
+            end_ns: int) -> Span:
+        """A span of given stamps, closed, at the top level: one that no
+        open span holds (the anneal's turnover between two levels'
+        steps)."""
+        s = Span(len(self.spans), name, level, phase, None)
+        s.start_ns, s.end_ns = start_ns, end_ns
+        self.spans.append(s)
+        return s
+
     def block(self, name: str, level=None, phase=None) -> _Block:
         """:meth:`open` and :meth:`close` as a ``with`` block (host time
         only)."""

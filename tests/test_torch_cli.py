@@ -167,6 +167,54 @@ def test_shard_sources_on_one_process_is_ignored_and_separates(
     assert res["x1"].shape == (2, 96, 64) and np.isfinite(res["x1"]).all()
 
 
+def test_separation_cli_under_the_ncsnv2_yaml(tmp_path, song_dir,
+                                             monkeypatch):
+    """``--config``: a copy of configs/melspec_ncsnv2.yml at 8 filters, 3
+    levels and T=1, on random v2 priors written by training.checkpoint.
+    The CLI builds v2 priors with the YAML's schedule (30 to 0.01,
+    logarithmic, in place of the flags' default 1 to 0.01, geometric) and
+    writes results.npz, one state a level besides the init."""
+    from audiosourcesep_tpu_torch.models.ncsn import (get_score_model,
+                                                      get_sigmas)
+    from audiosourcesep_tpu_torch.training.checkpoint import (
+        CheckpointManager as TManager, params_to_jax)
+    with open(os.path.join(REPO, "configs", "melspec_ncsnv2.yml")) as f:
+        cfg = yaml.safe_load(f)
+    assert (cfg["version"], cfg["progression"]) == ("v2", "logarithmic")
+    cfg.update(n_filters=8, num_classes=3, T=1)
+    config = tmp_path / "ncsnv2.yml"
+    config.write_text(yaml.safe_dump(cfg))
+    sigmas = get_sigmas(30.0, 0.01, 3, "logarithmic")
+    prior = tmp_path / "prior"
+    m = get_score_model("v2", (96, 64, 1), 8, 3, sigmas=sigmas)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    TManager(str(prior / "ckpts")).save(
+        {"params": params_to_jax(m.state_dict())}, 1)
+    built, real = [], run_basis_sep.get_score_model
+
+    def building(version, *args, sigmas=None, **kwargs):
+        built.append((version, sigmas))
+        return real(version, *args, sigmas=sigmas, **kwargs)
+
+    monkeypatch.setattr(run_basis_sep, "get_score_model", building)
+    out = str(tmp_path / "sep")
+    run_basis_sep.main([str(prior), str(prior), "--output", out,
+                        "--song_dir", song_dir, "--n_mixed", "2",
+                        "--config", str(config), "--device", "cpu"])
+    assert [v for v, _ in built] == ["v2", "v2"]
+    for _, s in built:
+        np.testing.assert_array_equal(s, sigmas)
+    res = np.load(os.path.join(out, "results.npz"))
+    assert res["x1"].shape == res["x2"].shape == (2, 96, 64)
+    assert np.isfinite(res["x1"]).all() and np.isfinite(res["x2"]).all()
+    conv = np.load(os.path.join(out, "results_convergence.npz"))
+    assert conv["x1"].shape[0] == 4
+    with open(os.path.join(out, "out.log")) as f:
+        log = f.read()
+    assert "Sigma = 30.0 (1 / 3) done" in log
+    assert "progression = logarithmic" in log
+
+
 def test_cli_cuda_without_gpu_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

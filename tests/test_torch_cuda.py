@@ -1464,3 +1464,124 @@ def test_instnorm_kernel_backward_is_the_composites_vjp(cuda, labels, elu):
                  act=F.elu if elu else None).backward(gy)
     for got, want in zip(*leaves):
         torch.testing.assert_close(got.grad, want.grad)
+
+
+# ---------------------------------------------------------------------------
+# NCSN v2 at the published widths (configs/melspec_ncsnv2.yml: 128
+# filters, 96x64, 200 levels from sigma 30, T=8), bf16, routed
+# ---------------------------------------------------------------------------
+
+V2_SHAPE = (96, 64, 1)
+
+
+def _v2_models(cuda, sigmas, seed=1, sources=2):
+    models = []
+    for k in range(sources):
+        m = get_score_model("v2", V2_SHAPE, 128, len(sigmas), sigmas=sigmas,
+                            compute_dtype=torch.bfloat16, device=cuda)
+        m.reset_parameters(torch.Generator().manual_seed(seed + k))
+        models.append(m.eval().requires_grad_(False))
+    return models
+
+
+def test_graphed_v2_level_equals_eager_at_the_cells_widths(cuda):
+    """Two v2 priors at 128 filters on 30 frames, bf16, routed: BASIS
+    graphed (one graph a level, the levels' first at sigma 30 with its
+    step of eta 63) equals the eager loop bit for bit, on a generator's
+    draws from one seed, with an eager step's launches a replay."""
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     ncsn_score_fn)
+    T, N = 2, 30
+    sigmas = get_sigmas(30.0, 0.01, 2, "logarithmic")
+    models = _v2_models(cuda, sigmas)
+    g = torch.Generator().manual_seed(3)
+    mixed = (0.5 + 0.2 * torch.randn((N, *V2_SHAPE), generator=g)).to(cuda)
+    x0 = torch.rand((2, N, *V2_SHAPE), generator=g).to(cuda)
+    cfg = BasisConfig(T=T, delta=7e-6, data_type="melspec", scale="dB")
+
+    def run(graphed):
+        return basis_separate_per_level(
+            ncsn_score_fn(models), mixed, x0, sigmas,
+            torch.Generator(device=cuda).manual_seed(5), cfg,
+            graphed=graphed)
+
+    (x, traj), (x_e, traj_e) = _graphed_and_eager(cuda, run, T)
+    assert torch.isfinite(traj).all() and (x - x0).abs().max() > 1.0
+    assert torch.equal(x, x_e) and torch.equal(traj, traj_e)
+
+
+def test_v2_forward_on_the_card_is_within_bf16_of_the_plain_reference(cuda):
+    """A v2 forward at the published widths on the card (bf16, routed; its
+    17 norms on the kernel, counted) against the benchmark's plain float32
+    reference on the same weights, at three levels: within the bf16
+    tolerance TestRefineNet.test_bf16_compute_close_to_f32 holds the CPU's
+    bf16 forward to (mean |error| under 5% of mean |score|)."""
+    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    from portbench import weights
+    from portbench.reference import ncsn_v2
+    from portbench.reference.precision import stack
+    sigmas = get_sigmas(30.0, 0.01, 200, "logarithmic")
+    cfg = {"n_filters": 128, "data_shape": list(V2_SHAPE),
+           "init": {"norm_mean": 0.0}}
+    w = weights.make(ncsn_v2.param_specs(cfg), 7, cuda)
+    m = get_score_model("v2", V2_SHAPE, 128, 200, sigmas=sigmas,
+                        compute_dtype=torch.bfloat16, device="meta")
+    m = m.to_empty(device=cuda)
+    m.load_state_dict(w)
+    m.sigmas.copy_(torch.as_tensor(sigmas))
+    g = torch.Generator().manual_seed(8)
+    x = torch.rand((4, *V2_SHAPE), generator=g).to(cuda)
+    idx = torch.tensor([0, 60, 130, 199], device=cuda)
+    before = IN.counters()
+    try:
+        nn.set_winograd(True)
+        with torch.no_grad():
+            got = m(x, idx)
+    finally:
+        nn.set_winograd(False)
+    assert IN.counters_since(before) == {"launch_count": 17,
+                                         "layout_copies": 0}
+    with torch.no_grad():
+        want = ncsn_v2.score(stack([w]), x[None], idx, cfg,
+                             sigmas=torch.as_tensor(sigmas, device=cuda))[0]
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = (got - want).abs().mean() / want.abs().mean()
+    assert err < 0.05, err.item()
+
+
+def test_200_level_graphed_v2_anneal_holds_memory_flat(cuda):
+    """The published schedule's 200 levels graphed at T=1 on 2 frames (the
+    cell's widths, bf16, routed), one capture a level: every level
+    finite, and the memory allocated and the memory reserved between
+    levels the same from level 10 to level 199 (each capture reuses the
+    last one's pool, each warm-up the blocks the last one cached on the
+    side stream; no cache is emptied)."""
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     graphs, ncsn_score_fn)
+    sigmas = get_sigmas(30.0, 0.01, 200, "logarithmic")
+    models = _v2_models(cuda, sigmas)
+    g = torch.Generator().manual_seed(3)
+    mixed = torch.rand((2, *V2_SHAPE), generator=g).to(cuda)
+    x0 = torch.rand((2, 2, *V2_SHAPE), generator=g).to(cuda)
+    allocated, reserved, finite = [], [], []
+
+    def after(level, x):
+        finite.append(bool(torch.isfinite(x).all()))
+        allocated.append(torch.cuda.memory_allocated(cuda))
+        reserved.append(torch.cuda.memory_reserved(cuda))
+
+    try:
+        nn.set_winograd(True)
+        with graphs.recording() as record:
+            basis_separate_per_level(
+                ncsn_score_fn(models), mixed, x0, sigmas,
+                torch.Generator(device=cuda).manual_seed(5),
+                BasisConfig(T=1, delta=7e-6, collect_trajectory=False),
+                callback=after)
+    finally:
+        nn.set_winograd(False)
+    assert len(record.captures) == 200 and all(finite)
+    for held in (allocated, reserved):
+        assert len(set(held[10:])) == 1, (min(held[10:]), max(held[10:]))

@@ -67,7 +67,10 @@ def stand_in_graphs(monkeypatch):
     captured = []
 
     class LevelGraph:
+        made = 0
+
         def __init__(self, device, generator=None):
+            LevelGraph.made += 1
             self.fn = None
 
         def warm_up(self, fn):
@@ -138,14 +141,16 @@ def test_graphed_ncsn_anneal_matches_jax(stand_in_graphs, separate):
 
 def test_graphed_anneal_draws_the_eager_noise(stand_in_graphs):
     """With the noise drawn inside the graph from the caller's generator,
-    the graphed anneal draws the eager loop's numbers, from the same seed."""
+    the graphed anneal draws the eager loop's numbers, from the same seed.
+    One CUDA side serves the anneal, a capture a level (its side stream and
+    the pool each capture takes over from the last)."""
     c = _ncsn_case(T=2)
     args = (c["score"], torch.from_numpy(c["mixed"]),
             torch.from_numpy(c["x0"]), c["sigmas"])
     runs = [basis_separate_per_level(
         *args, torch.Generator().manual_seed(9), BasisConfig(**c["cfg"]),
         graphed=graphed)[0] for graphed in (None, False)]
-    assert stand_in_graphs == [0, 1]
+    assert stand_in_graphs == [0, 1] and graphs.LevelGraph.made == 1
     assert torch.equal(runs[0], runs[1])
 
 

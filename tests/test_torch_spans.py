@@ -85,8 +85,10 @@ def test_tracing_off_records_only_the_anneal_spans():
         _separate(ncsn_score_fn(_ncsn()), SHAPE)
     assert [(s.level, s.name, s.phase, s.parent) for s in record.spans] == [
         (0, "anneal.steps", "eager", None),
+        (0, "anneal.turnover", "eager", None),
         (0, "anneal.release", "eager", None),
         (1, "anneal.steps", "eager", None),
+        (1, "anneal.turnover", "eager", None),
         (1, "anneal.release", "eager", None)]
     assert record.traced == [] and not profiling.profiler_running()
     steps = [s for s in record.spans if s.name == "anneal.steps"]
@@ -140,7 +142,7 @@ def test_graphed_loop_spans_tile_each_level(stand_in_graphs, mode):
     assert stand_in_graphs == [0, 1]
     for level in (0, 1):
         top = [s for s in record.spans if s.parent is None
-               and s.level == level]
+               and s.level == level and s.name != "anneal.turnover"]
         assert [s.name for s in top] == list(ANNEAL)
         assert [s.phase for s in top] == ["warmup", "capture", "capture",
                                           "eager", "eager"]
@@ -326,3 +328,76 @@ def test_a_capture_spans_the_leaves_its_spans_ask_for(monkeypatch,
     assert all(s.events[0].external == (s.phase == "capture")
                for s in spans.spans)
     assert spans._leaves == frozenset()             # restored
+
+
+def _ncsn_v2(L=2):
+    sigmas = get_sigmas(1.0, 0.1, L)
+    return [RefineNetDilated(SHAPE, 4, sigmas=sigmas).reset_parameters(
+        torch.Generator().manual_seed(s)).eval().requires_grad_(False)
+        for s in (1, 2)]
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_one_turnover_span_a_level_between_the_levels_steps(
+        stand_in_graphs, graphed):
+    """``anneal.turnover``: one a level, in order, at the top, on the host
+    clock; level 0's from the anneal's entry, each later one from the end
+    of the last level's steps to the start of this level's, holding the
+    last level's release and the caller's callback and, graphed, this
+    level's warm-up, capture and instantiation."""
+    L = 3
+    rng = np.random.default_rng(3)
+    mixed = torch.from_numpy(rng.uniform(size=(3, *SHAPE)).astype(
+        np.float32))
+    x0 = torch.from_numpy(rng.uniform(size=(2, 3, *SHAPE)).astype(
+        np.float32))
+    called = []
+    with graphs.recording() as record:
+        entry = time.perf_counter_ns()
+        basis_separate_per_level(
+            ncsn_score_fn(_ncsn(L)), mixed, x0, get_sigmas(1.0, 0.1, L),
+            torch.Generator().manual_seed(3), BasisConfig(T=2, delta=2e-3),
+            callback=lambda level, x: called.append(time.perf_counter_ns()),
+            graphed=graphed)
+    steps = [s for s in record.spans if s.name == ("anneal.replays"
+                                                   if graphed else
+                                                   "anneal.steps")]
+    turns = [s for s in record.spans if s.name == "anneal.turnover"]
+    assert [s.level for s in turns] == [s.level for s in steps] == \
+        list(range(L))
+    assert all(s.parent is None and s.phase == "eager" and s.events is None
+               for s in turns)
+    assert entry <= turns[0].start_ns
+    for level, (turn, step) in enumerate(zip(turns, steps)):
+        assert turn.start_ns < turn.end_ns == step.start_ns
+        if level:
+            assert turn.start_ns == steps[level - 1].end_ns
+            assert turn.start_ns < called[level - 1] < turn.end_ns
+    inside = {"anneal.release": 1}
+    if graphed:
+        inside.update({"anneal.warmup": 0, "anneal.capture": 0,
+                       "anneal.instantiate": 0})
+    for s in record.spans:
+        if s.name in inside and s.level + inside[s.name] < L:
+            turn = turns[s.level + inside[s.name]]
+            assert turn.start_ns <= s.start_ns <= s.end_ns <= turn.end_ns
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_a_traced_capture_times_v1_convs_and_v2_convs_and_pools(
+        stand_in_graphs, version):
+    """A traced graphed level's capture spans, inside each RefineNet
+    forward, its convs (75 a forward: v1's 150 event pairs a step of two
+    sources) and, in v2 alone, its pools (the CRPs' 8 max pools and the
+    2 average pools of ``res2_1``); no other leaf."""
+    models = _ncsn(L=1) if version == "v1" else _ncsn_v2(L=1)
+    _, record = _traced(lambda: _separate(ncsn_score_fn(models), SHAPE,
+                                          L=1, T=1, graphed=True))
+    forwards = [s for s in record.spans if s.name == "score.forward"
+                and s.phase == "capture"]
+    assert len(forwards) == 2
+    want = {"conv": 75} if version == "v1" else {"conv": 75, "pool": 10}
+    for f in forwards:
+        assert collections.Counter(
+            c.name for c in record.children(f)) == want
+    assert models[0].traced_leaves == tuple(want)

@@ -168,5 +168,6 @@ def test_trace_noop_and_trace_with_annotations(tmp_path):
                           torch.Generator().manual_seed(0))
     assert prof is not None and torch.isfinite(y).all()
     assert [s.name for s in record.spans] == [
-        "anneal.steps", "anneal.noise", "act", "anneal.release"]
+        "anneal.steps", "anneal.turnover", "anneal.noise", "act",
+        "anneal.release"]
     assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path))
