@@ -53,6 +53,13 @@ SIGNATURES = {
     "instnorm_plus_fwd": ([*[_P] * 9, *[_I] * 7, _P], _I),
     # (C, bf16) -> the statistics kernel's blocks an SM holds at once
     "instnorm_plus_blocks_per_sm": ([_I, _I], _I),
+    # (x, y, N, H, W, C, mode (0 avg, 1 max), bf16, G, TW, rows, stream)
+    #   -> cudaError_t
+    "pool5_fwd": ([_P, _P, *[_I] * 9, _P], _I),
+    # (mode, bf16, W, G, TW) -> the 5x5 kernel's blocks an SM holds at once
+    "pool5_blocks_per_sm": ([_I] * 5, _I),
+    # (x, y, N, H, W, C, bf16, stream) -> cudaError_t
+    "avg_pool2_fwd": ([_P, _P, *[_I] * 5, _P], _I),
 }
 
 _lib = None

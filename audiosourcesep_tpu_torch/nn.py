@@ -27,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from .ops import pool
 from .utils.profiling import span, spanned
 
 # When enabled, every conv the Winograd kernel computes (3x3, stride 1,
@@ -360,48 +361,12 @@ def embedding_init(num_embeddings: int, dim: int,
 # pooling / resize
 # ---------------------------------------------------------------------------
 
-def _valid_counts(h: int, w: int, window: int, like: torch.Tensor
-                  ) -> torch.Tensor:
-    """``[h, w]``: how many input cells each SAME ``window`` x ``window``
-    stride-1 window holds."""
-    r = window // 2
-
-    def n(size):
-        i = torch.arange(size, device=like.device)
-        return (torch.clamp(i + r, max=size - 1)
-                - torch.clamp(i - r, min=0) + 1).to(like.dtype)
-
-    return n(h)[:, None] * n(w)[None, :]
-
-
-class _AvgPoolSame(torch.autograd.Function):
-    """``F.avg_pool2d(count_include_pad=False)`` with its backward written
-    through the same forward op: with ``c`` the valid counts and ``S`` the
-    zero-padded box sum (its own adjoint), ``y = S(x) / c`` gives
-    ``dx = S(g / c) = c * avg_pool(g / c)``. PyTorch 2.11's CUDA backward
-    of this pool is wrong for channels_last input (``tests/
-    test_torch_cuda.py::test_avg_pool_same_gradient_on_the_card``); the
-    forward is right on every device."""
-
-    @staticmethod
-    def forward(ctx, x, window):
-        ctx.window = window
-        return F.avg_pool2d(x, window, 1, window // 2,
-                            count_include_pad=False)
-
-    @staticmethod
-    def backward(ctx, g):
-        k = ctx.window
-        c = _valid_counts(g.shape[2], g.shape[3], k, g)
-        return c * F.avg_pool2d(g / c, k, 1, k // 2,
-                                count_include_pad=False), None
-
-
 @spanned("pool")
 def avg_pool_same(x: torch.Tensor, window: int) -> torch.Tensor:
     """Stride-1 average pooling with SAME padding that counts only valid
-    elements (JAX ``avg_pool_same``, odd ``window``)."""
-    return _AvgPoolSame.apply(x, window)
+    elements (JAX ``avg_pool_same``, odd ``window``): on a CUDA tensor the
+    card's kernel (``ops.pool``)."""
+    return pool.avg_pool_same(x, window)
 
 
 @spanned("pool")
@@ -410,9 +375,10 @@ def max_pool_same(x: torch.Tensor, window: int,
     """Max pooling of NCHW ``x`` with SAME padding (padding never wins:
     it is -inf), odd ``window``. At stride s the output is ``ceil(H /
     s)`` x ``ceil(W / s)`` with XLA's SAME split of the padding (the
-    smaller half before)."""
+    smaller half before). At stride 1 a CUDA tensor takes the card's
+    kernel (``ops.pool``)."""
     if stride == 1:
-        return F.max_pool2d(x, window, 1, window // 2)
+        return pool.max_pool_same(x, window)
     h, w = x.shape[2:]
     pad = []
     for n in (w, h):
@@ -423,8 +389,9 @@ def max_pool_same(x: torch.Tensor, window: int,
 
 @spanned("pool")
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average pooling, stride 2, VALID."""
-    return F.avg_pool2d(x, 2, 2)
+    """2x2 average pooling, stride 2, VALID: on a CUDA tensor the card's
+    kernel (``ops.pool``)."""
+    return pool.avg_pool2(x)
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

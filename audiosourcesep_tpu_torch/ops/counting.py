@@ -1,11 +1,11 @@
 """Launch counters of the port's hand-written kernels.
 
-Each op module that launches a kernel (``ops.winograd``, ``ops.instnorm``)
-keeps its counters as module globals: whole counts, and dicts of name ->
-count. :class:`Counters` gives one module's counters a layout and the
-arithmetic a CUDA graph's owner (``separation.graphs``) needs: a launch
-made while a graph captures runs nothing then, so the owner takes the
-capture's counts back off and adds them again at every replay.
+Each op module that launches a kernel (``ops.winograd``, ``ops.instnorm``,
+``ops.pool``) keeps its counters as module globals: whole counts, and dicts
+of name -> count. :class:`Counters` gives one module's counters a layout
+and the arithmetic a CUDA graph's owner (``separation.graphs``) needs: a
+launch made while a graph captures runs nothing then, so the owner takes
+the capture's counts back off and adds them again at every replay.
 """
 
 from __future__ import annotations

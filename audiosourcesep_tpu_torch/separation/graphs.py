@@ -83,7 +83,7 @@ from typing import Callable, Iterator, List, NamedTuple, Optional
 
 import torch
 
-from ..ops import instnorm, winograd
+from ..ops import instnorm, pool, winograd
 from ..utils import profiling
 
 Body = Callable[[torch.Tensor, torch.Tensor], None]
@@ -229,7 +229,7 @@ class LevelGraph:
 # the op modules whose kernel launches a replay adds, each with its key in
 # the layout below: ops.winograd's counters at its top level (a replay's
 # "launch_count" is its routed convs), every other module's under its key
-COUNTED = ((None, winograd), ("instnorm", instnorm))
+COUNTED = ((None, winograd), ("instnorm", instnorm), ("pool", pool))
 
 
 def _layout(parts) -> dict:

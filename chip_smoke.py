@@ -152,6 +152,18 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    phases 1, 2 and 12 alone). It runs after phase 3; phase 11 adds the
    norms of a graphed step to its entry of the JSON line.
 
+13. the pool kernels (``ops.pool``, ``csrc/pool.cu``) alone, bf16: ptxas'
+   report (a spill fails the phase); the 5x5 average's division against
+   IEEE division for all 2^32 float32 sums and each count 1..25; the pools
+   of one v1 and one v2 forward at the separation cells' shapes (batch 30;
+   192 and 128 filters) as each makes them, counted by kind; a step's pools
+   (that forward's, twice) as one CUDA graph of the kernels and one of
+   PyTorch's pools, device time against the bytes bound, the max pool and
+   the 2x2 average bit for bit, the 5x5 average within one bf16 ulp; per
+   shape class the same, timed alone, and a replay bit for bit against
+   eager (``--pool`` runs phases 1, 2 and 13 alone). Phase 11 holds a
+   graphed step's pool launches to a forward's, twice.
+
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository around this file, it exits non-zero and prints no result.
@@ -344,6 +356,11 @@ GRAPH_PEAK = 1.10
 # counterpart): what the phases hold ops.instnorm's counter to; phase 12
 # checks it against the norm modules a forward calls
 NORMS_PER_FORWARD = 71
+# the pool calls of one forward by kind (ops.pool's launch_counts): v1's
+# CRPs average, v2's take the max; each has one downsampling block, whose
+# two 2x2 averages pool its main path and its shortcut
+POOLS_PER_FORWARD = {"v1": {"avg5": 8, "max5": 0, "avg2": 2},
+                     "v2": {"avg5": 0, "max5": 8, "avg2": 2}}
 # the train steps' times of phase 7d, beside which 10c prints its own
 STEP_TIMES = {}
 # technique 1: the f32 Gram distance on the card against float64 on the
@@ -2911,19 +2928,25 @@ def _scaled(counts: dict, times: int) -> dict:
             for k, v in counts.items()}
 
 
-def _step_launches(kernel: str, paths: dict, n: int, norms: int = 0) -> dict:
+def _step_launches(kernel: str, paths: dict, n: int, norms: int = 0,
+                   pools: dict = None) -> dict:
     """The launches of one anneal step that launches ``kernel`` on each
-    path of ``paths`` ({path: launches}) and ``n`` times in all, and the
-    InstanceNorm++ kernel ``norms`` times (no layout copy), in
+    path of ``paths`` ({path: launches}) and ``n`` times in all, the
+    InstanceNorm++ kernel ``norms`` times and the pool kernels ``pools``
+    ({kind: launches}) times (no layout copy), in
     ``separation.graphs.counters_since``' layout."""
     from audiosourcesep_tpu_torch.separation import graphs
     zero = graphs.counters_since(graphs.counters())
+    pools = {k: (pools or {}).get(k, 0)
+             for k in zero["pool"]["launch_counts"]}
     return {"launch_count": n,
             "launch_counts": {k: n * (k == kernel)
                               for k in zero["launch_counts"]},
             **{c: {p: paths.get(p, 0) for p in zero[c]}
                for c in ("bf16_path_counts", "f32_path_counts")},
-            "instnorm": {"launch_count": norms, "layout_copies": 0}}
+            "instnorm": {"launch_count": norms, "layout_copies": 0},
+            "pool": {"launch_count": sum(pools.values()),
+                     "launch_counts": pools, "layout_copies": 0}}
 
 
 def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
@@ -3018,7 +3041,8 @@ def _graph_case(tag, score_fn, mixed, x0, sigmas, cfg, want_step, smi):
           f"step's; graphed {graphed['launches']['launch_count']} = {L} x "
           f"(T={T} replays + 1 warm-up step), eager "
           f"{eager['launches']['launch_count']} = {L} x T={T}; "
-          f"InstanceNorm++ a replay {want_step['instnorm']}")
+          f"InstanceNorm++ a replay {want_step['instnorm']}, pools "
+          f"{want_step['pool']}")
 
     def per_step(run):
         levels = run["record"].levels
@@ -3085,7 +3109,10 @@ def phase_graphs(smi: str):
                 f"[11] NCSN v1 192 filters {name}, {BATCH} frames, {L} "
                 f"levels x T={T}:", ncsn_score_fn(models), mixed, x0, sigmas,
                 cfg, _step_launches(kernel, paths, 2 * ROUTED_PER_FORWARD,
-                                    2 * NORMS_PER_FORWARD), smi)[2]
+                                    2 * NORMS_PER_FORWARD,
+                                    {k: 2 * n for k, n in
+                                     POOLS_PER_FORWARD["v1"].items()}),
+                smi)[2]
             if dtype:
                 norms = replay["instnorm"]["launch_count"]
         del models
@@ -3361,6 +3388,243 @@ def phase_norm(smi: str) -> dict:
     return entry
 
 
+# the 5x5 average's division (csrc/pool.cu: quotient) against IEEE
+# division, for every float32 s at or above the kernel's TINY (below it the
+# kernel divides) and each count 1..25: the mismatches, by count
+QUOTIENT_CHECK = r"""
+#include "%s"
+__global__ void quotient_check(float count, unsigned long long* bad) {
+  const float rc = __frcp_rn(count);
+  const unsigned long long step =
+      (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x;
+       i < (1ull << 32); i += step) {
+    const float s = __uint_as_float((unsigned int)i);
+    if (fabsf(s) < TINY) continue;
+    const float a = quotient(s, count, rc), b = __fdiv_rn(s, count);
+    if (!((a != a && b != b) || __float_as_uint(a) == __float_as_uint(b)))
+      atomicAdd(bad, 1ull);
+  }
+}
+extern "C" int quotient_mismatches(int count, void* bad) {
+  quotient_check<<<132 * 16, 256>>>((float)count,
+                                     (unsigned long long*)bad);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def _quotient_mismatches() -> dict:
+    """Build QUOTIENT_CHECK around csrc/pool.cu and run it: {count:
+    mismatches} for counts 1..25."""
+    import ctypes
+    import torch
+    from audiosourcesep_tpu_torch.kernels import build
+    work = tempfile.mkdtemp(prefix="pool_quotient_")
+    try:
+        src = os.path.join(work, "check.cu")
+        with open(src, "w") as f:
+            f.write(QUOTIENT_CHECK % (build.CSRC / "pool.cu"))
+        so = os.path.join(work, "check.so")
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
+                        "-o", so, src], check=True, capture_output=True,
+                       timeout=600)
+        lib = ctypes.CDLL(so)
+        lib.quotient_mismatches.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        out = {}
+        for count in range(1, 26):
+            bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+            err = lib.quotient_mismatches(count, bad.data_ptr())
+            if err:
+                raise RuntimeError(f"quotient check: CUDA error {err}")
+            out[count] = int(bad.item())
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _pool_call(kind, x, kernel):
+    """One pool of ``kind`` on ``x``: the kernel, or (not ``kernel``)
+    PyTorch's pool, which the port ran on the card before it."""
+    import torch.nn.functional as F
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    if kernel:
+        return PL._pool_cuda(x, kind)
+    if kind == "avg5":
+        return F.avg_pool2d(x, 5, 1, 2, count_include_pad=False)
+    if kind == "max5":
+        return F.max_pool2d(x, 5, 1, 2)
+    return F.avg_pool2d(x, 2, 2)
+
+
+def _pool_bytes(kind, x) -> int:
+    """Bytes a pool of ``kind`` must move: x read once, y written once."""
+    out = x.numel() // 4 if kind == "avg2" else x.numel()
+    return (x.numel() + out) * x.element_size()
+
+
+def _pool_err(kind, x) -> float:
+    """The kernel against PyTorch's pool on ``x``: 0 where they agree bit
+    for bit (the max, the 2x2 average), else the 5x5 average's largest
+    difference beyond the f32 sums' reordering (48 f32 ulps of max|x|) in
+    bf16 ulps of PyTorch's result (held to 1)."""
+    import torch
+    got, want = _pool_call(kind, x, True), _pool_call(kind, x, False)
+    if kind != "avg5":
+        return 0.0 if torch.equal(got, want) else float("inf")
+    atol = 48 * 2.0 ** -24 * float(x.abs().max())
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    return float(((got.float() - want).abs().sub(atol).clamp_min(0)
+                  / ulp).max())
+
+
+def _forward_pools(version: str, dtype):
+    """The pools one forward (``version`` v1 at 192 filters or v2 at 128,
+    BATCH frames of [96, 64, 1], compute dtype ``dtype``) makes on the card,
+    recorded as it makes them (``ops.pool``'s public functions wrapped):
+    each call's kind and input (a copy); and the kernel's counts of that
+    forward."""
+    import torch
+    from audiosourcesep_tpu_torch.models.ncsn import (get_score_model,
+                                                      get_sigmas)
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    if version == "v1":
+        m = get_score_model("v1", (96, 64, 1), 192, 10, device="cuda")
+    else:
+        m = get_score_model("v2", (96, 64, 1), 128, 200, device="cuda",
+                            sigmas=get_sigmas(30.0, 0.01, 200))
+    m.reset_parameters(torch.Generator().manual_seed(43))
+    m.eval().requires_grad_(False)
+    m.compute_dtype = dtype
+    calls = []
+    names = {"avg_pool_same": "avg5", "max_pool_same": "max5",
+             "avg_pool2": "avg2"}
+    real = {name: getattr(PL, name) for name in names}
+
+    def recording(name):
+        def call(x, *args):
+            calls.append((names[name], x.clone()))
+            return real[name](x, *args)
+        return call
+
+    g = torch.Generator().manual_seed(44)
+    x = torch.rand(BATCH, 96, 64, 1, generator=g).cuda()
+    idx = torch.randint(10, (BATCH,), generator=g).cuda()
+    before = PL.counters()
+    try:
+        for name in names:
+            setattr(PL, name, recording(name))
+        with torch.no_grad():
+            m(x, idx)
+    finally:
+        for name, fn in real.items():
+            setattr(PL, name, fn)
+    return calls, PL.counters_since(before)
+
+
+def phase_pool(smi: str) -> dict:
+    """13: the pool kernels (``ops.pool``, ``csrc/pool.cu``) alone, bf16:
+    ptxas' report of their twelve instances (a spill fails the phase); the
+    5x5 average's division against IEEE division on every float32 sum
+    (``_quotient_mismatches``: none may differ); the pools of one v1 and
+    one v2 forward at the separation cells' shapes as each makes them
+    (``_forward_pools``: their counts held to POOLS_PER_FORWARD, none
+    copied); a step's pools (that forward's, twice: the two sources) as one
+    CUDA graph of the kernels and one of PyTorch's pools (``graph_ms``:
+    device time) against the bytes bound (x read and y written once at the
+    HBM rate), and the kernels' error on them (``_pool_err``); then per
+    shape class, timed alone, the same, and a capture and replay bit for
+    bit against eager. Returns the kernels' entry of the JSON line."""
+    import collections
+    import torch
+    from audiosourcesep_tpu_torch.kernels import build
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    report = _ptxas_report(build.build_log, "pool")
+    for line in report:
+        print(f"[13] ptxas: {line}")
+    if len([ln for ln in report if ln.startswith("Compiling")]) != 12 \
+            or any(_spills(ln) for ln in report):
+        raise AssertionError(f"the pool kernels are missing from ptxas' "
+                             f"report or spill: {report}")
+    wrong = {c: n for c, n in _quotient_mismatches().items() if n}
+    print(f"[13] the 5x5 average's division against IEEE division on all "
+          f"2^32 float32 sums at or above TINY, counts 1..25: "
+          f"{wrong or 'no mismatch'}")
+    if wrong:
+        raise AssertionError(f"[13] the pool kernel's division differs from "
+                             f"IEEE division: {wrong}")
+    entry = {"name": "pool5_fwd, avg_pool2_fwd", "route": "cuda",
+             "source": "audiosourcesep_tpu_torch/csrc/pool.cu",
+             "replaces": "audiosourcesep_tpu_torch/ops/pool.py (PyTorch's "
+                         "F.avg_pool2d, F.max_pool2d; no TPU kernel)"}
+    for version in ("v1", "v2"):
+        calls, launched = _forward_pools(version, torch.bfloat16)
+        kinds = collections.Counter(k for k, _ in calls)
+        want = POOLS_PER_FORWARD[version]
+        if dict(launched["launch_counts"]) != want \
+                or launched["layout_copies"] \
+                or {k: kinds.get(k, 0) for k in want} != want:
+            raise AssertionError(f"[13] {version}: a forward made {kinds}, "
+                                 f"the kernels counted {launched}; "
+                                 f"expected {want}, no copy")
+        errs = {(k, tuple(x.shape)): _pool_err(k, x) for k, x in calls}
+        held = max(errs.values())
+        if not held <= 1.0:
+            raise AssertionError(f"[13] {version}: a pool off PyTorch's by "
+                                 f"{held} of its limit: {errs}")
+        step = calls * 2
+
+        def run(kernel):
+            for kind, x in step:
+                _pool_call(kind, x, kernel)
+
+        t = {k: graph_ms(functools.partial(run, k), iters=1)
+             for k in (True, False)}
+        bound = sum(1e3 * _pool_bytes(k, x) / HBM for k, x in step)
+        numbers = {"ms": t[True], "plain_ms": t[False], "bound_ms": bound,
+                   "pools_a_step": {k: 2 * n for k, n in want.items()},
+                   "max_err": held}
+        print(f"[13] {version} bf16 a step's {len(step)} pools (one "
+              f"forward's {dict(kinds)}, counted on the kernels, twice) as "
+              f"one graph: kernels {t[True]:.4f} ms, PyTorch "
+              f"{t[False]:.4f} ms, bound {bound:.4f} ms (bytes: x once, y "
+              f"once; {100 * bound / t[True]:.1f}% of it); error "
+              f"{held:.3g} of its limit [{smi}]")
+        classes = {}
+        for (kind, shape), per_fwd in collections.Counter(
+                (k, tuple(x.shape)) for k, x in calls).items():
+            x = next(x for k, x in calls
+                     if k == kind and tuple(x.shape) == shape)
+            tk = graph_ms(functools.partial(_pool_call, kind, x, True))
+            tp = graph_ms(functools.partial(_pool_call, kind, x, False))
+            cb = 1e3 * _pool_bytes(kind, x) / HBM
+            if not _replayed_equals_eager(
+                    functools.partial(_pool_call, kind, x, True)):
+                raise AssertionError(f"[13] {version} {kind} {shape}: the "
+                                     f"replayed kernel differs from eager")
+            n, c, h, w = shape
+            label = f"{kind} {n}x{c}x{h}x{w}"
+            geo = () if kind == "avg2" else PL._geometry(
+                0, kind, True, n, h, w, c)
+            classes[label] = {"per_forward": per_fwd, "ms": tk,
+                              "plain_ms": tp, "bound_ms": cb,
+                              "geometry": list(geo),
+                              "err": errs[kind, shape]}
+            print(f"[13] {version} {label} ({per_fwd} a forward): kernel "
+                  f"{tk:.4f} ms, PyTorch {tp:.4f} ms, bound {cb:.4f} ms, "
+                  f"{100 * cb / tk:.1f}% of it; (G, TW, rows) {geo}; error "
+                  f"{errs[kind, shape]:.3g} of its limit; replayed == eager "
+                  f"[{smi}]")
+        numbers["classes"] = classes
+        entry[version] = numbers
+        del calls, step
+        torch.cuda.empty_cache()
+    return entry
+
+
 def kernels_line(res, routes):
     """The ``kernels`` entries of the JSON line, one per kernel of
     ``ops.winograd.KERNELS``. ``res[dname]`` holds a kernel's numbers over
@@ -3454,11 +3718,18 @@ def main(argv):
         phase_build()
         print(json.dumps({"kernels": [phase_norm(smi)]}))
         return
+    if argv[:1] == ["--pool"]:
+        # phase 13 alone: the pool kernels at the NCSN cells' classes
+        smi = phase_device()
+        phase_build()
+        print(json.dumps({"kernels": [phase_pool(smi)]}))
+        return
 
     smi = phase_device()
     phase_build()
     res = phase_kernel(smi)
     norm = phase_norm(smi)
+    pool = phase_pool(smi)
     phase_model(torch.bfloat16)
     phase_model(torch.float32)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3526,7 +3797,7 @@ def main(argv):
                # this to 0
                "flowpp": flowpp_launches[name[bf16]]},
     }
-    kernels = kernels_line(res, routes) + [norm]
+    kernels = kernels_line(res, routes) + [norm, pool]
     # phase 10's launches, all ranks together: the two separation layouts
     # (bf16) and the 2-rank training CLI (f32)
     for key, n in multi.items():

@@ -1585,3 +1585,230 @@ def test_200_level_graphed_v2_anneal_holds_memory_flat(cuda):
     assert len(record.captures) == 200 and all(finite)
     for held in (allocated, reserved):
         assert len(set(held[10:])) == 1, (min(held[10:]), max(held[10:]))
+
+
+# ---------------------------------------------------------------------------
+# the pool kernels (ops.pool, csrc/pool.cu)
+# ---------------------------------------------------------------------------
+
+# NCHW shapes: v1's CRP classes (192 filters, 30 frames), v2's (128), both
+# downsampling blocks' 2x2 inputs; edges: N = 1 and H, W below 5, C = 3 and
+# odd W, C = 12, a 1x1 map, a map wider than a block's tile
+POOL_SHAPES = [(30, 384, 48, 32), (30, 192, 48, 32), (30, 192, 96, 64),
+               (30, 256, 48, 32), (30, 128, 96, 64), (30, 384, 96, 64),
+               (30, 256, 96, 64), (1, 8, 3, 4), (2, 3, 7, 5), (1, 12, 4, 9),
+               (3, 16, 1, 1), (2, 24, 5, 300)]
+
+
+def _pooled(x, kind):
+    """PyTorch's pool of ``kind`` on x, which the port ran before the
+    kernels."""
+    if kind == "avg5":
+        return F.avg_pool2d(x, 5, 1, 2, count_include_pad=False)
+    if kind == "max5":
+        return F.max_pool2d(x, 5, 1, 2)
+    return F.avg_pool2d(x, 2, 2)
+
+
+def _pool_ulps(got, want, x):
+    """|got - want| beyond the f32 sums' reordering (48 f32 ulps of max|x|:
+    twice 24 additions' bound, over the count) in ulps of x's dtype at
+    want."""
+    atol = 48 * 2.0 ** -24 * x.float().abs().max()
+    bits = 7 if x.dtype == torch.bfloat16 else 23
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - bits)
+    return ((got.float() - want).abs().sub(atol).clamp_min(0) / ulp).max() \
+        .item()
+
+
+def _pool_input(shape, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, device="cuda", generator=g) * 2 - 0.5).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["avg5", "max5", "avg2"])
+def test_pool_kernel_matches_pytorch(cuda, shape, dtype, kind):
+    """Each kernel against PyTorch's pool on the same x: the max and the
+    2x2 average bit for bit (the 2x2 sums in PyTorch's order), the 5x5
+    average within one ulp of x's dtype beyond its f32 sums' other order;
+    counted by kind, channels_last out."""
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    if kind == "avg2" and min(shape[2:]) < 2:
+        shape = (*shape[:2], 2 * shape[2] + 2, 2 * shape[3] + 2)
+    x = _pool_input(shape, dtype)
+    before = PL.counters()
+    got = {"avg5": lambda: nn.avg_pool_same(x, 5),
+           "max5": lambda: nn.max_pool_same(x, 5),
+           "avg2": lambda: nn.avg_pool2(x)}[kind]()
+    launched = PL.counters_since(before)
+    assert launched["launch_count"] == launched["launch_counts"][kind] == 1
+    assert launched["layout_copies"] == 0
+    want = _pooled(x, kind)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    if kind == "avg5":
+        assert _pool_ulps(got, want, x) <= 1.0
+    else:
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["avg5", "max5", "avg2"])
+def test_pool_kernel_propagates_nan_and_inf(cuda, dtype, kind):
+    """NaN and +-inf in x: NaN where PyTorch's pool gives NaN, the same
+    infinities, and the finite rest as in the test above."""
+    x = _pool_input((4, 24, 13, 10), dtype, seed=3).float()
+    u = torch.rand(x.shape, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(4))
+    x[u < 0.004] = float("nan")
+    x[(u > 0.5) & (u < 0.504)] = float("inf")
+    x[(u > 0.7) & (u < 0.704)] = -float("inf")
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    got = PL._pool_cuda(x, kind)
+    want = _pooled(x, kind)
+    assert torch.equal(got.isnan(), want.isnan()) and want.isnan().any()
+    assert torch.equal(got.isinf(), want.isinf()) and want.isinf().any()
+    inf = want.isinf()
+    assert torch.equal(got[inf], want[inf])
+    fin = want.isfinite()
+    if kind == "avg5":
+        assert _pool_ulps(got[fin], want[fin], x[x.isfinite()]) <= 1.0
+    else:
+        assert torch.equal(got[fin], want[fin])
+
+
+def test_pool_kernels_in_a_graph_equal_eager_and_count_replays(cuda):
+    """Captured and replayed, the three kernels give the eager calls'
+    outputs bit for bit, and each replay adds the capture's launches, by
+    kind, to the counters."""
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    from audiosourcesep_tpu_torch.separation import graphs
+    a = _pool_input((30, 384, 48, 32), torch.bfloat16, seed=1)
+    b = _pool_input((30, 256, 96, 64), torch.bfloat16, seed=2)
+
+    def pools():
+        return (nn.avg_pool_same(a, 5), nn.max_pool_same(a, 5),
+                nn.avg_pool2(b))
+
+    eager = pools()
+    outs = [torch.empty_like(t) for t in eager]
+
+    def step():
+        for o, t in zip(outs, pools()):
+            o.copy_(t)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph):
+            step()
+
+    before = PL.counters()
+    sg = graphs.StepGraph(graph, capture)
+    assert PL.counters() == before
+    assert sg.launches["pool"] == {"launch_count": 3, "layout_copies": 0,
+                                   "launch_counts": {"avg5": 1, "max5": 1,
+                                                     "avg2": 1}}
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        sg.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, t) for o, t in zip(outs, eager))
+    assert PL.counters_since(before)["launch_counts"] == {
+        "avg5": 3, "max5": 3, "avg2": 3}
+
+
+def test_pool_kernel_refuses_and_does_not_fall_back(cuda, monkeypatch):
+    """A dtype, window or layout the kernels do not take raises; a CUDA
+    tensor's pool never reaches PyTorch's pools in the forward, with grad
+    mode on or off; the public call copies another layout into
+    channels_last, counted."""
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    x = _pool_input((2, 16, 8, 8), torch.float32)
+    for kind in ("avg5", "max5", "avg2"):
+        with pytest.raises(TypeError):
+            PL._pool_cuda(x.half(), kind)
+        with pytest.raises(TypeError):
+            PL._pool_cuda(x.double(), kind)
+        with pytest.raises(ValueError, match="channels_last"):
+            PL._pool_cuda(x.contiguous(), kind)
+    for fn in (nn.avg_pool_same, nn.max_pool_same):
+        with pytest.raises(ValueError, match="5x5"):
+            fn(x, 3)
+    before = PL.counters()
+    got = nn.max_pool_same(x.contiguous(), 5)
+    assert PL.counters_since(before)["layout_copies"] == 1
+    assert torch.equal(got, nn.max_pool_same(x, 5))
+    monkeypatch.setattr(F, "avg_pool2d", _no_fallback)
+    monkeypatch.setattr(F, "max_pool2d", _no_fallback)
+    for grad in (False, True):
+        xg = x.clone().requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            outs = (nn.avg_pool_same(xg, 5), nn.max_pool_same(xg, 5),
+                    nn.avg_pool2(xg))
+        assert all(o.requires_grad == grad for o in outs)
+
+
+@pytest.mark.parametrize("kind", ["avg5", "max5", "avg2"])
+def test_pool_gradients_on_the_card(cuda, kind):
+    """Gradients through the kernels' forward: the max and the 2x2 average
+    equal autograd through PyTorch's pool on the card bit for bit (their
+    backward is its VJP); the 5x5 average's, written through the forward,
+    matches float64 on the CPU (test_avg_pool_same_gradient_on_the_card)."""
+    x = _pool_input((4, 24, 12, 10), torch.float32, seed=5)
+    gy = _pool_input((4, 24, 12, 10) if kind != "avg2" else (4, 24, 6, 5),
+                     torch.float32, seed=6)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    fn = {"avg5": lambda t: nn.avg_pool_same(t, 5),
+          "max5": lambda t: nn.max_pool_same(t, 5),
+          "avg2": nn.avg_pool2}[kind]
+    fn(xs[0]).backward(gy)
+    if kind == "avg5":
+        ref = x.double().cpu().requires_grad_()
+        _pooled(ref, kind).backward(gy.double().cpu())
+        err = (xs[0].grad.double().cpu() - ref.grad).norm() / ref.grad.norm()
+        assert err < 1e-6, err
+    else:
+        _pooled(xs[1], kind).backward(gy)
+        assert torch.equal(xs[0].grad, xs[1].grad)
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_ncsn_forwards_take_the_pool_kernels(cuda, version):
+    """A v1 forward on the card runs its 8 5x5 averages and 2 2x2 averages
+    on the kernels, a v2 forward its 8 5x5 maxes and 2 2x2 averages, none
+    copied, with grad mode on or off; and agrees with the CPU's forward."""
+    from audiosourcesep_tpu_torch.ops import pool as PL
+    kw = ({} if version == "v1" else
+          {"sigmas": get_sigmas(1.0, 0.1, 4)})
+    m = get_score_model(version, (32, 16, 1), 16, 4, device=cuda, **kw)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    ref = get_score_model(version, (32, 16, 1), 16, 4, **kw)
+    ref.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(3, 32, 16, 1, generator=g)
+    idx = torch.tensor([0, 3, 1])
+    want = {"avg5": 8 if version == "v1" else 0,
+            "max5": 0 if version == "v1" else 8, "avg2": 2}
+    for grad in (False, True):
+        before = PL.counters()
+        with torch.set_grad_enabled(grad):
+            out = m(x.to(cuda), idx.to(cuda))
+        assert PL.counters_since(before) == {
+            "launch_count": 10, "layout_copies": 0, "launch_counts": want}
+    with torch.no_grad():
+        torch.testing.assert_close(out.detach().cpu(), ref(x, idx),
+                                   rtol=1e-4, atol=1e-4)

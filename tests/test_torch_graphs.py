@@ -304,19 +304,54 @@ def test_counters_keep_winograd_at_the_top_and_nest_the_others():
     """``graphs.counters()``: ``ops.winograd.counters()``'s keys, unchanged,
     at the top (a replay's ``launch_count`` is its routed convs), and each
     other counted module's counters under its own key."""
-    from audiosourcesep_tpu_torch.ops import instnorm
+    from audiosourcesep_tpu_torch.ops import instnorm, pool
     assert set(W.counters()) == {"launch_count", "launch_counts",
                                  "bf16_path_counts", "f32_path_counts"}
     got = graphs.counters()
-    assert got == {**W.counters(), "instnorm": instnorm.counters()}
+    assert got == {**W.counters(), "instnorm": instnorm.counters(),
+                   "pool": pool.counters()}
     zero = graphs.counters_since(got)
     assert zero["launch_count"] == 0 and zero["instnorm"] == {
         "launch_count": 0, "layout_copies": 0}
+    assert zero["pool"] == {"launch_count": 0, "layout_copies": 0,
+                            "launch_counts": {"avg5": 0, "max5": 0,
+                                              "avg2": 0}}
     graphs.add_counters(got, -1)
     assert graphs.counters_since(graphs.counters()) == zero
     assert W.launch_count == 0 and instnorm.launch_count == 0
+    assert pool.launch_count == 0
     graphs.add_counters(got, 1)
     assert graphs.counters() == got
+
+
+def test_replays_count_the_pools_the_capture_ran():
+    """The pool kernels' counters (``ops.pool``) follow a capture and its
+    replays under their own key of ``launches``, by kind: v1's step, 16
+    5x5 averages and 4 2x2 averages a replay, none copied."""
+    from audiosourcesep_tpu_torch.ops import pool
+
+    def capture():
+        pool.add_counters({"launch_count": 20, "layout_copies": 0,
+                           "launch_counts": {"avg5": 16, "max5": 0,
+                                             "avg2": 4}}, 1)
+
+    class Graph:
+        def replay(self):
+            pass
+
+    before = pool.counters()
+    step = graphs.StepGraph(Graph(), capture)
+    assert pool.counters() == before
+    assert step.launches["pool"] == {
+        "launch_count": 20, "layout_copies": 0,
+        "launch_counts": {"avg5": 16, "max5": 0, "avg2": 4}}
+    for _ in range(3):
+        step.replay()
+    got = pool.counters_since(before)
+    assert got["launch_count"] == 60 and got["launch_counts"] == {
+        "avg5": 48, "max5": 0, "avg2": 12}
+    pool.add_counters(got, -1)
+    assert pool.counters() == before
 
 
 @pytest.mark.parametrize("graphed,device,ranks,want", [

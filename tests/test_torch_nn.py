@@ -104,6 +104,33 @@ def test_avg_pool2_matches_jax():
                                atol=ATOL)
 
 
+# NHWC shapes the card's pool kernel treats as edges: N = 1, H or W below
+# the 5x5 window, odd W, 3 or 12 channels (a 2x2 VALID pool needs 2 rows
+# and 2 columns)
+EDGE_POOL_SHAPES = [(1, 3, 4, 3), (2, 7, 5, 12), (1, 2, 9, 8), (3, 6, 1, 16)]
+
+
+@pytest.mark.parametrize("name,shape", [
+    (name, shape) for name in ("avg_pool_same", "max_pool_same", "avg_pool2")
+    for shape in EDGE_POOL_SHAPES
+    if name != "avg_pool2" or min(shape[1:3]) >= 2])
+def test_pools_on_the_cpu_match_jax_at_edge_shapes(name, shape):
+    """The three NCSN pools on CPU tensors at the card kernel's edge
+    shapes: the JAX package's numbers, and no kernel launch counted."""
+    from audiosourcesep_tpu_torch.ops import pool
+    x = _nhwc(8, shape)
+    args = () if name == "avg_pool2" else (5,)
+    want = np.asarray(getattr(jnn, name)(jnp.asarray(x), *args))
+    before = pool.counters()
+    got = _to_nhwc(getattr(tnn, name)(_to_torch(x), *args))
+    assert pool.counters() == before
+    assert got.shape == want.shape
+    if name == "max_pool_same":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 @pytest.mark.parametrize("src,dst", [((48, 32), (96, 64)), ((5, 7), (10, 14)),
                                      ((6, 4), (6, 4))])
 def test_resize_bilinear_matches_jax(src, dst):
