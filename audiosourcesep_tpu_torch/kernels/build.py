@@ -12,16 +12,25 @@ into :data:`build_log` on a cached build.
 
 A missing ``nvcc`` or a failed build raises, with nvcc's output in the
 message. Nothing here runs at import time.
+
+:func:`launch` is the one path by which the op modules launch a kernel:
+it loads the library (refused while a CUDA graph captures, since a load
+can run nvcc), passes the current stream and checks the returned CUDA
+error. :func:`sm_count` gives the card's SMs for the launch geometries.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -147,3 +156,46 @@ def load_library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def function(entry: str):
+    """The library's C function ``entry``, the library loaded at first use.
+    While the current stream captures a CUDA graph a library not yet
+    loaded is refused (loading it may run nvcc, for seconds): a warm-up
+    before the capture loads it (``separation.graphs``)."""
+    if _lib is None and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{entry}: the kernel library is not loaded: "
+                           f"launch the kernel once before a CUDA graph "
+                           f"captures it")
+    return getattr(load_library(), entry)
+
+
+def launch(entry: str, device: torch.device, *args,
+           detail: Optional[Callable[[], str]] = None) -> None:
+    """Launch the kernel of C function ``entry`` on ``device`` (a CUDA
+    device with an index) on its current stream: ``entry(*args, stream)``,
+    with ``device`` made current for the call if another is. A non-zero
+    return (a ``cudaError_t``) raises RuntimeError naming ``entry`` and
+    the code, and ``detail()`` (the caller's shapes and geometry) if
+    given."""
+    fn = function(entry)
+    index = device.index
+    # the stream's raw cudaStream_t (torch.cuda.current_stream builds a
+    # Stream object: 5 us of host time a launch on the H100's host, against
+    # 0.15 us)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        # the context costs host time, so only for another device
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}"
+                           + ("" if detail is None else f" ({detail()})"))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """The SMs of CUDA device ``device`` (its index)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

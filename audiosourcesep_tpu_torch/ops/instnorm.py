@@ -25,10 +25,10 @@ at each sample's label (v1), or the one row of v2's unconditional norm.
   any N (up to 65535), C (up to 4096), H and W; the tables are float32.
   :func:`instnorm_plus` copies x of another layout into ``channels_last``
   first (counted in ``layout_copies``); :func:`_instnorm_cuda` refuses it.
-* Counters (``ops.counting``; :func:`counters`, :func:`counters_since`,
-  :func:`add_counters`): ``launch_count``, norms the kernel ran;
-  ``layout_copies``. A CUDA graph's owner (``separation.graphs``) takes a
-  capture's counts back off and adds them at every replay.
+* A launch goes through ``kernels.build.launch`` and is counted in
+  ``ops.counting`` under ``instnorm``: ``launch_count``, norms the kernel
+  ran, and ``layout_copies``. A CUDA graph's owner (``separation.graphs``)
+  takes a capture's counts back off and adds them at every replay.
 * Each launch brings its own scratch, tickets included (zeroed on the
   stream by the C entry), so launches on several streams, or several
   graphs' replays, never share state.
@@ -36,17 +36,16 @@ at each sample's label (v1), or the one row of v2's unconditional norm.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from .counting import Counters
+from ..kernels import build
+from . import counting
 
-__all__ = ["norm2dplus", "composite", "instnorm_plus", "launch_count",
-           "layout_copies", "counters", "counters_since", "add_counters"]
+__all__ = ["norm2dplus", "composite", "instnorm_plus"]
 
 # the C entry point of the kernel pair, and its limits (csrc/instnorm_plus.cu)
 ENTRY = "instnorm_plus_fwd"
@@ -55,17 +54,6 @@ MAX_N = 65535
 # channels a thread owns and threads a block: R = BLOCK // ceil(C / VEC)
 # threads share a channel group, one pixel row each
 VEC, BLOCK = 8, 256
-
-# norms the kernel ran since import (or since a caller reset them)
-launch_count = 0
-# inputs copied into channels_last memory before the kernel
-layout_copies = 0
-# the counters and their arithmetic: counters() gives {"launch_count": n,
-# "layout_copies": n}; counters_since(before) the counts since;
-# add_counters(launches, times) adds times x launches
-_COUNTED = Counters(globals(), ("launch_count", "layout_copies"))
-counters, counters_since, add_counters = (_COUNTED.get, _COUNTED.since,
-                                          _COUNTED.add)
 
 
 def norm2dplus(x, scale, alpha, bias, eps_in=1e-3, eps_means=1e-5,
@@ -149,10 +137,9 @@ def instnorm_plus(x: torch.Tensor, labels: Optional[torch.Tensor],
     ``in_gamma``, ``in_beta`` the inner norm's ``[C]``. Returns x's dtype
     in ``channels_last`` memory. x in another layout is copied first.
     Differentiable in x and the tables (the composite's VJP)."""
-    global layout_copies
     if x.is_cuda and not x.is_contiguous(memory_format=torch.channels_last):
         x = x.contiguous(memory_format=torch.channels_last)
-        layout_copies += 1
+        counting.add({"instnorm": {"layout_copies": 1}})
     return _InstNormPlus.apply(x, labels, gamma, alpha, beta, in_gamma,
                                in_beta, elu)
 
@@ -161,12 +148,10 @@ def instnorm_plus(x: torch.Tensor, labels: Optional[torch.Tensor],
 def _resident_blocks(device: int, c: int, bf16: bool) -> int:
     """The statistics blocks of C channels the card holds at once: its SMs
     x the blocks an SM holds (the kernel's registers and shared memory)."""
-    from ..kernels import build
-    per_sm = build.load_library().instnorm_plus_blocks_per_sm(c, int(bf16))
+    per_sm = build.function("instnorm_plus_blocks_per_sm")(c, int(bf16))
     if per_sm < 1:
         raise RuntimeError(f"instnorm kernel: no occupancy for C = {c}")
-    return per_sm * torch.cuda.get_device_properties(
-        device).multi_processor_count
+    return per_sm * build.sm_count(device)
 
 
 def slices(n: int, c: int, hw: int, blocks: int) -> int:
@@ -201,7 +186,6 @@ def _instnorm_cuda(x: torch.Tensor, labels: Optional[torch.Tensor],
                    in_beta: torch.Tensor, elu: bool = False) -> torch.Tensor:
     """Launch the kernel pair on the current stream (see
     :func:`instnorm_plus`; x must already be ``channels_last``)."""
-    global launch_count
     if not x.is_cuda:
         raise ValueError(f"instnorm kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -235,26 +219,16 @@ def _instnorm_cuda(x: torch.Tensor, labels: Optional[torch.Tensor],
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    from ..kernels import build
-    if build._lib is None and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("the instnorm kernel is not loaded: launch it "
-                           "once before a CUDA graph captures it")
     bf16 = x.dtype == torch.bfloat16
     s = slices(n, c, h * w, _resident_blocks(dev.index, c, bf16))
     # the partial sums [N, S, C, 2], a and b [N, C, 2], the tickets [N]
     scratch = torch.empty(n * c * 2 * (s + 1) + n, dtype=torch.float32,
                           device=dev)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
-    with (contextlib.nullcontext() if dev.index ==
-          torch.cuda.current_device() else torch.cuda.device(dev)):
-        err = getattr(build.load_library(), ENTRY)(
-            x.data_ptr(), y.data_ptr(), ptr(labels), gamma.data_ptr(),
-            alpha.data_ptr(), ptr(beta), in_gamma.data_ptr(),
-            in_beta.data_ptr(), scratch.data_ptr(), n, c, h * w,
-            1 if k is None else k, int(bf16), s, int(elu), stream)
-    if err != 0:
-        raise RuntimeError(f"{ENTRY} launch failed: CUDA error {err} (x "
-                           f"{tuple(x.shape)} {x.dtype}, slices {s})")
-    launch_count += 1
+    build.launch(ENTRY, dev, x.data_ptr(), y.data_ptr(), ptr(labels),
+                 gamma.data_ptr(), alpha.data_ptr(), ptr(beta),
+                 in_gamma.data_ptr(), in_beta.data_ptr(), scratch.data_ptr(),
+                 n, c, h * w, 1 if k is None else k, int(bf16), s, int(elu),
+                 detail=lambda: f"x {tuple(x.shape)} {x.dtype}, slices {s}")
+    counting.add({"instnorm": {"launch_count": 1}})
     return y

@@ -17,26 +17,24 @@ PyTorch versions of the same pools.
   any N (up to 65535), C, H and W. x of another layout is copied into
   ``channels_last`` first (counted in ``layout_copies``);
   :func:`_pool_cuda` refuses it.
-* Counters (``ops.counting``; :func:`counters`, :func:`counters_since`,
-  :func:`add_counters`): ``launch_count``, pools the kernel ran, and
-  ``launch_counts`` by kind (``avg5``, ``max5``, ``avg2``);
+* A launch goes through ``kernels.build.launch`` and is counted in
+  ``ops.counting`` under ``pool``: ``launch_count``, pools the kernels
+  ran, ``launch_counts`` by kind (``avg5``, ``max5``, ``avg2``), and
   ``layout_copies``. A CUDA graph's owner (``separation.graphs``) takes a
   capture's counts back off and adds them at every replay.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from .counting import Counters
+from ..kernels import build
+from . import counting
 
-__all__ = ["avg_pool_same", "max_pool_same", "avg_pool2", "launch_count",
-           "launch_counts", "layout_copies", "counters", "counters_since",
-           "add_counters"]
+__all__ = ["avg_pool_same", "max_pool_same", "avg_pool2"]
 
 # the C entry points and their limits (csrc/pool.cu)
 ENTRIES = {"pool5": "pool5_fwd", "avg2": "avg_pool2_fwd"}
@@ -49,17 +47,6 @@ VEC, MAX_THREADS, MAX_SMEM = 8, 256, 48 * 1024
 # the widest map a 5x5 block takes whole; wider ones are cut into tiles of
 # TILE_W output columns (and 4 halo columns); output rows a block, at most
 TILE_W, MAX_ROWS = 124, 8
-
-# pools the kernel ran since import (or since a caller reset them), in all
-# and by kind
-launch_count = 0
-launch_counts = {"avg5": 0, "max5": 0, "avg2": 0}
-# inputs copied into channels_last memory before the kernel
-layout_copies = 0
-_COUNTED = Counters(globals(), ("launch_count", "layout_copies"),
-                    ("launch_counts",))
-counters, counters_since, add_counters = (_COUNTED.get, _COUNTED.since,
-                                          _COUNTED.add)
 
 
 def _avg_same(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -132,13 +119,12 @@ class _Pooled(torch.autograd.Function):
 def _for_the_kernel(x: torch.Tensor, window: int = WINDOW) -> torch.Tensor:
     """x as the kernel takes it: ``channels_last`` (a copy of another
     layout, counted), for a window it takes (else ValueError)."""
-    global layout_copies
     if window != WINDOW:
         raise ValueError(f"the pool kernel takes a {WINDOW}x{WINDOW} window, "
                          f"got {window}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         x = x.contiguous(memory_format=torch.channels_last)
-        layout_copies += 1
+        counting.add({"pool": {"layout_copies": 1}})
     return x
 
 
@@ -203,14 +189,12 @@ def _resident_blocks(device: int, mode: int, bf16: bool, w: int, g: int,
                      tw: int) -> int:
     """The 5x5 blocks of this shape the card holds at once: its SMs x the
     blocks an SM holds (the kernel's registers and shared memory)."""
-    from ..kernels import build
-    per_sm = build.load_library().pool5_blocks_per_sm(mode, int(bf16), w, g,
-                                                      tw)
+    per_sm = build.function("pool5_blocks_per_sm")(mode, int(bf16), w, g,
+                                                   tw)
     if per_sm < 1:
         raise RuntimeError(f"pool kernel: no occupancy for W = {w}, G = "
                            f"{g}, TW = {tw}")
-    return per_sm * torch.cuda.get_device_properties(
-        device).multi_processor_count
+    return per_sm * build.sm_count(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,7 +211,6 @@ def _geometry(device: int, kind: str, bf16: bool, n: int, h: int, w: int,
 def _pool_cuda(x: torch.Tensor, kind: str) -> torch.Tensor:
     """Launch the kernel ``kind`` (``avg5``, ``max5``, ``avg2``) on the
     current stream (x must already be ``channels_last``)."""
-    global launch_count
     if not x.is_cuda:
         raise ValueError(f"pool kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -246,28 +229,15 @@ def _pool_cuda(x: torch.Tensor, kind: str) -> torch.Tensor:
                     memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    from ..kernels import build
-    if build._lib is None and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("the pool kernel is not loaded: launch it once "
-                           "before a CUDA graph captures it")
     dev, bf16 = x.device, x.dtype == torch.bfloat16
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    lib = build.load_library()
-    with (contextlib.nullcontext() if dev.index ==
-          torch.cuda.current_device() else torch.cuda.device(dev)):
-        if kind == "avg2":
-            geometry = ()
-            err = getattr(lib, ENTRIES["avg2"])(
-                x.data_ptr(), y.data_ptr(), n, h, w, c, int(bf16), stream)
-        else:
-            geometry = _geometry(dev.index, kind, bf16, n, h, w, c)
-            err = getattr(lib, ENTRIES["pool5"])(
-                x.data_ptr(), y.data_ptr(), n, h, w, c, MODES[kind],
-                int(bf16), *geometry, stream)
-    if err != 0:
-        raise RuntimeError(f"{kind} pool launch failed: CUDA error {err} (x "
-                           f"{tuple(x.shape)} {x.dtype}, geometry "
-                           f"{geometry})")
-    launch_count += 1
-    launch_counts[kind] += 1
+    if kind == "avg2":
+        entry, args = ENTRIES["avg2"], (n, h, w, c, int(bf16))
+    else:
+        entry = ENTRIES["pool5"]
+        args = (n, h, w, c, MODES[kind], int(bf16),
+                *_geometry(dev.index, kind, bf16, n, h, w, c))
+    build.launch(entry, dev, x.data_ptr(), y.data_ptr(), *args,
+                 detail=lambda: f"{kind}, x {tuple(x.shape)} {x.dtype}, "
+                                f"sizes {args}")
+    counting.add({"pool": {"launch_count": 1, "launch_counts": {kind: 1}}})
     return y

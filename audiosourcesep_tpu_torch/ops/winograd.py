@@ -28,12 +28,12 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
 * Gradients: a ``torch.autograd.Function`` whose backward is the plain
   conv VJP (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``), as the
   JAX custom VJP uses the XLA conv VJP; there is no backward kernel.
-* ``launch_count`` counts kernel launches (and nothing else);
-  ``launch_counts`` splits it by kernel name. A launch made while a CUDA
-  graph captures runs nothing then: the graph's owner takes the
-  capture's counts back off and adds them again at every replay
-  (:func:`counters`, :func:`counters_since`, :func:`add_counters`;
-  ``separation.graphs``), so the counters hold the launches the card ran.
+* A launch goes through ``kernels.build.launch`` and is counted in
+  ``ops.counting``'s top level: ``launch_count`` counts kernel launches
+  (and nothing else), ``launch_counts`` splits it by kernel name, and
+  ``bf16_path_counts`` and ``f32_path_counts`` by path. A CUDA graph's
+  owner (``separation.graphs``) takes a capture's counts back off and
+  adds them again at every replay, so they hold the launches the card ran.
 * A dilated 3x3 conv runs the same kernels on its d*d phase grids
   (``dilated_winograd_conv2d``): the kernels take d, read each phase's
   pixels in place from the undilated ``x`` and write its outputs in
@@ -44,7 +44,6 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional
 
@@ -52,13 +51,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .counting import Counters
+from ..kernels import build
+from . import counting
 
 __all__ = ["transform_weights", "winograd_conv2d", "bf16_path", "f32_path",
            "winograd_conv2d_reference", "winograd_eligible",
            "dilated_eligible", "dilated_winograd_conv2d",
-           "dilated_winograd_conv2d_reference", "launch_count",
-           "launch_counts", "counters", "counters_since", "add_counters"]
+           "dilated_winograd_conv2d_reference"]
 
 _BT = np.array([[1, 0, -1, 0],
                 [0, 1, 1, 0],
@@ -75,15 +74,6 @@ _AT = np.array([[1, 1, 1, 0],
 KERNELS = {torch.float32: "winograd_f23_fwd_f32",
            torch.bfloat16: "winograd_f23_fwd_bf16"}
 
-# kernel launches since import (or since a caller reset them to 0)
-launch_count = 0
-launch_counts = {name: 0 for name in KERNELS.values()}
-# the bf16 kernel's launches by the path its producer took (see bf16_path)
-bf16_path_counts = {"tma": 0, "plain": 0}
-# the f32 kernel's launches by its path (see f32_path)
-f32_path_counts = {"wide": 0, "thin_in": 0, "thin_out": 0}
-# the counters above that map a name to a count
-_COUNTERS = ("launch_counts", "bf16_path_counts", "f32_path_counts")
 # the f32 kernel's thin paths (csrc/winograd_thin.cu): C_in up to this takes
 # thin_in (on grids of more tiles than THIN_IN_MIN_TILES), else C_out up to
 # this (C_in a multiple of 4) thin_out
@@ -108,23 +98,6 @@ THIN_OUT_BLOCKS_PER_SM = {4: 3, 1: 4}
 # (TMA's element strides stop at 8) and addresses 2d-pixel groups instead,
 # which needs C_in in whole 16-channel chunks
 BF16_STRIDED_MAX_DILATION = 4
-
-
-# the counters and their arithmetic (ops.counting): counters() gives
-# {"launch_count": n, "launch_counts": {...}, "bf16_path_counts": {...},
-# "f32_path_counts": {...}}; counters_since(before) the launches since;
-# add_counters(launches, times) adds times x launches
-_COUNTED = Counters(globals(), ("launch_count",), _COUNTERS)
-counters, counters_since, add_counters = (_COUNTED.get, _COUNTED.since,
-                                          _COUNTED.add)
-
-
-def _count_launch(name: str, path: str, bf16: bool) -> None:
-    """One launch of kernel ``name`` on ``path``, counted."""
-    global launch_count
-    launch_count += 1
-    launch_counts[name] += 1
-    (bf16_path_counts if bf16 else f32_path_counts)[path] += 1
 
 
 def _const(a: np.ndarray, device) -> torch.Tensor:
@@ -362,11 +335,6 @@ def _thin_geometry(x_shape, c_out: int, dilation: int, path: str,
     return (*box, cluster, THIN_NT // 32)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
                    path: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel of ``x``'s dtype on the current stream: the
@@ -418,34 +386,19 @@ def _winograd_cuda(x: torch.Tensor, u: torch.Tensor, dilation: int = 1,
             entry = "winograd_f23_fwd_f32_thin"
             sizes = (cin, cout, d, int(path == "thin_out"))
             geometry = _thin_geometry(tuple(x.shape), cout, d, path,
-                                      _sm_count(x.device.index))
+                                      build.sm_count(x.device.index))
             if path == "thin_out" and x.data_ptr() % 16:
                 x = x.clone()          # thin_out copies x in 16-byte pieces
         else:
             raise ValueError(f"the f32 kernel's path {path!r} does not take "
                              f"x {tuple(x.shape)} -> C_out {cout}")
-    from ..kernels import build
-    if build._lib is None and torch.cuda.is_current_stream_capturing():
-        # the first launch builds and loads the library (seconds of nvcc):
-        # a warm-up before the capture makes it (separation.graphs)
-        raise RuntimeError("the winograd kernels are not loaded: launch "
-                           "them once before a CUDA graph captures them")
-    # the current stream's cudaStream_t (torch.cuda.current_stream builds a
-    # Stream object: 5 us of host time a launch on the H100's host, against
-    # 0.15 us)
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    # the launch goes to the current device: make it x's (the context
-    # costs host time, so only when it is another)
-    with (contextlib.nullcontext() if x.device.index ==
-          torch.cuda.current_device() else torch.cuda.device(x.device)):
-        err = getattr(build.load_library(), entry)(
-            x.data_ptr(), u.data_ptr(), y.data_ptr(), b, h, w, *sizes,
-            *geometry, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
-                           f"(x {tuple(x.shape)}, C_out {cout}, d={d}, "
-                           f"path {path})")
-    _count_launch(name, path, bf16)
+    build.launch(entry, x.device, x.data_ptr(), u.data_ptr(), y.data_ptr(),
+                 b, h, w, *sizes, *geometry,
+                 detail=lambda: f"x {tuple(x.shape)}, C_out {cout}, d={d}, "
+                                f"path {path}")
+    counting.add({"launch_count": 1, "launch_counts": {name: 1},
+                  ("bf16_path_counts" if bf16 else "f32_path_counts"):
+                  {path: 1}})
     return y
 
 

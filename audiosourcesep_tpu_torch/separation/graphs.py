@@ -7,8 +7,7 @@ jitted T-step ``lax.scan`` with the iterate donated
 is a jitted double scan (``audiosourcesep_tpu/models/ncsn/utils.py:86-103``).
 PyTorch runs eagerly and launches every op of every step from the host; a
 CUDA graph of one step is the port's counterpart of the compiled level: one
-host call replays the whole step, the hand-written Winograd kernels
-(``ops.winograd``) inside it.
+host call replays the whole step, the hand-written kernels inside it.
 
 :func:`anneal` takes, for each level, a step body ``body(x, noise)`` that
 updates ``x`` in place from static buffers: ``x`` itself, a noise buffer
@@ -28,16 +27,17 @@ labels and constants, the mixture, the models). Per level, graphed:
    package's draws), each step's noise is copied into the buffer before
    its replay, and the graph draws nothing.
 
-Every level's warm-up and capture run on one side stream, and every
-level's graph is captured into one memory pool, which the last level's
-graph keeps alive until the next capture ends: a capture reuses the pool
-the last one filled, a warm-up the blocks the last one cached on that
-stream, so one step's working memory is held at a time and no cache is
-emptied between levels. (``torch.cuda.graph``'s entry empties the
-allocator's caches at every capture, so that each level allocated its
-memory anew, in host time that swung from level to level; and blocks are
-cached per stream, so a new side stream a level would leave each level's
-blocks cached and unused.)
+Every level's warm-up and capture run on one side stream, the one the
+process keeps for the device (:func:`_side_stream`), and every level's
+graph is captured into one memory pool, which the last level's graph
+keeps alive until the next capture ends: a capture reuses the pool the
+last one filled, a warm-up the blocks the last one cached on that stream,
+so one step's working memory is held at a time and no cache is emptied
+between levels. (``torch.cuda.graph``'s entry empties the allocator's
+caches at every capture, so that each level allocated its memory anew, in
+host time that swung from level to level; and blocks are cached per
+stream, so a new side stream a level, or an anneal, would leave the
+blocks of the earlier ones cached and unused.)
 
 The eager path (the CPU, or ``graphed=False``) runs the same body on the
 same buffers, drawing or copying the noise before each step: the two
@@ -45,8 +45,8 @@ paths do the same math in the same order. A capture or replay failure
 raises; nothing falls back to the eager loop. Per-level callbacks and
 snapshots run between levels, outside any graph.
 
-Kernel launches made while a graph captures run nothing: the counters of
-the op modules in ``COUNTED`` take the capture's counts back off and add
+Kernel launches made while a graph captures run nothing: the launch
+counters (``ops.counting``) take the capture's counts back off and add
 them again at every replay (:class:`StepGraph`), so they count what the
 card ran.
 
@@ -78,12 +78,13 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import time
 from typing import Callable, Iterator, List, NamedTuple, Optional
 
 import torch
 
-from ..ops import instnorm, pool, winograd
+from ..ops import counting
 from ..utils import profiling
 
 Body = Callable[[torch.Tensor, torch.Tensor], None]
@@ -94,7 +95,7 @@ class Capture(NamedTuple):
     on the card; the ``anneal.warmup`` span) and of its capture (host
     time from the warm-up's end: ``anneal.capture`` plus
     ``anneal.instantiate``), and the kernel
-    launches of one replay (:func:`counters_since`' layout)."""
+    launches of one replay (``ops.counting.since``' layout)."""
     level: int
     warmup_s: float
     capture_s: float
@@ -175,18 +176,27 @@ def use_graphs(graphed: Optional[bool], device, ranks: int = 1) -> bool:
     return bool(graphed)
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream of every anneal's warm-ups and captures on
+    ``device``, one for the process, so that an anneal reuses the blocks
+    that the earlier ones cached on it. Anneals on one device run one
+    after another."""
+    return torch.cuda.Stream(device=device)
+
+
 class LevelGraph:
     """The CUDA side of an anneal's graphs, one level's at a time (the CPU
-    tests stand in for it): the warm-up and the capture on one side stream,
-    the capture into the memory pool of the last level's graph, the
-    instantiation, the replays. ``generator``, if not None, is registered
-    with each graph."""
+    tests stand in for it): the warm-up and the capture on the device's
+    side stream, the capture into the memory pool of the last level's
+    graph (a new pool at the anneal's first), the instantiation, the
+    replays. ``generator``, if not None, is registered with each graph."""
 
     def __init__(self, device, generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
         self.generator = generator
         self.graph = None
-        self.side = torch.cuda.Stream(device=self.device)
+        self.side = _side_stream(self.device)
 
     def warm_up(self, fn: Callable[[], None]) -> None:
         """``fn()`` on the side stream, then a wait for the card."""
@@ -226,61 +236,22 @@ class LevelGraph:
         self.graph.replay()
 
 
-# the op modules whose kernel launches a replay adds, each with its key in
-# the layout below: ops.winograd's counters at its top level (a replay's
-# "launch_count" is its routed convs), every other module's under its key
-COUNTED = ((None, winograd), ("instnorm", instnorm), ("pool", pool))
-
-
-def _layout(parts) -> dict:
-    out = {}
-    for (key, _), part in zip(COUNTED, parts):
-        if key is None:
-            out.update(part)
-        else:
-            out[key] = part
-    return out
-
-
-def _part(launches: dict, key: Optional[str]) -> dict:
-    return launches if key is None else launches[key]
-
-
-def counters() -> dict:
-    """Every counted module's counters: ``ops.winograd.counters()``, with
-    each other module's ``counters()`` under its key in ``COUNTED``."""
-    return _layout(mod.counters() for _, mod in COUNTED)
-
-
-def counters_since(before: dict) -> dict:
-    """The counts since :func:`counters` gave ``before``, in its layout."""
-    return _layout(mod.counters_since(_part(before, key))
-                   for key, mod in COUNTED)
-
-
-def add_counters(launches: dict, times: int) -> None:
-    """Add ``times`` x ``launches`` (:func:`counters_since`' layout) to
-    every counted module's counters."""
-    for key, mod in COUNTED:
-        mod.add_counters(_part(launches, key), times)
-
-
 class StepGraph:
     """A captured step: ``replay()`` runs ``graph`` and adds the kernel
-    launches counted during ``capture()`` (``launches``,
-    :func:`counters_since`) to the counters, from which the capture, which
-    ran nothing on the card, took them off."""
+    launches counted during ``capture()`` (``launches``, in
+    ``ops.counting``'s layout) to the counters, from which the capture,
+    which ran nothing on the card, took them off."""
 
     def __init__(self, graph, capture: Callable[[], None]):
-        before = counters()
+        before = counting.snapshot()
         capture()
-        self.launches = counters_since(before)
-        add_counters(self.launches, -1)
+        self.launches = counting.since(before)
+        counting.add(self.launches, -1)
         self.graph = graph
 
     def replay(self) -> None:
         self.graph.replay()
-        add_counters(self.launches, 1)
+        counting.add(self.launches)
 
 
 def _traced(record: Optional[Record]) -> Optional[Record]:

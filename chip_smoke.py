@@ -705,9 +705,10 @@ def phase_kernel(smi: str):
         h, w, cin, cout = DILATED_CLASS
         for d, n in DILATED.items():
             x, k, u, xc, kc = inputs(h, w, cin, cout, dtype)
-            before = dict(W.launch_counts)
+            launches = _counts()["launch_counts"]
+            before = dict(launches)
             W.dilated_winograd_conv2d(x, k, d, u)
-            if sum(W.launch_counts.values()) - sum(before.values()) != 1:
+            if sum(launches.values()) - sum(before.values()) != 1:
                 raise AssertionError(f"dilated conv d={d} is not one launch")
             _hold(r, f"{h}x{w} {cin:3d}->{cout:3d} d={d}", dname, n,
                   DILATED_CLASS,
@@ -721,12 +722,14 @@ def phase_kernel(smi: str):
     r = res["bfloat16_wide_dilation"] = _new_result()
     for d, (batch, h, w, cin, cout) in WIDE_DILATED.items():
         x, k, u, xc, kc = inputs(h, w, cin, cout, torch.bfloat16, batch)
-        before, paths = dict(W.launch_counts), dict(W.bf16_path_counts)
+        counts = _counts()
+        before = dict(counts["launch_counts"])
+        paths = dict(counts["bf16_path_counts"])
         W.dilated_winograd_conv2d(x, k, d, u)
         name = W.KERNELS[torch.bfloat16]
-        if W.launch_counts != {n: c + (n == name)
-                               for n, c in before.items()} \
-                or W.bf16_path_counts["tma"] != paths["tma"] + 1:
+        if counts["launch_counts"] != {n: c + (n == name)
+                                       for n, c in before.items()} \
+                or counts["bf16_path_counts"]["tma"] != paths["tma"] + 1:
             raise AssertionError(f"bf16 d={d} is not one launch of the "
                                  f"bf16 kernel on its TMA path")
         ms_k, ms_c = _hold(
@@ -766,10 +769,10 @@ def phase_model(dtype):
         off = model(x, idx)
         ms_off = cuda_ms(lambda: model(x, idx), 3)
         nn.set_winograd(True)
-        before = W.launch_counts[W.KERNELS[dtype]]
+        before = _counts()["launch_counts"][W.KERNELS[dtype]]
         on = model(x, idx)
         torch.cuda.synchronize()
-        grew = W.launch_counts[W.KERNELS[dtype]] - before
+        grew = _counts()["launch_counts"][W.KERNELS[dtype]] - before
         ms_on = cuda_ms(lambda: model(x, idx), 3)
     finally:
         nn.set_winograd(False)
@@ -819,10 +822,18 @@ def _write_prior(path: str, seed: int):
         {"params": params_to_jax(m.state_dict())}, 1)
 
 
+def _counts() -> dict:
+    """The kernels' launch counters (``ops.counting.COUNTS``), read in
+    place: the Winograd launches at the top, the norms' and the pools'
+    under ``instnorm`` and ``pool``."""
+    from audiosourcesep_tpu_torch.ops import counting
+    return counting.COUNTS
+
+
 def _reset_counts():
-    """Every kernel launch counter (``separation.graphs.COUNTED``) to 0."""
-    from audiosourcesep_tpu_torch.separation import graphs
-    graphs.add_counters(graphs.counters(), -1)
+    """Every kernel launch counter (``ops.counting``) to 0."""
+    from audiosourcesep_tpu_torch.ops import counting
+    counting.add(counting.snapshot(), -1)
 
 
 def graphed_steps(L: int, T: int) -> int:
@@ -906,9 +917,9 @@ def phase_cli(work: str, T: int, dtype: str = "bf16", inverse: bool = False,
                             "--winograd", "--device", "cuda"]
                            + (["--inverse"] if inverse else []))
     wall = time.time() - t0
-    launches = dict(W.launch_counts)
-    paths = dict(W.bf16_path_counts if dtype == "bf16"
-                 else W.f32_path_counts)
+    launches = dict(_counts()["launch_counts"])
+    paths = dict(_counts()["bf16_path_counts"] if dtype == "bf16"
+                 else _counts()["f32_path_counts"])
     expected = 2 * steps * ROUTED_PER_FORWARD
     mine = W.KERNELS[torch.bfloat16 if dtype == "bf16" else torch.float32]
     res = np.load(os.path.join(out, "results.npz"))
@@ -996,7 +1007,6 @@ def phase_inversion(basis_dir: str):
     from audiosourcesep_tpu_torch import melspec_inversion_basis
     from audiosourcesep_tpu_torch.evaluation import bss_eval
     from audiosourcesep_tpu_torch.ops import inversion
-    from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.ops.mel import db_to_power
     mel_to_stft = inversion.mel_to_stft
     n_frame, n_whole = BATCH * W_INV, HOP * (BATCH * 64 - 1)
@@ -1025,7 +1035,7 @@ def phase_inversion(basis_dir: str):
                 raise AssertionError(f"{sub}/{name}.wav missing")
         print(f"[6] inversion CLI {' '.join(flags)}: {log}, wall-clock "
               f"{wall:.2f} s; 5 tracks of {n} samples, finite")
-    launches = dict(W.launch_counts)
+    launches = dict(_counts()["launch_counts"])
     print(f"[6] kernel launches during the inversion CLI: {launches}")
     if any(launches.values()):
         raise AssertionError("the inversion path launched a conv kernel")
@@ -1223,7 +1233,6 @@ def phase_train_routing(smi: str):
     import torch
     from audiosourcesep_tpu_torch import nn
     from audiosourcesep_tpu_torch.models.ncsn import get_sigmas
-    from audiosourcesep_tpu_torch.ops import instnorm as IN
     from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.training import make_ncsn_train_step
     sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")
@@ -1243,11 +1252,11 @@ def phase_train_routing(smi: str):
                 _, loss = step(state, x, sigma_idx=idx, noise=noise)
                 losses[routed].append(float(loss))
                 want = {f32: ROUTED_PER_FORWARD if routed else 0, bf16: 0}
-                if dict(W.launch_counts) != want \
-                        or IN.launch_count != NORMS_PER_FORWARD:
-                    raise AssertionError(f"train step launches "
-                                         f"{W.launch_counts} and "
-                                         f"{IN.launch_count} norms, expected "
+                got = dict(_counts()["launch_counts"])
+                norms = _counts()["instnorm"]["launch_count"]
+                if got != want or norms != NORMS_PER_FORWARD:
+                    raise AssertionError(f"train step launches {got} and "
+                                         f"{norms} norms, expected "
                                          f"{want} and {NORMS_PER_FORWARD}")
             if routed:
                 # the weights moved in step 2's optimizer update after its
@@ -1313,7 +1322,6 @@ def phase_train_cli(work: str, ds: str, counts):
     from audiosourcesep_tpu_torch import (nn, ncsn_generate_samples,
                                           train_ncsn)
     from audiosourcesep_tpu_torch.models.ncsn import get_score_model
-    from audiosourcesep_tpu_torch.ops import instnorm as IN
     from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.training.checkpoint import (
         CheckpointManager, load_flat, restore_ncsn_params)
@@ -1335,8 +1343,8 @@ def phase_train_cli(work: str, ds: str, counts):
                              "--sample_every", "1", "--device", "cuda"])
         wall = time.time() - t0
         STEP_TIMES["7d"] = times["step"]
-        train_launches = dict(W.launch_counts)
-        train_norms = IN.launch_count
+        train_launches = dict(_counts()["launch_counts"])
+        train_norms = _counts()["instnorm"]["launch_count"]
         _reset_counts()
         t0 = time.time()
         ncsn_generate_samples.main([out, "--output", gen, "--ema",
@@ -1344,8 +1352,8 @@ def phase_train_cli(work: str, ds: str, counts):
                                     "--num_classes", str(L), "--T", str(T),
                                     "--n_samples", "8", "--device", "cuda"])
         gen_wall = time.time() - t0
-        gen_launches = dict(W.launch_counts)
-        gen_norms = IN.launch_count
+        gen_launches = dict(_counts()["launch_counts"])
+        gen_norms = _counts()["instnorm"]["launch_count"]
     finally:
         nn.set_winograd(False)
     with open(os.path.join(out, "out.log")) as f:
@@ -1482,9 +1490,9 @@ def _f32_classes(r, classes, batches, tag, g, prefix=""):
             path, wide = _paths(W, x, u, cout)
             label = (f"{prefix}{h}x{w} {cin:3d}->{cout:3d}"
                      + (f" batch {batch}" if len(batches) > 1 else ""))
-            before = dict(W.f32_path_counts)
+            before = dict(_counts()["f32_path_counts"])
             W._winograd_cuda(x, u)
-            if W.f32_path_counts != {p: c + (p == path)
+            if _counts()["f32_path_counts"] != {p: c + (p == path)
                                      for p, c in before.items()}:
                 raise AssertionError(f"{label} did not launch once on its "
                                      f"path {path}")
@@ -1613,7 +1621,7 @@ def phase_glow_score():
             _reset_counts()
             scores[routed] = gpu.score(x)
             torch.cuda.synchronize()
-            launched = dict(W.launch_counts)
+            launched = dict(_counts()["launch_counts"])
             want = {name: GLOW_ROUTED if routed and dt == torch.float32
                     else 0 for dt, name in W.KERNELS.items()}
             if launched != want:
@@ -1799,7 +1807,8 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool, smi: str):
                                 str(chunk), "--score_clip", "1", *width])
         wall = time.time() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        got, paths = dict(W.launch_counts), dict(W.f32_path_counts)
+        got = dict(_counts()["launch_counts"])
+        paths = dict(_counts()["f32_path_counts"])
         chunks = -(-BATCH // chunk) if chunk else 1
         # graphed: a warm-up step a level besides the T replays
         steps = graphed_steps(L, T) if graphed else L * T
@@ -1808,7 +1817,7 @@ def phase_glow_cli(work: str, ds: str, counts, full: bool, smi: str):
                 for dt, name in W.KERNELS.items()}
         # conv1 (2/4 -> 512) thin_in, (8 -> 512) wide, conv3 (512 ->
         # 4/8/16) thin_out: each class's path at each chunk's frames
-        want_paths = dict.fromkeys(W.f32_path_counts, 0)
+        want_paths = dict.fromkeys(_counts()["f32_path_counts"], 0)
         step = chunk or BATCH
         for (h, w, cin, cout), n in GLOW_CLASSES.items():
             for lo in range(0, BATCH, step):
@@ -1943,12 +1952,12 @@ def phase_image_ncsn(work: str, n_train: int, full: bool):
                          "--n_epochs", "1", "--T", str(T), "--sample_every",
                          "1", *width])
         wall = time.time() - t0
-        train_launches = dict(W.launch_counts)
+        train_launches = dict(_counts()["launch_counts"])
         _reset_counts()
         ncsn_generate_samples.main([out, "--dataset", "mnist", "--output",
                                     gen, "--ema", "--T", str(T),
                                     "--n_samples", "8", *width])
-        gen_launches = dict(W.launch_counts)
+        gen_launches = dict(_counts()["launch_counts"])
     finally:
         nn.set_winograd(False)
     with open(os.path.join(out, "out.log")) as f:
@@ -1978,7 +1987,7 @@ def phase_image_ncsn(work: str, n_train: int, full: bool):
                             str(T_sep), "--compute_dtype", dtype,
                             "--winograd", *width])
         wall = time.time() - t0
-        got = dict(W.launch_counts)
+        got = dict(_counts()["launch_counts"])
         mine = f32 if dtype == "f32" else bf16
         want = {name: 2 * graphed_steps(L, T_sep) * per_fwd
                 if name == mine else 0 for name in got}
@@ -2223,9 +2232,10 @@ def phase_flowpp(smi: str):
             torch.cuda.synchronize()
             want = {name: FLOWPP_ROUTED if routed and dt == torch.float32
                     else 0 for dt, name in W.KERNELS.items()}
-            if dict(W.launch_counts) != want:
-                raise AssertionError(f"Flow++ log p launches "
-                                     f"{W.launch_counts}, expected {want}")
+            got = dict(_counts()["launch_counts"])
+            if got != want:
+                raise AssertionError(f"Flow++ log p launches {got}, "
+                                     f"expected {want}")
     finally:
         nn.set_winograd(False)
     err = _rel(lps[True], lps[False])
@@ -2273,7 +2283,7 @@ def phase_flowpp(smi: str):
                 _reset_counts()
                 step(state, xb, dequant=eb)
                 torch.cuda.synchronize()
-                launches = dict(W.launch_counts)
+                launches = dict(_counts()["launch_counts"])
                 want = {name: FLOWPP_ROUTED if dt == torch.float32 else 0
                         for dt, name in W.KERNELS.items()}
                 if launches != want:
@@ -2343,14 +2353,15 @@ def phase_image_glow(work: str, n_train: int, full: bool):
                         IMAGE_STEP_LR, *sig, *width])
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    got, paths = dict(W.launch_counts), dict(W.f32_path_counts)
+    got = dict(_counts()["launch_counts"])
+    paths = dict(_counts()["f32_path_counts"])
     chunks = -(-IMG_BATCH // chunk)
     # graphed: a warm-up step a level besides the T replays
     steps = graphed_steps(L, T)
     want = {name: steps * 2 * chunks * IMAGE_GLOW_ROUTED
             if dt == torch.float32 else 0 for dt, name in W.KERNELS.items()}
     # each class's path at each chunk's images (8, ..., 8, 2)
-    want_paths = dict.fromkeys(W.f32_path_counts, 0)
+    want_paths = dict.fromkeys(_counts()["f32_path_counts"], 0)
     for (h, w, cin, cout), n in IMAGE_GLOW_CLASSES.items():
         for lo in range(0, IMG_BATCH, chunk):
             b = min(chunk, IMG_BATCH - lo)
@@ -2483,8 +2494,6 @@ def rank_worker(argv):
     memory and times to ``OUT`` (``{rank}`` replaced by the rank)."""
     import torch
     from audiosourcesep_tpu_torch import nn, run_basis_sep, train_ncsn
-    from audiosourcesep_tpu_torch.ops import instnorm as IN
-    from audiosourcesep_tpu_torch.ops import winograd as W
     out, name, args = argv[0], argv[1], argv[2:]
     rank = os.environ.get("RANK") or args[args.index("--process_id") + 1]
     torch.backends.cudnn.allow_tf32 = False
@@ -2495,8 +2504,8 @@ def rank_worker(argv):
         {"run_basis_sep": run_basis_sep, "train_ncsn": train_ncsn}[
             name].main(args)
     with open(out.replace("{rank}", rank), "w") as f:
-        json.dump({"launches": dict(W.launch_counts),
-                   "norms": IN.launch_count,
+        json.dump({"launches": dict(_counts()["launch_counts"]),
+                   "norms": _counts()["instnorm"]["launch_count"],
                    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
                    "times": times}, f)
 
@@ -2724,7 +2733,6 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
     from audiosourcesep_tpu_torch.data import load_melspec_ds
     from audiosourcesep_tpu_torch.models.ncsn import (get_score_model,
                                                       get_sigmas)
-    from audiosourcesep_tpu_torch.ops import instnorm as IN
     from audiosourcesep_tpu_torch.ops import winograd as W
     from audiosourcesep_tpu_torch.training import (init_train_state,
                                                    make_ncsn_train_step,
@@ -2756,9 +2764,9 @@ def phase_multi_train(work: str, ds: str, train_launches: int, smi: str):
         wall = time.time() - t0
     finally:
         nn.set_winograd(False)
-    launches = W.launch_counts[f32]
+    launches = _counts()["launch_counts"][f32]
     # phase 7d's forwards, each with its norms on their kernel
-    norms = IN.launch_count
+    norms = _counts()["instnorm"]["launch_count"]
     want_norms = train_launches // ROUTED_PER_FORWARD * NORMS_PER_FORWARD
     init = _log_lines(os.path.join(out, "out.log"), ("Multi-host",))
     line = _epoch_line(os.path.join(out, "out.log"))
@@ -2922,10 +2930,11 @@ def _bf16_ulp(scale: float) -> float:
 
 
 def _scaled(counts: dict, times: int) -> dict:
-    """``separation.graphs.counters_since``' layout, every count x
-    ``times``."""
-    return {k: v * times if isinstance(v, int) else _scaled(v, times)
-            for k, v in counts.items()}
+    """``ops.counting.since``' layout, every count x ``times``."""
+    from audiosourcesep_tpu_torch.ops import counting
+    out = counting.since(counting.snapshot())          # every count 0
+    counting.add(counts, times, into=out)
+    return out
 
 
 def _step_launches(kernel: str, paths: dict, n: int, norms: int = 0,
@@ -2933,20 +2942,19 @@ def _step_launches(kernel: str, paths: dict, n: int, norms: int = 0,
     """The launches of one anneal step that launches ``kernel`` on each
     path of ``paths`` ({path: launches}) and ``n`` times in all, the
     InstanceNorm++ kernel ``norms`` times and the pool kernels ``pools``
-    ({kind: launches}) times (no layout copy), in
-    ``separation.graphs.counters_since``' layout."""
-    from audiosourcesep_tpu_torch.separation import graphs
-    zero = graphs.counters_since(graphs.counters())
-    pools = {k: (pools or {}).get(k, 0)
-             for k in zero["pool"]["launch_counts"]}
-    return {"launch_count": n,
-            "launch_counts": {k: n * (k == kernel)
-                              for k in zero["launch_counts"]},
-            **{c: {p: paths.get(p, 0) for p in zero[c]}
-               for c in ("bf16_path_counts", "f32_path_counts")},
-            "instnorm": {"launch_count": norms, "layout_copies": 0},
+    ({kind: launches}) times (no layout copy), in ``ops.counting.since``'
+    layout."""
+    from audiosourcesep_tpu_torch.ops import counting
+    out = counting.since(counting.snapshot())          # every count 0
+    pools = pools or {}
+    step = {"launch_count": n, "launch_counts": {kernel: n},
+            "instnorm": {"launch_count": norms},
             "pool": {"launch_count": sum(pools.values()),
-                     "launch_counts": pools, "layout_copies": 0}}
+                     "launch_counts": pools}}
+    for c in ("bf16_path_counts", "f32_path_counts"):
+        step[c] = {p: k for p, k in paths.items() if p in out[c]}
+    counting.add(step, into=out)
+    return out
 
 
 def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
@@ -2956,13 +2964,14 @@ def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
     ``seed``: x, the graphs' record, the host seconds, the launches and the
     peak memory above what was allocated before (GiB)."""
     import torch
+    from audiosourcesep_tpu_torch.ops import counting
     from audiosourcesep_tpu_torch.separation import (basis_separate_per_level,
                                                      graphs)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    before = graphs.counters()
+    before = counting.snapshot()
     t0 = time.perf_counter()
     with graphs.recording() as record:
         x, _ = basis_separate_per_level(
@@ -2971,7 +2980,7 @@ def _anneal_run(score_fn, mixed, x0, sigmas, cfg, graphed, noise=None,
             (lambda level, step: noise[level, step]))
     torch.cuda.synchronize()
     return {"x": x, "record": record, "wall": time.perf_counter() - t0,
-            "launches": graphs.counters_since(before),
+            "launches": counting.since(before),
             "peak": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
 
 
@@ -3134,7 +3143,7 @@ def phase_graphs(smi: str):
         peaks = {}
         for chunk in (8, 0):
             step = chunk or BATCH
-            paths = dict.fromkeys(W.f32_path_counts, 0)
+            paths = dict.fromkeys(_counts()["f32_path_counts"], 0)
             for (h, w, cin, cout), n in GLOW_CLASSES.items():
                 for lo in range(0, BATCH, step):
                     b = min(step, BATCH - lo)
@@ -3217,7 +3226,7 @@ def _forward_norms(dtype):
     from audiosourcesep_tpu_torch.models.ncsn import get_score_model
     from audiosourcesep_tpu_torch.models.ncsn.layers import (
         ConditionalInstanceNorm2dPlus)
-    from audiosourcesep_tpu_torch.ops import instnorm as IN
+    from audiosourcesep_tpu_torch.ops import counting
     m = get_score_model("v1", (96, 64, 1), 192, 10, device="cuda")
     m.reset_parameters(torch.Generator().manual_seed(41))
     m.eval().requires_grad_(False)
@@ -3237,14 +3246,14 @@ def _forward_norms(dtype):
     g = torch.Generator().manual_seed(42)
     x = torch.rand(BATCH, 96, 64, 1, generator=g).cuda()
     idx = torch.randint(10, (BATCH,), generator=g).cuda()
-    before = IN.counters()
+    before = counting.snapshot()
     try:
         with torch.no_grad():
             m(x, idx)
     finally:
         for h in hooks:
             h.remove()
-    return calls, IN.counters_since(before)["launch_count"]
+    return calls, counting.since(before)["instnorm"]["launch_count"]
 
 
 def _replayed_equals_eager(fn) -> bool:
@@ -3490,6 +3499,7 @@ def _forward_pools(version: str, dtype):
     import torch
     from audiosourcesep_tpu_torch.models.ncsn import (get_score_model,
                                                       get_sigmas)
+    from audiosourcesep_tpu_torch.ops import counting
     from audiosourcesep_tpu_torch.ops import pool as PL
     if version == "v1":
         m = get_score_model("v1", (96, 64, 1), 192, 10, device="cuda")
@@ -3513,7 +3523,7 @@ def _forward_pools(version: str, dtype):
     g = torch.Generator().manual_seed(44)
     x = torch.rand(BATCH, 96, 64, 1, generator=g).cuda()
     idx = torch.randint(10, (BATCH,), generator=g).cuda()
-    before = PL.counters()
+    before = counting.snapshot()
     try:
         for name in names:
             setattr(PL, name, recording(name))
@@ -3522,7 +3532,7 @@ def _forward_pools(version: str, dtype):
     finally:
         for name, fn in real.items():
             setattr(PL, name, fn)
-    return calls, PL.counters_since(before)
+    return calls, counting.since(before)["pool"]
 
 
 def phase_pool(smi: str) -> dict:

@@ -1,9 +1,19 @@
 """The port's kernel build (audiosourcesep_tpu_torch/kernels/build.py) on
 the CPU: what can be checked without nvcc."""
 
+import contextlib
 import re
 
+import pytest
+import torch
+
 from audiosourcesep_tpu_torch.kernels import build
+from audiosourcesep_tpu_torch.ops import instnorm, pool
+from audiosourcesep_tpu_torch.ops import winograd as W
+
+# the C entries the three wrappers launch through build.launch
+LAUNCHED = [*W.KERNELS.values(), "winograd_f23_fwd_f32_thin",
+            instnorm.ENTRY, *pool.ENTRIES.values()]
 
 
 def test_cached_build_reads_nvcc_log_back(tmp_path, monkeypatch):
@@ -29,6 +39,56 @@ def test_digest_follows_sources_and_flags(monkeypatch):
     before = build._digest(build._sources())
     monkeypatch.setattr(build, "NVCC_FLAGS", [*build.NVCC_FLAGS, "-lineinfo"])
     assert build._digest(build._sources()) != before
+
+
+@pytest.mark.parametrize("entry", LAUNCHED)
+def test_launch_refuses_a_capture_passes_the_stream_and_raises(monkeypatch,
+                                                               entry):
+    """``build.launch`` with a stand-in library and CUDA state: while a
+    graph captures it refuses to load the library, naming the entry; once
+    loaded it calls ``entry(*args, stream)`` with the device's current
+    stream last, switching devices only for another device than the
+    current one; a non-zero CUDA error raises with the entry's name, the
+    code and the caller's detail."""
+    assert entry in build.SIGNATURES
+    calls, switched, code = [], [], [0]
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or code[0]
+
+    @contextlib.contextmanager
+    def device(index):
+        switched.append(index)
+        yield
+
+    def no_build():
+        raise AssertionError("the library was built while a graph captured")
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(build, "_lib", None)
+    cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    with pytest.raises(RuntimeError, match=f"^{entry}: the kernel library "
+                                           f"is not loaded"):
+        build.launch(entry, cuda0, 1, 2)
+    assert not calls and build._lib is None
+    monkeypatch.setattr(build, "_lib", Library())
+    build.launch(entry, cuda0, 7, 8)          # loaded: a capture launches
+    assert calls == [(entry, (7, 8, 1000))] and not switched
+    build.launch(entry, cuda1, 9)
+    assert calls[-1] == (entry, (9, 1001)) and switched == [1]
+    code[0] = 700
+    with pytest.raises(RuntimeError, match=rf"^{entry} launch failed: CUDA "
+                                           rf"error 700 \(x 3x4\)$"):
+        build.launch(entry, cuda0, 5, detail=lambda: "x 3x4")
+    with pytest.raises(RuntimeError, match=rf"CUDA error 700$"):
+        build.launch(entry, cuda0, 5)
 
 
 def test_chip_smoke_kernels_line_puts_each_route_under_its_kernel():

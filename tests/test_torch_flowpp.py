@@ -30,6 +30,7 @@ from audiosourcesep_tpu_torch.models import (FlowppBlock,
                                              FlowppCouplingLayer,
                                              VariationalDequant,
                                              build_flowpp)
+from audiosourcesep_tpu_torch.ops import counting
 from audiosourcesep_tpu_torch.ops import winograd as W
 from audiosourcesep_tpu_torch.training import (init_train_state,
                                                make_flow_train_step,
@@ -403,12 +404,12 @@ def test_flowpp_routes_its_3x3_convs():
     x = _t(_images(3, 2))
     try:
         nn.set_winograd(True)
-        W.winograd_conv2d, before = spy, W.launch_count
+        W.winograd_conv2d, before = spy, counting.snapshot()
         tm.log_prob(x, tm.draw_noise(x.shape))
     finally:
         W.winograd_conv2d = real
         nn.set_winograd(False)
-    assert len(calls) == len(convs) and W.launch_count == before
+    assert len(calls) == len(convs) and counting.snapshot() == before
 
 
 def test_flowpp_train_steps_match_jax(pair, tmp_path):

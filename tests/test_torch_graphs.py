@@ -26,6 +26,7 @@ from audiosourcesep_tpu_torch import nn as tnn
 from audiosourcesep_tpu_torch.models import build_glow
 from audiosourcesep_tpu_torch.models.ncsn import (RefineNetDilated,
                                                   anneal_langevin_dynamics)
+from audiosourcesep_tpu_torch.ops import counting
 from audiosourcesep_tpu_torch.ops import winograd as W
 from audiosourcesep_tpu_torch.parallel import Layout
 from audiosourcesep_tpu_torch.separation import (BasisConfig, basis_separate,
@@ -233,18 +234,58 @@ def test_graphed_langevin_sampler_matches_jax(stand_in_graphs):
     np.testing.assert_array_equal(x_init.numpy(), x0)
 
 
-def test_replays_count_what_the_capture_launched():
-    """A capture runs nothing on the card: the counters lose what the
-    wrapper counted while it captured and gain it again at every replay
-    (the capture's counts x the replays), kernel by kernel and path by
-    path."""
-    bf16, f32 = W.KERNELS[torch.bfloat16], W.KERNELS[torch.float32]
+BF16, F32 = W.KERNELS[torch.bfloat16], W.KERNELS[torch.float32]
 
-    def capture():       # what the wrapper counts during one step's capture
-        for _ in range(3):
-            W._count_launch(bf16, "tma", True)
-        W._count_launch(bf16, "plain", True)
-        W._count_launch(f32, "thin_out", False)
+
+def _winograd_launch(name, path):
+    """What ``ops.winograd._winograd_cuda`` counts for one launch."""
+    paths = "bf16_path_counts" if name == BF16 else "f32_path_counts"
+    return {"launch_count": 1, "launch_counts": {name: 1}, paths: {path: 1}}
+
+
+def _scaled(counts, times):
+    return {k: _scaled(n, times) if isinstance(n, dict) else n * times
+            for k, n in counts.items()}
+
+
+# per kernel module: what its wrapper counts during one step's capture, the
+# replays, and the counts of one replay (the other modules' stay 0)
+CAPTURES = {
+    "winograd": (
+        [_winograd_launch(BF16, "tma")] * 3
+        + [_winograd_launch(BF16, "plain"), _winograd_launch(F32, "thin_out")],
+        7, {"launch_count": 5, "launch_counts": {F32: 1, BF16: 4},
+            "bf16_path_counts": {"tma": 3, "plain": 1},
+            "f32_path_counts": {"wide": 0, "thin_in": 0, "thin_out": 1}}),
+    # three norms and a layout copy, beside one routed conv whose top-level
+    # keys keep their meaning
+    "instnorm": (
+        [{"instnorm": {"launch_count": 1}}] * 3
+        + [{"instnorm": {"layout_copies": 1}},
+           _winograd_launch(BF16, "tma")],
+        4, {"instnorm": {"launch_count": 3, "layout_copies": 1},
+            "launch_count": 1, "launch_counts": {F32: 0, BF16: 1},
+            "bf16_path_counts": {"tma": 1, "plain": 0}}),
+    # v1's step: 16 5x5 averages and 4 2x2 averages, none copied
+    "pool": (
+        [{"pool": {"launch_count": 1, "launch_counts": {"avg5": 1}}}] * 16
+        + [{"pool": {"launch_count": 1, "launch_counts": {"avg2": 1}}}] * 4,
+        3, {"pool": {"launch_count": 20, "layout_copies": 0,
+                     "launch_counts": {"avg5": 16, "max5": 0, "avg2": 4}}}),
+}
+
+
+@pytest.mark.parametrize("kernel", list(CAPTURES))
+def test_replays_count_what_the_capture_launched(kernel):
+    """A capture runs nothing on the card: the counters (``ops.counting``)
+    lose what the wrappers counted while it captured and gain it again at
+    every replay (the capture's counts x the replays), kernel by kernel
+    and path by path, each module under its key of ``launches``."""
+    counted, replays, one = CAPTURES[kernel]
+
+    def capture():
+        for launch in counted:
+            counting.add(launch)
 
     class Graph:         # a stand-in for torch.cuda.CUDAGraph
         replays = 0
@@ -252,106 +293,48 @@ def test_replays_count_what_the_capture_launched():
         def replay(self):
             self.replays += 1
 
-    before = W.counters()
+    before = counting.snapshot()
     step = graphs.StepGraph(Graph(), capture)
-    assert W.counters() == before
-    assert step.launches["launch_count"] == 5
-    for _ in range(7):
+    assert counting.snapshot() == before
+    want = counting.since(before)          # every count 0
+    for key, n in one.items():
+        want[key] = {**want[key], **n} if isinstance(n, dict) else n
+    assert step.launches == want
+    for _ in range(replays):
         step.replay()
-    assert step.graph.replays == 7
-    got = W.counters_since(before)
-    assert got["launch_count"] == 35
-    assert got["launch_counts"] == {f32: 7, bf16: 28}
-    assert got["bf16_path_counts"] == {"tma": 21, "plain": 7}
-    assert got["f32_path_counts"] == {"wide": 0, "thin_in": 0,
-                                      "thin_out": 7}
-    W.add_counters(got, -1)
-    assert W.counters() == before
-
-
-def test_replays_count_the_norms_the_capture_ran():
-    """The InstanceNorm++ kernel's counters (``ops.instnorm``) follow the
-    capture and its replays as the Winograd launches do, under their own
-    key of ``launches``; the Winograd keys keep their meaning."""
-    from audiosourcesep_tpu_torch.ops import instnorm
-
-    def capture():
-        instnorm.launch_count += 3
-        instnorm.layout_copies += 1
-        W._count_launch(W.KERNELS[torch.bfloat16], "tma", True)
-
-    class Graph:
-        def replay(self):
-            pass
-
-    before, before_w = instnorm.counters(), W.counters()
-    step = graphs.StepGraph(Graph(), capture)
-    assert instnorm.counters() == before and W.counters() == before_w
-    assert step.launches["launch_count"] == 1
-    assert step.launches["instnorm"] == {"launch_count": 3,
-                                         "layout_copies": 1}
-    for _ in range(4):
-        step.replay()
-    got = instnorm.counters_since(before)
-    assert (got["launch_count"], got["layout_copies"]) == (12, 4)
-    assert W.counters_since(before_w)["launch_count"] == 4
-    instnorm.add_counters(got, -1)
-    W.add_counters(W.counters_since(before_w), -1)
-    assert instnorm.counters() == before and W.counters() == before_w
+    assert step.graph.replays == replays
+    got = counting.since(before)
+    assert got == _scaled(want, replays)
+    counting.add(got, -1)
+    assert counting.snapshot() == before
 
 
 def test_counters_keep_winograd_at_the_top_and_nest_the_others():
-    """``graphs.counters()``: ``ops.winograd.counters()``'s keys, unchanged,
-    at the top (a replay's ``launch_count`` is its routed convs), and each
-    other counted module's counters under its own key."""
-    from audiosourcesep_tpu_torch.ops import instnorm, pool
-    assert set(W.counters()) == {"launch_count", "launch_counts",
-                                 "bf16_path_counts", "f32_path_counts"}
-    got = graphs.counters()
-    assert got == {**W.counters(), "instnorm": instnorm.counters(),
-                   "pool": pool.counters()}
-    zero = graphs.counters_since(got)
-    assert zero["launch_count"] == 0 and zero["instnorm"] == {
-        "launch_count": 0, "layout_copies": 0}
-    assert zero["pool"] == {"launch_count": 0, "layout_copies": 0,
-                            "launch_counts": {"avg5": 0, "max5": 0,
-                                              "avg2": 0}}
-    graphs.add_counters(got, -1)
-    assert graphs.counters_since(graphs.counters()) == zero
-    assert W.launch_count == 0 and instnorm.launch_count == 0
-    assert pool.launch_count == 0
-    graphs.add_counters(got, 1)
-    assert graphs.counters() == got
-
-
-def test_replays_count_the_pools_the_capture_ran():
-    """The pool kernels' counters (``ops.pool``) follow a capture and its
-    replays under their own key of ``launches``, by kind: v1's step, 16
-    5x5 averages and 4 2x2 averages a replay, none copied."""
-    from audiosourcesep_tpu_torch.ops import pool
-
-    def capture():
-        pool.add_counters({"launch_count": 20, "layout_copies": 0,
-                           "launch_counts": {"avg5": 16, "max5": 0,
-                                             "avg2": 4}}, 1)
-
-    class Graph:
-        def replay(self):
-            pass
-
-    before = pool.counters()
-    step = graphs.StepGraph(Graph(), capture)
-    assert pool.counters() == before
-    assert step.launches["pool"] == {
-        "launch_count": 20, "layout_copies": 0,
-        "launch_counts": {"avg5": 16, "max5": 0, "avg2": 4}}
-    for _ in range(3):
-        step.replay()
-    got = pool.counters_since(before)
-    assert got["launch_count"] == 60 and got["launch_counts"] == {
-        "avg5": 48, "max5": 0, "avg2": 12}
-    pool.add_counters(got, -1)
-    assert pool.counters() == before
+    """``ops.counting``'s layout: the Winograd counts at the top (a
+    replay's ``launch_count`` is its routed convs), and each other kernel
+    module's counts under its own key; the snapshot is a copy, and the
+    arithmetic walks the whole layout."""
+    got = counting.snapshot()
+    zero = counting.since(got)
+    assert zero == {"launch_count": 0,
+                    "launch_counts": {F32: 0, BF16: 0},
+                    "bf16_path_counts": {"tma": 0, "plain": 0},
+                    "f32_path_counts": {"wide": 0, "thin_in": 0,
+                                        "thin_out": 0},
+                    "instnorm": {"launch_count": 0, "layout_copies": 0},
+                    "pool": {"launch_count": 0, "layout_copies": 0,
+                             "launch_counts": {"avg5": 0, "max5": 0,
+                                               "avg2": 0}}}
+    got["pool"]["launch_counts"]["avg5"] += 1
+    assert counting.since(got)["pool"]["launch_counts"]["avg5"] == -1
+    got["pool"]["launch_counts"]["avg5"] -= 1
+    counting.add(got, -1)
+    assert counting.COUNTS == zero
+    counting.add(got)
+    assert counting.snapshot() == got
+    with pytest.raises(KeyError):
+        counting.add({"instnorm": {"launches": 1}})
+    assert counting.snapshot() == got
 
 
 @pytest.mark.parametrize("graphed,device,ranks,want", [

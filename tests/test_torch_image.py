@@ -37,7 +37,7 @@ from audiosourcesep_tpu_torch import (cli, ncsn_generate_samples,
                                       run_basis_sep, train_glow, train_ncsn,
                                       train_noisy_glow)
 from audiosourcesep_tpu_torch.data import get_mixture_toydata, load_toydata
-from audiosourcesep_tpu_torch.ops import winograd as W
+from audiosourcesep_tpu_torch.ops import counting
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -204,12 +204,12 @@ def test_run_basis_sep_on_mnist(tmp_path, caches, image_ncsn, routed):
     stft_mixture None; with --winograd the convs take the kernel's plain
     version (no launch on the CPU)."""
     out = str(tmp_path / "sep")
-    before = W.launch_count
+    before = counting.snapshot()
     run_basis_sep.main([image_ncsn, image_ncsn, "--dataset", "mnist",
                         "--output", out, "--n_mixed", "3", "--T", "2",
                         "--ema", *NCSN_TINY[:4], "--device", "cpu"]
                        + (["--winograd"] if routed else []))
-    assert W.launch_count == before
+    assert counting.snapshot() == before
     res = np.load(os.path.join(out, "results.npz"), allow_pickle=True)
     assert sorted(res.files) == ["gt1", "gt2", "mixed", "stft_mixture",
                                  "x1", "x2"]

@@ -16,6 +16,7 @@ from audiosourcesep_tpu_torch.models.ncsn import (RefineNetDilated,
                                                   get_score_model, get_sigmas)
 from audiosourcesep_tpu_torch.models.ncsn import layers as tlayers
 from audiosourcesep_tpu_torch.models.ncsn.layers import _norm2dplus
+from audiosourcesep_tpu_torch.ops import counting
 from audiosourcesep_tpu_torch.ops import instnorm as tinorm
 from audiosourcesep_tpu_torch.ops import winograd as twino
 from audiosourcesep_tpu_torch.training.checkpoint import params_from_jax
@@ -88,11 +89,11 @@ class TestNormDispatch:
         x = torch.rand(2, 16, 16, 1, generator=torch.Generator()
                        .manual_seed(1))
         idx = torch.tensor([0, 3])
-        before = tinorm.counters()
+        before = counting.snapshot()
         with torch.no_grad():
             m(x, idx)
         m(x, idx).sum().backward()               # and under autograd
-        assert tinorm.counters() == before
+        assert counting.snapshot() == before
 
     def test_autograd_on_a_cuda_tensor_takes_the_composite_counted(self,
                                                                 monkeypatch):
@@ -102,7 +103,7 @@ class TestNormDispatch:
         gradients in x and every table are the composite's own, bit for
         bit, for v1 and v2 rows, with and without the fused ELU."""
         def kernel(x, labels, *tables):
-            tinorm.launch_count += 1
+            counting.add({"instnorm": {"launch_count": 1}})
             *tables, elu = tables
             return tinorm.composite(x, labels, *tables,
                                     act=torch.nn.functional.elu if elu
@@ -120,17 +121,17 @@ class TestNormDispatch:
             for elu in (False, True):
                 leaves = [[t.clone().requires_grad_(True)
                            for t in (x, *tables)] for _ in range(2)]
-                before = tinorm.counters()
+                before = counting.snapshot()
                 tinorm.instnorm_plus(leaves[0][0], labels, *leaves[0][1:],
                                      elu=elu).backward(gy)
-                assert tinorm.counters_since(before) == {
+                assert counting.since(before)["instnorm"] == {
                     "launch_count": 1, "layout_copies": 0}
                 tinorm.composite(leaves[1][0], labels, *leaves[1][1:],
                                  act=torch.nn.functional.elu if elu
                                  else None).backward(gy)
                 for got, want in zip(*leaves):
                     assert torch.equal(got.grad, want.grad)
-                tinorm.add_counters(tinorm.counters_since(before), -1)
+                counting.add(counting.since(before), -1)
 
     @pytest.mark.parametrize("labels", [True, False])
     def test_composite_folds_the_rows_as_the_norm_modules_did(self, labels):

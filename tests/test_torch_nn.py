@@ -117,13 +117,13 @@ EDGE_POOL_SHAPES = [(1, 3, 4, 3), (2, 7, 5, 12), (1, 2, 9, 8), (3, 6, 1, 16)]
 def test_pools_on_the_cpu_match_jax_at_edge_shapes(name, shape):
     """The three NCSN pools on CPU tensors at the card kernel's edge
     shapes: the JAX package's numbers, and no kernel launch counted."""
-    from audiosourcesep_tpu_torch.ops import pool
+    from audiosourcesep_tpu_torch.ops import counting
     x = _nhwc(8, shape)
     args = () if name == "avg_pool2" else (5,)
     want = np.asarray(getattr(jnn, name)(jnp.asarray(x), *args))
-    before = pool.counters()
+    before = counting.snapshot()
     got = _to_nhwc(getattr(tnn, name)(_to_torch(x), *args))
-    assert pool.counters() == before
+    assert counting.snapshot() == before
     assert got.shape == want.shape
     if name == "max_pool_same":
         np.testing.assert_array_equal(got, want)

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from audiosourcesep_tpu_torch.kernels import build
-from audiosourcesep_tpu_torch.ops import pool
+from audiosourcesep_tpu_torch.ops import counting, pool
 
 SRC = (pathlib.Path(pool.__file__).parent.parent / "csrc" / "pool.cu")
 
@@ -26,12 +26,12 @@ def test_ops_pool_imports_with_no_nvcc_and_no_card():
     code = ("import torch\n"
             "from audiosourcesep_tpu_torch import nn\n"
             "from audiosourcesep_tpu_torch.kernels import build\n"
-            "from audiosourcesep_tpu_torch.ops import pool\n"
+            "from audiosourcesep_tpu_torch.ops import counting, pool\n"
             "x = torch.ones(1, 3, 6, 6)\n"
             "nn.avg_pool_same(x, 5); nn.max_pool_same(x, 5); "
             "nn.avg_pool2(x)\n"
             "assert build._lib is None\n"
-            "assert pool.counters()['launch_count'] == 0\n")
+            "assert counting.COUNTS['pool']['launch_count'] == 0\n")
     env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
            "PYTHONPATH": str(pathlib.Path(__file__).parent.parent),
            "JAX_PLATFORMS": "cpu"}
@@ -97,20 +97,26 @@ def test_strip_rows(blocks, h, resident, want):
 
 
 def test_counters_layout_and_arithmetic():
-    """``counters()``: the launches in all and by kind, and the layout
-    copies; ``counters_since`` and ``add_counters`` as a graph's owner
-    uses them."""
-    before = pool.counters()
-    assert set(before) == {"launch_count", "launch_counts", "layout_copies"}
-    assert set(before["launch_counts"]) == {"avg5", "max5", "avg2"}
-    pool.add_counters({"launch_count": 3, "layout_copies": 1,
-                       "launch_counts": {"avg5": 2, "max5": 0,
-                                         "avg2": 1}}, 2)
-    got = pool.counters_since(before)
-    assert got == {"launch_count": 6, "layout_copies": 2,
-                   "launch_counts": {"avg5": 4, "max5": 0, "avg2": 2}}
-    pool.add_counters(got, -1)
-    assert pool.counters() == before
+    """The pools' counts in ``ops.counting``, under ``pool``: the launches
+    in all and by kind, and the layout copies; ``since`` and ``add`` as a
+    graph's owner uses them, and a kind the layout lacks refused."""
+    before = counting.snapshot()
+    assert set(before["pool"]) == {"launch_count", "launch_counts",
+                                   "layout_copies"}
+    assert set(before["pool"]["launch_counts"]) == set(pool.MODES) | {"avg2"}
+    counting.add({"pool": {"launch_count": 3, "layout_copies": 1,
+                           "launch_counts": {"avg5": 2, "max5": 0,
+                                             "avg2": 1}}}, 2)
+    got = counting.since(before)
+    assert got["pool"] == {"launch_count": 6, "layout_copies": 2,
+                           "launch_counts": {"avg5": 4, "max5": 0,
+                                             "avg2": 2}}
+    assert got["launch_count"] == got["instnorm"]["launch_count"] == 0
+    counting.add(got, -1)
+    assert counting.snapshot() == before
+    with pytest.raises(KeyError):
+        counting.add({"pool": {"launch_counts": {"avg3": 1}}})
+    assert counting.snapshot() == before
 
 
 @pytest.mark.parametrize("fn,args,name", [
@@ -131,9 +137,9 @@ def test_cpu_tensors_take_pytorchs_pools_uncounted(monkeypatch, fn, args,
     monkeypatch.setattr(F, name, spy)
     x = torch.randn(2, 5, 7, 9, generator=torch.Generator().manual_seed(0))
     x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
-    before = pool.counters()
+    before = counting.snapshot()
     fn(x, *args).sum().backward()
-    assert calls and pool.counters() == before
+    assert calls and counting.snapshot() == before
     assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
@@ -144,8 +150,7 @@ def test_card_route_backward_is_pytorchs_vjp(monkeypatch, kind):
     VJP of PyTorch's pool recomputed from x, bit for bit the gradient of
     autograd through PyTorch's pool."""
     def kernel(x, k):
-        pool.launch_count += 1
-        pool.launch_counts[k] += 1
+        counting.add({"pool": {"launch_count": 1, "launch_counts": {k: 1}}})
         return (F.max_pool2d(x, 5, 1, 2) if k == "max5"
                 else F.avg_pool2d(x, 2, 2))
 
@@ -153,15 +158,15 @@ def test_card_route_backward_is_pytorchs_vjp(monkeypatch, kind):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(3, 4, 7, 6, generator=g)
     xs = [x.clone().requires_grad_() for _ in range(2)]
-    before = pool.counters()
+    before = counting.snapshot()
     out = pool._Pooled.apply(xs[0], kind)
     gy = torch.randn(out.shape, generator=g)
     out.backward(gy)
-    assert pool.counters_since(before)["launch_counts"][kind] == 1
+    assert counting.since(before)["pool"]["launch_counts"][kind] == 1
     (F.max_pool2d(xs[1], 5, 1, 2) if kind == "max5"
      else F.avg_pool2d(xs[1], 2, 2)).backward(gy)
     assert torch.equal(xs[0].grad, xs[1].grad)
-    pool.add_counters(pool.counters_since(before), -1)
+    counting.add(counting.since(before), -1)
 
 
 def test_the_kernel_refuses_a_cpu_tensor():

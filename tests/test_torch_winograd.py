@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from audiosourcesep_tpu.ops import winograd as jwino
+from audiosourcesep_tpu_torch.ops import counting
 from audiosourcesep_tpu_torch.ops import winograd as twino
 
 torch.set_num_threads(2)
@@ -92,10 +93,10 @@ def test_autograd_matches_conv_gradient():
 
 
 def test_cpu_path_does_not_launch_and_counts_stay():
-    before = twino.launch_count
+    before = counting.snapshot()
     x, k = _inputs(5, (1, 4, 4, 2), 2)
     twino.winograd_conv2d(torch.from_numpy(x), torch.from_numpy(k))
-    assert twino.launch_count == before
+    assert counting.snapshot() == before
 
 
 def test_eligibility_follows_the_kernel_limits():
@@ -155,10 +156,10 @@ def test_dilated_matches_pallas_interpret_and_conv(d):
     """The phase split around the plain version (the CPU path) against the
     JAX package's phase split around the Pallas kernel, and F.conv2d."""
     x, k = _inputs(7 + d, (2, 16, 8, 8), 16)
-    before = dict(twino.launch_counts)
+    before = counting.snapshot()
     got = twino.dilated_winograd_conv2d(torch.from_numpy(x),
                                         torch.from_numpy(k), d).numpy()
-    assert twino.launch_counts == before     # CPU: no launch
+    assert counting.snapshot() == before     # CPU: no launch
     pallas = np.asarray(jwino.dilated_winograd_conv2d(
         jnp.asarray(x), jnp.asarray(k), d, interpret=True))
     conv = F.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2),
