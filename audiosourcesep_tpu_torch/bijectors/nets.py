@@ -18,11 +18,13 @@ class ShiftAndLogScaleConvNet(torch.nn.Module):
     """conv3(relu) - norm - conv1(relu) - norm - conv3(zero-init) -> split.
 
     The zero-initialised last conv makes each coupling start as the
-    identity (Glow); the norms are :func:`nn.frozen_batchnorm`. Inside,
+    identity (Glow); the norms are frozen batch norms. Inside,
     activations are NCHW views in ``channels_last`` memory: the 3x3 convs
     go through :func:`nn.conv2d` (the Winograd kernel when routing is
     on), the 1x1 conv is one matmul over the channels
-    (:func:`nn.conv1x1`).
+    (:func:`nn.conv1x1`). The first two convs run without their bias,
+    which goes into one op with the relu and the norm after each
+    (:func:`nn.bias_relu_frozen_batchnorm`).
     """
 
     def __init__(self, in_ch: int, n_filters: int, out_ch_factor: int = 2,
@@ -45,10 +47,12 @@ class ShiftAndLogScaleConvNet(torch.nn.Module):
         self.bn2.reset_parameters()
 
     def forward(self, x: torch.Tensor):
-        h = nn.relu(self.conv1(x.permute(0, 3, 1, 2)))
-        h = self.bn1(h)
-        h = nn.relu(nn.conv1x1(h, self.conv2.kernel, self.conv2.bias))
-        h = self.bn2(h)
+        c1 = self.conv1
+        h = nn.conv2d(x.permute(0, 3, 1, 2), c1.kernel, None, c1.dilation,
+                      c1._winograd_cache)
+        h = self.bn1.after_bias_relu(h, c1.bias)
+        h = self.bn2.after_bias_relu(nn.conv1x1(h, self.conv2.kernel),
+                                     self.conv2.bias)
         log_s, t = self.conv3(h).permute(0, 2, 3, 1).chunk(2, dim=-1)
         return torch.tanh(log_s), t
 

@@ -69,6 +69,13 @@ SIGNATURES = {
     "pool5_blocks_per_sm": ([_I] * 5, _I),
     # (x, y, N, H, W, C, bf16, stream) -> cudaError_t
     "avg_pool2_fwd": ([_P, _P, *[_I] * 5, _P], _I),
+    # (h, p, y, N, HW, C, bf16, blocks, stream) -> cudaError_t
+    "bias_relu_bn_fwd": ([_P, _P, _P, *[_I] * 5, _P], _I),
+    # (gy, h, p, gh, N, HW, C, gy_nchw, bf16, blocks, stream) -> cudaError_t
+    "bias_relu_bn_bwd": ([*[_P] * 4, *[_I] * 6, _P], _I),
+    # (kind (0 forward, 1 gradient), bf16, threads) -> the row kernel's
+    # blocks an SM holds at once
+    "bias_relu_bn_blocks_per_sm": ([_I] * 3, _I),
 }
 
 _lib = None

@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .ops import pool
+from .ops import bias_relu_bn, pool
 from .utils.profiling import span, spanned
 
 # When enabled, every conv the Winograd kernel computes (3x3, stride 1,
@@ -275,6 +275,20 @@ def frozen_batchnorm(x: torch.Tensor, gamma: torch.Tensor,
     return x * g[:, None, None] + beta.to(x.dtype)[:, None, None]
 
 
+@spanned("norm")
+def bias_relu_frozen_batchnorm(x: torch.Tensor, bias: torch.Tensor,
+                               gamma: torch.Tensor, beta: torch.Tensor,
+                               eps: float = 1e-3,
+                               cache: Optional[dict] = None) -> torch.Tensor:
+    """``frozen_batchnorm(relu(x + bias))`` of NCHW ``x`` (a conv's output
+    without its bias) as one op (``ops.bias_relu_bn``): on a CUDA tensor a
+    kernel forward and one for the input gradient, on a CPU tensor the
+    PyTorch ops; the same results bit for bit. ``cache`` (a dict owned by
+    the caller) keeps the per-channel rows on the card until a parameter
+    changes."""
+    return bias_relu_bn.bias_relu_bn(x, bias, gamma, beta, eps, cache)
+
+
 class FrozenBatchNorm(torch.nn.Module):
     """:func:`frozen_batchnorm` with parameters ``gamma`` and ``beta``
     (initialised to 1 and 0 by :meth:`reset_parameters`)."""
@@ -285,6 +299,7 @@ class FrozenBatchNorm(torch.nn.Module):
                                                     device=device))
         self.beta = torch.nn.Parameter(torch.empty(num_features,
                                                    device=device))
+        self._rows_cache = {}     # bias_relu_bn's rows, on x's device
 
     @torch.no_grad()
     def reset_parameters(self):
@@ -293,6 +308,13 @@ class FrozenBatchNorm(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return frozen_batchnorm(x, self.gamma, self.beta)
+
+    def after_bias_relu(self, x: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+        """This norm of ``relu(x + bias)``
+        (:func:`bias_relu_frozen_batchnorm`)."""
+        return bias_relu_frozen_batchnorm(x, bias, self.gamma, self.beta,
+                                          cache=self._rows_cache)
 
 
 @spanned("norm")
@@ -416,5 +438,7 @@ def elu(x: torch.Tensor) -> torch.Tensor:
 
 @spanned("act")
 def relu(x: torch.Tensor) -> torch.Tensor:
-    """``torch.relu``, the coupling nets' activation."""
+    """``torch.relu``, the RealNVP and dense coupling nets' activation
+    (the Glow nets' is fused into their norms:
+    :func:`bias_relu_frozen_batchnorm`)."""
     return torch.relu(x)

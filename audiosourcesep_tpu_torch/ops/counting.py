@@ -32,6 +32,14 @@ COUNTS = {
     "pool": {"launch_count": 0,
              "launch_counts": {"avg5": 0, "max5": 0, "avg2": 0},
              "layout_copies": 0},
+    # ops.bias_relu_bn: launches of the Glow coupling nets' fused bias ->
+    # ReLU -> frozen BN, in all and by kernel (the forward; the input
+    # gradient by its gradient's layout), and inputs copied into
+    # channels_last memory before them
+    "bias_relu_bn": {"launch_count": 0,
+                     "launch_counts": {"fwd": 0, "bwd_nhwc": 0,
+                                       "bwd_nchw": 0},
+                     "layout_copies": 0},
 }
 
 

@@ -163,6 +163,16 @@ Phases, each printed on its own lines; any failure raises (exit != 0):
    shape class the same, timed alone, and a replay bit for bit against
    eager (``--pool`` runs phases 1, 2 and 13 alone). Phase 11 holds a
    graphed step's pool launches to a forward's, twice.
+14. the fused bias -> ReLU -> frozen BN kernels of the Glow coupling nets
+   (``ops.bias_relu_bn``, ``csrc/bias_relu_bn.cu``) alone, f32: ptxas'
+   report (a spill fails the phase); the sites of one full-width Glow
+   score at 30 frames as it makes them, counted by kernel and by the
+   input gradient's layout; a step's 480 forward and 480 input gradient
+   sites as one CUDA graph each against the PyTorch ops the nets ran
+   before, device time against the bytes bound; per class the same, bit
+   for bit against those ops, and a replay bit for bit against eager
+   (``--brbn`` runs phases 1, 2 and 14 alone). Phase 11 holds a graphed
+   Glow step's launches to a score's (BRB_PER_SCORE), twice.
 
 Then one JSON line of per-kernel results, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -361,6 +371,12 @@ NORMS_PER_FORWARD = 71
 # two 2x2 averages pool its main path and its shortcut
 POOLS_PER_FORWARD = {"v1": {"avg5": 8, "max5": 0, "avg2": 2},
                      "v2": {"avg5": 0, "max5": 8, "avg2": 2}}
+# the fused bias -> ReLU -> frozen BN launches of one Glow flow's score
+# (ops.bias_relu_bn's launch_counts): two sites a coupling net, 120 nets, a
+# forward launch and an input gradient launch each; the gradient reaches
+# the first site (from the 1x1 conv's matmul) in NHWC memory and the
+# second (from the 3x3 conv's cuDNN input gradient) in NCHW memory
+BRB_PER_SCORE = {"fwd": 240, "bwd_nhwc": 120, "bwd_nchw": 120}
 # the train steps' times of phase 7d, beside which 10c prints its own
 STEP_TIMES = {}
 # technique 1: the f32 Gram distance on the card against float64 on the
@@ -2938,19 +2954,22 @@ def _scaled(counts: dict, times: int) -> dict:
 
 
 def _step_launches(kernel: str, paths: dict, n: int, norms: int = 0,
-                   pools: dict = None) -> dict:
+                   pools: dict = None, brbn: dict = None) -> dict:
     """The launches of one anneal step that launches ``kernel`` on each
     path of ``paths`` ({path: launches}) and ``n`` times in all, the
-    InstanceNorm++ kernel ``norms`` times and the pool kernels ``pools``
-    ({kind: launches}) times (no layout copy), in ``ops.counting.since``'
-    layout."""
+    InstanceNorm++ kernel ``norms`` times, the pool kernels ``pools``
+    ({kind: launches}) times and the fused bias -> ReLU -> frozen BN
+    kernels ``brbn`` ({kernel: launches}) times (no layout copy), in
+    ``ops.counting.since``' layout."""
     from audiosourcesep_tpu_torch.ops import counting
     out = counting.since(counting.snapshot())          # every count 0
-    pools = pools or {}
+    pools, brbn = pools or {}, brbn or {}
     step = {"launch_count": n, "launch_counts": {kernel: n},
             "instnorm": {"launch_count": norms},
             "pool": {"launch_count": sum(pools.values()),
-                     "launch_counts": pools}}
+                     "launch_counts": pools},
+            "bias_relu_bn": {"launch_count": sum(brbn.values()),
+                             "launch_counts": brbn}}
     for c in ("bf16_path_counts", "f32_path_counts"):
         step[c] = {p: k for p, k in paths.items() if p in out[c]}
     counting.add(step, into=out)
@@ -3051,7 +3070,8 @@ def _graph_case(tag, score_fn, mixed, x0, sigmas, cfg, want_step, smi):
           f"(T={T} replays + 1 warm-up step), eager "
           f"{eager['launches']['launch_count']} = {L} x T={T}; "
           f"InstanceNorm++ a replay {want_step['instnorm']}, pools "
-          f"{want_step['pool']}")
+          f"{want_step['pool']}, bias -> ReLU -> BN "
+          f"{want_step['bias_relu_bn']}")
 
     def per_step(run):
         levels = run["record"].levels
@@ -3159,7 +3179,9 @@ def phase_graphs(smi: str):
                     glow_score_fn(chains, frame_chunk=chunk or None), gmixed,
                     gx0, sigmas, gcfg, _step_launches(
                         W.KERNELS[torch.float32], paths,
-                        2 * chunks * GLOW_ROUTED), smi)
+                        2 * chunks * GLOW_ROUTED,
+                        brbn={k: 2 * chunks * n
+                              for k, n in BRB_PER_SCORE.items()}), smi)
             finally:
                 hook.remove()
             # the hooked flow (level 0, source 0): per chunk, its backward
@@ -3635,6 +3657,189 @@ def phase_pool(smi: str) -> dict:
     return entry
 
 
+def _same_bits(a, b) -> bool:
+    """``a`` and ``b`` bit for bit, NaN against NaN whatever its payload."""
+    import torch
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    nan = torch.isnan(a).contiguous()
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.contiguous().view(bits)[~nan],
+                            b.contiguous().view(bits)[~nan]))
+
+
+def _brbn_sites(model, x):
+    """The fused bias -> ReLU -> frozen BN sites of one score of ``model``
+    at ``x`` as it runs them (``ops.bias_relu_bn``'s launch wrappers
+    wrapped): per site h's shape, its rows and the layout its input
+    gradient arrives in (``nhwc``, ``nchw`` or ``other``); and the
+    kernels' counts of that score."""
+    import torch
+    from audiosourcesep_tpu_torch.ops import bias_relu_bn as BRB
+    from audiosourcesep_tpu_torch.ops import counting
+    fwd, bwd = [], []
+    real = (BRB._forward_cuda, BRB._input_grad_cuda)
+
+    def forward(h, p):
+        fwd.append((tuple(h.shape), p))
+        return real[0](h, p)
+
+    def input_grad(gy, h, p):
+        bwd.append("nhwc" if gy.is_contiguous(
+            memory_format=torch.channels_last) else
+            "nchw" if gy.is_contiguous() else "other")
+        return real[1](gy, h, p)
+
+    before = counting.snapshot()
+    try:
+        BRB._forward_cuda, BRB._input_grad_cuda = forward, input_grad
+        model.score(x)
+        torch.cuda.synchronize()
+    finally:
+        BRB._forward_cuda, BRB._input_grad_cuda = real
+    # the backward meets the sites in the reverse order
+    sites = [(shape, p, layout)
+             for (shape, p), layout in zip(fwd, reversed(bwd))]
+    return sites, counting.since(before)["bias_relu_bn"]
+
+
+def phase_brbn(smi: str) -> dict:
+    """14: the fused bias -> ReLU -> frozen BN kernels (``ops.bias_relu_bn``,
+    ``csrc/bias_relu_bn.cu``) alone, f32 as the Glow cell runs them:
+    ptxas' report of their twelve instances (a spill fails the phase); the
+    sites of one full-width Glow flow's score at 30 frames, routed, as the
+    score makes them (``_brbn_sites``: held to BRB_PER_SCORE, each input
+    gradient's layout, no copy); a step's sites (that score's, twice: the
+    two sources) on inputs of their shapes and layouts, distinct a site
+    (~20 GB, so nothing stays in L2), as one CUDA graph of the 480 forward
+    launches and one of the 480 input gradient launches, against one
+    graph each of the PyTorch ops the coupling nets ran before (the bias
+    add, relu and ``nn.frozen_batchnorm``; autograd's ``gy * g`` and
+    threshold_backward), device time against the bytes bound (forward: h
+    read, y written; gradient: gy and h read, gh written, at the HBM
+    rate); per class (level and kernel) the same, kernel and composite
+    bit for bit on the sites' own rows, and a capture and replay bit for
+    bit against eager. Returns the kernels' entry of the JSON line."""
+    import collections
+    import torch
+    from audiosourcesep_tpu_torch import nn
+    from audiosourcesep_tpu_torch.kernels import build
+    from audiosourcesep_tpu_torch.ops import bias_relu_bn as BRB
+    report = _ptxas_report(build.build_log, "brbn")
+    for line in report:
+        print(f"[14] ptxas: {line}")
+    if len([ln for ln in report if ln.startswith("Compiling")]) != 12 \
+            or any(_spills(ln) for ln in report):
+        raise AssertionError(f"the bias -> ReLU -> BN kernels are missing "
+                             f"from ptxas' report or spill: {report}")
+    try:
+        nn.set_winograd(True)
+        model = _glow("cuda").requires_grad_(False)
+        sites, launched = _brbn_sites(model, _glow_data(BATCH, 3).cuda())
+    finally:
+        nn.set_winograd(False)
+    del model
+    torch.cuda.empty_cache()
+    if dict(launched["launch_counts"]) != BRB_PER_SCORE \
+            or launched["layout_copies"]:
+        raise AssertionError(f"[14] a Glow score launched {launched}; "
+                             f"expected {BRB_PER_SCORE}, no copy")
+    layouts = collections.Counter((shape[2:], layout)
+                                  for shape, _, layout in sites)
+    print(f"[14] a Glow score's {len(sites)} sites (30 frames, routed): "
+          f"counted {dict(launched['launch_counts'])}, no copy; input "
+          f"gradients by (H, W) and layout {dict(layouts)} [{smi}]")
+    g = torch.Generator(device="cuda").manual_seed(14)
+
+    def drawn(shape, layout):
+        fmt = (torch.contiguous_format if layout == "nchw"
+               else torch.channels_last)
+        return torch.empty(shape, device="cuda", memory_format=fmt).normal_(
+            generator=g)
+
+    # a source's sites on inputs of their own, run twice (two sources)
+    inputs = [(drawn(shape, "nhwc"), p, drawn(shape, layout), layout)
+              for shape, p, layout in sites]
+    step = inputs * 2
+
+    def run(which, kernel, sel=step):
+        for h, p, gy, _ in sel:
+            if which == "fwd" and kernel:
+                BRB._forward_cuda(h, p)
+            elif which == "fwd":
+                nn.frozen_batchnorm(torch.relu(h + p[0][:, None, None]),
+                                    p[1], p[2])
+            elif kernel:
+                BRB._input_grad_cuda(gy, h, p)
+            else:
+                # autograd's ops, with h in the relu result's place
+                torch.ops.aten.threshold_backward(gy * p[1][:, None, None],
+                                                  h, 0)
+
+    touches = {"fwd": 2, "bwd": 3}
+    entry = {"name": "bias_relu_bn_fwd, bias_relu_bn_bwd", "route": "cuda",
+             "source": "audiosourcesep_tpu_torch/csrc/bias_relu_bn.cu",
+             "replaces": "audiosourcesep_tpu_torch/bijectors/nets.py's bias "
+                         "add, nn.relu, nn.frozen_batchnorm and their "
+                         "autograd (no TPU kernel)",
+             "launches_a_score": dict(launched["launch_counts"])}
+    for which in ("fwd", "bwd"):
+        t = {k: graph_ms(functools.partial(run, which, k), iters=1)
+             for k in (True, False)}
+        bound = sum(1e3 * touches[which] * h.numel() * h.element_size()
+                    / HBM for h, *_ in step)
+        entry[which] = {"ms": t[True], "plain_ms": t[False],
+                        "bound_ms": bound, "launches": len(step)}
+        print(f"[14] Glow f32 a step's {len(step)} {which} sites as one "
+              f"graph: kernel {t[True]:.4f} ms, the PyTorch ops "
+              f"{t[False]:.4f} ms, bound {bound:.4f} ms (bytes: "
+              f"{touches[which]} touches an element; "
+              f"{100 * bound / t[True]:.1f}% of it) [{smi}]")
+    # a yardstick of the card's rate for one read and one write: PyTorch's
+    # copy of the same tensors
+    t_copy = graph_ms(lambda: [h.clone() for h, *_ in step], iters=1)
+    entry["fwd"]["copy_ms"] = t_copy
+    print(f"[14] PyTorch's clone of the forward's {len(step)} h as one "
+          f"graph (the same bytes): {t_copy:.4f} ms, "
+          f"{100 * entry['fwd']['bound_ms'] / t_copy:.1f}% of the bound "
+          f"[{smi}]")
+    classes = {}
+    for which in ("fwd", "bwd"):
+        keys = collections.Counter(
+            (tuple(h.shape), "" if which == "fwd" else layout)
+            for h, _, _, layout in step)
+        for (shape, layout), per_step in keys.items():
+            sel = [s for s in step if tuple(s[0].shape) == shape
+                   and (which == "fwd" or s[3] == layout)]
+            h, p, gy, _ = sel[0]
+            if which == "fwd":
+                call = functools.partial(BRB._forward_cuda, h, p)
+                same = _same_bits(call(), BRB.composite(h, p))
+            else:
+                call = functools.partial(BRB._input_grad_cuda, gy, h, p)
+                same = _same_bits(call(), BRB.composite_input_grad(gy, h,
+                                                                   p))
+            if not same or not _replayed_equals_eager(call):
+                raise AssertionError(f"[14] {which} {shape} {layout}: the "
+                                     f"kernel differs from the PyTorch ops "
+                                     f"or its replay from eager")
+            tk = graph_ms(functools.partial(run, which, True, sel), iters=1)
+            tp = graph_ms(functools.partial(run, which, False, sel), iters=1)
+            cb = sum(1e3 * touches[which] * s[0].numel() * 4 / HBM
+                     for s in sel)
+            label = f"{which}{'_' + layout if layout else ''} " \
+                    f"{'x'.join(map(str, shape))}"
+            classes[label] = {"per_step": per_step, "ms": tk,
+                              "plain_ms": tp, "bound_ms": cb}
+            print(f"[14] {label} ({per_step} a step): kernel {tk:.4f} ms, "
+                  f"the PyTorch ops {tp:.4f} ms, bound {cb:.4f} ms, "
+                  f"{100 * cb / tk:.1f}% of it; bit for bit, replayed == "
+                  f"eager [{smi}]")
+    entry["classes"] = classes
+    del inputs, step
+    torch.cuda.empty_cache()
+    return entry
+
+
 def kernels_line(res, routes):
     """The ``kernels`` entries of the JSON line, one per kernel of
     ``ops.winograd.KERNELS``. ``res[dname]`` holds a kernel's numbers over
@@ -3734,12 +3939,19 @@ def main(argv):
         phase_build()
         print(json.dumps({"kernels": [phase_pool(smi)]}))
         return
+    if argv[:1] == ["--brbn"]:
+        # phase 14 alone: the fused bias -> ReLU -> frozen BN at Glow's sites
+        smi = phase_device()
+        phase_build()
+        print(json.dumps({"kernels": [phase_brbn(smi)]}))
+        return
 
     smi = phase_device()
     phase_build()
     res = phase_kernel(smi)
     norm = phase_norm(smi)
     pool = phase_pool(smi)
+    brbn = phase_brbn(smi)
     phase_model(torch.bfloat16)
     phase_model(torch.float32)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3807,7 +4019,7 @@ def main(argv):
                # this to 0
                "flowpp": flowpp_launches[name[bf16]]},
     }
-    kernels = kernels_line(res, routes) + [norm, pool]
+    kernels = kernels_line(res, routes) + [norm, pool, brbn]
     # phase 10's launches, all ranks together: the two separation layouts
     # (bf16) and the 2-rank training CLI (f32)
     for key, n in multi.items():

@@ -1859,3 +1859,231 @@ def test_ncsn_forwards_take_the_pool_kernels(cuda, version):
     with torch.no_grad():
         torch.testing.assert_close(out.detach().cpu(), ref(x, idx),
                                    rtol=1e-4, atol=1e-4)
+
+
+# the fused bias -> ReLU -> frozen BN of the Glow coupling nets
+# (ops.bias_relu_bn, csrc/bias_relu_bn.cu): Glow's three level sizes at 512
+# channels (30 frames), an odd channel count, one not a multiple of 8, and
+# more channel groups than a block's threads
+BRB_SHAPES = [(30, 512, 48, 32), (30, 512, 24, 16), (30, 512, 12, 8),
+              (3, 13, 5, 7), (2, 100, 6, 10), (1, 4100, 3, 2)]
+
+
+def _brb_inputs(shape, dtype, seed=0):
+    """h (``channels_last``) in ``dtype`` with NaN, infinities and a -0
+    whose channel's bias is -0; float32 bias, gamma, beta; drawn on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    h = torch.randn(shape, generator=g)
+    bias, gamma, beta = (s * torch.randn(c, generator=g)
+                         for s in (0.5, 1.0, 0.5))
+    h[0, 0, 0, 0] = float("nan")
+    h[0, 1, 0, 1] = float("inf")
+    h[0, 1, 1, 0] = -float("inf")
+    h[-1, 2, -1, -1] = -0.0
+    bias[2] = -0.0
+    h = h.to(dtype).cuda().contiguous(memory_format=torch.channels_last)
+    return h, bias.cuda(), gamma.cuda(), beta.cuda()
+
+
+def _same_bits(a, b):
+    """``a`` and ``b`` bit for bit, NaN against NaN whatever its payload."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.contiguous().view(bits)[~nan.contiguous()],
+                            b.contiguous().view(bits)[~nan.contiguous()]))
+
+
+@pytest.mark.parametrize("shape", BRB_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_bias_relu_bn_kernels_equal_the_composite_bit_for_bit(
+        cuda, shape, dtype, layout):
+    """The forward kernel against the PyTorch ops the coupling nets ran on
+    the card, and the input gradient kernel against autograd's ops (``gy *
+    g``, threshold_backward) with gy in NHWC or NCHW memory: bit for bit
+    (NaN for NaN, the sign of zero kept), one launch each, counted by the
+    gradient's layout, no copy, gh ``channels_last``."""
+    from audiosourcesep_tpu_torch.ops import bias_relu_bn as BRB
+    h, bias, gamma, beta = _brb_inputs(shape, dtype)
+    p = BRB.params(bias, gamma, beta, dtype)
+    gy = torch.randn(shape, generator=torch.Generator().manual_seed(1)
+                     ).to(dtype).cuda()
+    gy = gy.contiguous(memory_format=torch.channels_last) \
+        if layout == "nhwc" else gy.contiguous()
+    before = counting.snapshot()
+    y = BRB._forward_cuda(h, p)
+    gh = BRB._input_grad_cuda(gy, h, p)
+    torch.cuda.synchronize()
+    kind = "bwd_" + layout
+    assert counting.since(before)["bias_relu_bn"] == {
+        "launch_count": 2, "layout_copies": 0,
+        "launch_counts": {"fwd": 1, "bwd_nhwc": int(kind == "bwd_nhwc"),
+                          "bwd_nchw": int(kind == "bwd_nchw")}}
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert gh.is_contiguous(memory_format=torch.channels_last)
+    assert _same_bits(y, BRB.composite(h, p))
+    assert _same_bits(gh, BRB.composite_input_grad(gy, h, p))
+    # the op end to end against the nets' old chain under autograd
+    xs = [h.clone().requires_grad_(True) for _ in range(2)]
+    outs = [nn.bias_relu_frozen_batchnorm(xs[0], bias, gamma, beta),
+            nn.frozen_batchnorm(nn.relu(xs[1] + bias.to(dtype)[:, None,
+                                                                None]),
+                                gamma, beta)]
+    assert _same_bits(outs[0], outs[1])
+    grads = [torch.autograd.grad(o, x, gy)[0] for o, x in zip(outs, xs)]
+    assert _same_bits(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_relu_bn_in_a_graph_equals_eager_and_counts_replays(cuda,
+                                                                 dtype):
+    """Captured and replayed, the forward and both gradient kernels give
+    the eager calls' outputs bit for bit, and each replay adds the
+    capture's counts to the counters."""
+    from audiosourcesep_tpu_torch.ops import bias_relu_bn as BRB
+    from audiosourcesep_tpu_torch.separation import graphs
+    h, bias, gamma, beta = _brb_inputs((30, 512, 24, 16), dtype)
+    gy = torch.randn(h.shape, generator=torch.Generator().manual_seed(2)
+                     ).to(dtype).cuda()
+    cache = {}
+
+    def run():
+        p = BRB.params(bias, gamma, beta, dtype, cache=cache)
+        y = BRB._forward_cuda(h, p)
+        return torch.stack([y, BRB._input_grad_cuda(gy, h, p),
+                            BRB._input_grad_cuda(gy.contiguous(
+                                memory_format=torch.channels_last), h, p)])
+
+    eager = run()
+    out = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(run())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph):
+            out.copy_(run())
+
+    before = counting.snapshot()
+    sg = graphs.StepGraph(graph, capture)
+    assert counting.snapshot() == before
+    assert sg.launches["bias_relu_bn"] == {
+        "launch_count": 3, "layout_copies": 0,
+        "launch_counts": {"fwd": 1, "bwd_nhwc": 1, "bwd_nchw": 1}}
+    for _ in range(3):
+        out.zero_()
+        sg.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, eager)
+    assert counting.since(before)["bias_relu_bn"]["launch_count"] == 9
+
+
+def test_bias_relu_bn_refuses_and_does_not_fall_back(cuda):
+    """A dtype, layout or rows the kernels do not take raise; the op
+    copies h of another layout into channels_last, and the gradient kernel
+    gy in neither NHWC nor NCHW memory, counted."""
+    from audiosourcesep_tpu_torch.ops import bias_relu_bn as BRB
+    h, bias, gamma, beta = _brb_inputs((2, 16, 4, 6), torch.float32)
+    p = BRB.params(bias, gamma, beta, torch.float32)
+    with pytest.raises(TypeError):
+        BRB._forward_cuda(h.double(), p.double())
+    with pytest.raises(TypeError):
+        nn.bias_relu_frozen_batchnorm(h.half(), bias, gamma, beta)
+    with pytest.raises(ValueError, match="channels_last"):
+        BRB._forward_cuda(h.contiguous(), p)
+    with pytest.raises(ValueError, match="rows"):
+        BRB._forward_cuda(h, p[:, :8].contiguous())
+    before = counting.snapshot()
+    got = nn.bias_relu_frozen_batchnorm(h.contiguous(), bias, gamma, beta)
+    assert counting.since(before)["bias_relu_bn"]["layout_copies"] == 1
+    assert _same_bits(got, BRB._forward_cuda(h, p))
+    gy = torch.randn(2, 6, 16, 4, device=cuda).permute(0, 2, 3, 1)
+    assert not gy.is_contiguous() and not gy.is_contiguous(
+        memory_format=torch.channels_last)
+    before = counting.snapshot()
+    gh = BRB._input_grad_cuda(gy, h, p)
+    assert counting.since(before)["bias_relu_bn"] == {
+        "launch_count": 1, "layout_copies": 1,
+        "launch_counts": {"fwd": 0, "bwd_nhwc": 1, "bwd_nchw": 0}}
+    assert _same_bits(gh, BRB.composite_input_grad(gy, h, p))
+
+
+def test_bias_relu_bn_parameter_gradients_on_the_card(cuda):
+    """Training's gradients of h, bias, gamma and beta on the card: h's
+    bit for bit the old chain's on the card, the parameters' within the
+    order of their f32 sums, and all within 1e-5 of the CPU's."""
+    shape = (4, 64, 12, 8)
+    g = torch.Generator().manual_seed(4)
+    cpu = [torch.randn(shape, generator=g).contiguous(
+        memory_format=torch.channels_last)] + [
+        torch.randn(64, generator=g) for _ in range(3)]
+    gy = torch.randn(shape, generator=g)
+    got = {}
+    for where in ("cuda", "cpu"):
+        for name, fn in (("fused", nn.bias_relu_frozen_batchnorm),
+                         ("old", lambda x, b, ga, be: nn.frozen_batchnorm(
+                             nn.relu(x + b[:, None, None]), ga, be))):
+            ps = [t.to(where).requires_grad_(True) for t in cpu]
+            got[where, name] = [t.cpu() for t in torch.autograd.grad(
+                fn(*ps), ps, gy.to(where))]
+    assert _same_bits(got["cuda", "fused"][0], got["cuda", "old"][0])
+    for a, b, c in zip(got["cuda", "fused"], got["cuda", "old"],
+                       got["cpu", "fused"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+def test_tiny_glow_score_replay_counts_four_launches_a_coupling(
+        cuda, monkeypatch):
+    """A small Glow's score (L=2, K=2, 32 filters, f32, routed) captured
+    and replayed: each coupling's net runs the fused forward twice and its
+    input gradient twice (4 launches a coupling), the replay adds them to
+    the counters, the score equals eager bit for bit, and no relu or
+    frozen_batchnorm of the old chain runs on the card."""
+    from audiosourcesep_tpu_torch.separation import graphs
+    g = torch.Generator().manual_seed(0)
+    mb = torch.rand(4, 96, 64, 1, generator=g) * 120.0 - 100.0
+    m = build_glow((96, 64, 1), minibatch=mb, generator=g, L=2, K=2,
+                   n_filters=32, learntop=True, data_type="melspec")
+    m = m.to(cuda).eval().requires_grad_(False)
+    x = (torch.rand(6, 96, 64, 1, generator=g) * 120.0 - 100.0).to(cuda)
+    couplings = 2 * 2
+    monkeypatch.setattr(nn, "relu", _no_fallback)
+    monkeypatch.setattr(nn, "frozen_batchnorm", _no_fallback)
+    try:
+        nn.set_winograd(True)
+        before = counting.snapshot()
+        eager = m.score(x)
+        launched = counting.since(before)["bias_relu_bn"]
+        out = torch.empty_like(eager)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out.copy_(m.score(x))
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph):
+                out.copy_(m.score(x))
+
+        sg = graphs.StepGraph(graph, capture)
+    finally:
+        nn.set_winograd(False)
+    assert sg.launches["bias_relu_bn"] == launched
+    assert launched["launch_count"] == 4 * couplings
+    assert launched["launch_counts"]["fwd"] == 2 * couplings
+    assert launched["layout_copies"] == 0
+    print(f"a Glow coupling's input gradients by layout: "
+          f"{launched['launch_counts']}")
+    before = counting.snapshot()
+    out.zero_()
+    sg.replay()
+    torch.cuda.synchronize()
+    assert counting.since(before)["bias_relu_bn"] == launched
+    assert torch.equal(out, eager)

@@ -272,6 +272,18 @@ CAPTURES = {
         + [{"pool": {"launch_count": 1, "launch_counts": {"avg2": 1}}}] * 4,
         3, {"pool": {"launch_count": 20, "layout_copies": 0,
                      "launch_counts": {"avg5": 16, "max5": 0, "avg2": 4}}}),
+    # a Glow coupling's two fused sites, forward and input gradient (one
+    # gradient in NHWC memory, one in NCHW memory)
+    "bias_relu_bn": (
+        [{"bias_relu_bn": {"launch_count": 1, "launch_counts": {"fwd": 1}}}]
+        * 2
+        + [{"bias_relu_bn": {"launch_count": 1,
+                             "launch_counts": {"bwd_nchw": 1}}},
+           {"bias_relu_bn": {"launch_count": 1,
+                             "launch_counts": {"bwd_nhwc": 1}}}],
+        5, {"bias_relu_bn": {"launch_count": 4, "layout_copies": 0,
+                             "launch_counts": {"fwd": 2, "bwd_nhwc": 1,
+                                               "bwd_nchw": 1}}}),
 }
 
 
@@ -324,7 +336,11 @@ def test_counters_keep_winograd_at_the_top_and_nest_the_others():
                     "instnorm": {"launch_count": 0, "layout_copies": 0},
                     "pool": {"launch_count": 0, "layout_copies": 0,
                              "launch_counts": {"avg5": 0, "max5": 0,
-                                               "avg2": 0}}}
+                                               "avg2": 0}},
+                    "bias_relu_bn": {"launch_count": 0, "layout_copies": 0,
+                                     "launch_counts": {"fwd": 0,
+                                                       "bwd_nhwc": 0,
+                                                       "bwd_nchw": 0}}}
     got["pool"]["launch_counts"]["avg5"] += 1
     assert counting.since(got)["pool"]["launch_counts"]["avg5"] == -1
     got["pool"]["launch_counts"]["avg5"] -= 1

@@ -239,7 +239,8 @@ def test_ncsn_forward_spans_count_the_calls(monkeypatch, kind):
 def test_glow_score_spans_a_forward_and_backward_per_chunk(chunk):
     """A Glow score: for each source one ``score``, and in it one
     ``score.forward`` and one ``score.backward`` a chunk of frames; the
-    flows' convs, norms and activations inside the forwards."""
+    flows' convs and norms inside the forwards, the coupling nets' relus
+    fused into their norms (two a coupling, beside its actnorm)."""
     _, record = _traced(lambda: _separate(
         glow_score_fn([_glow()], frame_chunk=chunk), GLOW_SHAPE, L=1,
         T=2))
@@ -253,8 +254,8 @@ def test_glow_score_spans_a_forward_and_backward_per_chunk(chunk):
             inside = collections.Counter(
                 c.name for c in record.spans if c.parent == f.index)
             assert inside["conv"] > 0 and inside["norm"] > 0
-    assert collections.Counter(
-        s.name for s in record.spans)["act"] == 2 * chunks * 2 * 2
+    kinds = collections.Counter(s.name for s in record.spans)
+    assert kinds["norm"] == 2 * chunks * 2 * 3 and kinds["act"] == 0
 
 
 @pytest.mark.parametrize("case", ["ncsn_eager", "ncsn_graphed",
