@@ -75,21 +75,29 @@ class FlowModel(torch.nn.Module):
     ``noise`` names the draw that :meth:`log_prob` hands the bijector
     (:meth:`draw_noise`): ``"uniform"`` on ``[0, 1)`` for uniform
     dequantisation (``ImgPreprocessing``), ``"normal"`` for Flow++'s
-    variational dequantisation.
+    variational dequantisation, ``"none"`` for a flow over continuous data
+    that reads no draw. ``traced_leaves`` are the leaf span kinds
+    (``utils.profiling``) a traced capture times inside :meth:`score`'s
+    forward.
     """
 
     def __init__(self, bijector: Bijector, prior: torch.nn.Module,
-                 noise: str = "uniform"):
+                 noise: str = "uniform", traced_leaves=()):
         super().__init__()
-        if noise not in ("uniform", "normal"):
-            raise ValueError("noise should be 'uniform' or 'normal'")
+        if noise not in ("uniform", "normal", "none"):
+            raise ValueError("noise should be 'uniform', 'normal' or "
+                             "'none'")
         self.bijector = bijector
         self.prior = prior
         self.noise = noise
+        self.traced_leaves = tuple(traced_leaves)
 
     def draw_noise(self, shape, generator: Optional[torch.Generator] = None,
-                   device=None) -> torch.Tensor:
-        """A draw of this model's ``noise`` of ``shape``."""
+                   device=None) -> Optional[torch.Tensor]:
+        """A draw of this model's ``noise`` of ``shape`` (None for
+        ``"none"``)."""
+        if self.noise == "none":
+            return None
         draw = torch.randn if self.noise == "normal" else torch.rand
         return draw(tuple(shape), generator=generator, device=device)
 
@@ -122,7 +130,7 @@ class FlowModel(torch.nn.Module):
         ``score.backward``."""
         with torch.enable_grad():
             v = x.detach().requires_grad_(True)
-            with span("score.forward"):
+            with span("score.forward", leaves=self.traced_leaves):
                 log_p = self.log_prob(v).sum()
             with span("score.backward"):
                 return torch.autograd.grad(log_p, v)[0]

@@ -7,18 +7,21 @@ NHWC, as in the JAX package: dense layers and layer norms act on the
 channels (the last axis); the 3x3 convs get an NCHW view of the NHWC
 tensor through :func:`nn.conv2d` (``channels_last`` memory, so the
 Winograd kernel takes them without a copy when routing is on). The
-attention is the JAX package's two einsums and a softmax.
+attention core is :func:`ops.attention.attention` (the JAX package's two
+einsums and a softmax, memory-linear on the card), each call a module
+span ``attn``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from .. import nn
+from ..ops.attention import attention
+from ..utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -98,11 +101,11 @@ class GatedAttn(torch.nn.Module):
         N, H, W, C = x.shape
         c = self.qkv(x + pos_emb[None]).reshape(N, H * W, 3, self.heads,
                                                 self.dim)
-        q, k, v = c.unbind(dim=2)                          # [N, T, h, d]
-        w = torch.einsum("nqhd,nkhd->nhqk", q, k) / math.sqrt(self.dim)
-        w = torch.softmax(w, dim=-1)
-        a = torch.einsum("nhqk,nkhd->nqhd", w, v).reshape(N, H, W, C)
-        return x + self.glu(a)
+        # [N, h, T, d] views of the projection
+        q, k, v = c.permute(2, 0, 3, 1, 4).unbind(dim=0)
+        with span("attn"):
+            a = attention(q, k, v)
+        return x + self.glu(a.transpose(1, 2).reshape(N, H, W, C))
 
 
 class ConvAttnBlock(torch.nn.Module):

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .core import Bijector, sum_event
 
 Tensor = torch.Tensor
@@ -102,12 +103,13 @@ class MixLogisticCDFCoupling(Bijector):
     def forward(self, x, noise=None, context: Optional[Tensor] = None):
         x1, x2 = self._split(x)
         log_s, t, logits, means, log_scales = self.net(x1, context)
-        log_cdf = mixlog_logcdf(x2, logits, means, log_scales)
-        u = torch.clamp(torch.exp(log_cdf), _CLIP_LO, _CLIP_HI)
-        y2 = _inv_sigmoid(u) * torch.exp(log_s) + t
-        # d y2 / d x2 = pdf(x2) / (u (1 - u)) * exp(log_s)
-        ld = (mixlog_logpdf(x2, logits, means, log_scales)
-              - torch.log(u) - torch.log1p(-u) + log_s)
+        with span("mixlog"):
+            log_cdf = mixlog_logcdf(x2, logits, means, log_scales)
+            u = torch.clamp(torch.exp(log_cdf), _CLIP_LO, _CLIP_HI)
+            y2 = _inv_sigmoid(u) * torch.exp(log_s) + t
+            # d y2 / d x2 = pdf(x2) / (u (1 - u)) * exp(log_s)
+            ld = (mixlog_logpdf(x2, logits, means, log_scales)
+                  - torch.log(u) - torch.log1p(-u) + log_s)
         return self._merge(x1, y2, x.shape), sum_event(ld)
 
     def inverse(self, y, context: Optional[Tensor] = None):

@@ -4,6 +4,11 @@ As in the JAX package, each coupling layer composes ActNorm, the
 invertible 1x1 conv and the mixture-of-logistics coupling, and the split
 parity alternates from layer to layer. Module names follow the JAX
 params' keys.
+
+``build_flowpp(data_type="melspec")`` is the port's own: the same
+bijector over continuous mel frames in dB, as a BASIS prior. It rescales
+as the melspec Glow does and has no dequantisation, which exists for
+discrete data.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch.nn.functional as F
 
 from ..bijectors import (ActNorm, Bijector, Chain, FlowModel,
                          ImgPreprocessing, Invertible1x1Conv,
-                         IsotropicNormalPrior, Squeeze)
+                         IsotropicNormalPrior, SpecPreprocessing, Squeeze)
 from ..bijectors.flowpp_nets import ConvAttnNet, ShallowProcessor
 from ..bijectors.mixlogcdf import MixLogisticCDFCoupling
 
@@ -111,23 +116,25 @@ class FlowppBlock(Bijector):
 
 
 class FlowppCifar10(Bijector):
-    """The Flow++ CIFAR-10 topology: logit preprocessing (``prep``) -> 4
-    checkerboard couplings (``block1``) -> squeeze -> 2 channel couplings
-    (``block2``) -> 3 checkerboard couplings (``block3``). Every stage is
-    deterministic: the variational dequantisation upstream already made
-    the input continuous, so ``noise`` is not read."""
+    """The Flow++ CIFAR-10 topology: preprocessing (``prep``: the image
+    logit, or the one given) -> 4 checkerboard couplings (``block1``) ->
+    squeeze -> 2 channel couplings (``block2``) -> 3 checkerboard couplings
+    (``block3``). Every stage is deterministic: the input is continuous
+    (dequantised upstream, or so by nature), so ``noise`` is not read."""
 
     name = "flowpp_cifar10"
 
     def __init__(self, input_shape: Sequence[int], n_components: int = 32,
                  n_blocks: int = 10, filters: int = 96, heads: int = 4,
-                 alpha: float = 0.05, device=None):
+                 alpha: float = 0.05, prep: Optional[Bijector] = None,
+                 device=None):
         super().__init__()
         H, W, C = input_shape
         squeezed = (H // 2, W // 2, 4 * C)
         cfg = dict(n_components=n_components, n_blocks=n_blocks,
                    filters=filters, heads=heads, device=device)
-        self.prep = ImgPreprocessing(alpha=alpha, use_logit=True)
+        self.prep = prep if prep is not None else ImgPreprocessing(
+            alpha=alpha, use_logit=True)
         self.block1 = FlowppBlock(input_shape, 4, "checkerboard", **cfg)
         self.squeeze = Squeeze()
         self.block2 = FlowppBlock(squeezed, 2, "channel", **cfg)
@@ -220,22 +227,40 @@ class VariationalDequant(Bijector):
 def build_flowpp(data_shape: Sequence[int], n_components: int = 32,
                  n_blocks_flow: int = 10, n_blocks_dequant: int = 2,
                  filters: int = 96, heads: int = 4,
+                 data_type: str = "image", minval: float = -100.0,
+                 maxval: float = 20.0,
                  minibatch: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  device=None) -> FlowModel:
-    """Variational dequantisation and the Flow++ CIFAR-10 bijector over an
-    isotropic prior on ``(H/2, W/2, 4C)``; the defaults are Ho et al.'s
-    CIFAR-10 configuration. The model's ``noise`` is the standard-normal
-    ``eps`` of the dequantisation. With ``minibatch`` it is initialised
-    from it and ``generator``."""
+    """The Flow++ CIFAR-10 bijector over an isotropic prior on ``(H/2,
+    W/2, 4C)``; the defaults are Ho et al.'s CIFAR-10 configuration. With
+    ``minibatch`` it is initialised from it and ``generator``.
+
+    ``data_type='image'``: variational dequantisation, then the image
+    logit; the model's ``noise`` is the dequantisation's standard-normal
+    ``eps``. Anything else: continuous data in ``[minval, maxval]`` (mel
+    dB), rescaled to ``(x - minval) / (maxval - minval) - 0.5`` with no
+    logit (``SpecPreprocessing``, as ``build_glow`` rescales a mel frame)
+    and no dequantisation (``n_blocks_dequant`` is not read): the model
+    draws no noise (``noise="none"``). Its score's traced capture times
+    each attention core and mixture (``attn``, ``mixlog``)."""
     H, W, C = data_shape
-    dequant = VariationalDequant(data_shape, n_components, n_blocks_dequant,
-                                 filters, heads, device=device)
-    flow = FlowppCifar10(data_shape, n_components, n_blocks_flow, filters,
-                         heads, device=device)
-    model = FlowModel(Chain([dequant, flow], name="flowpp"),
-                      IsotropicNormalPrior((H // 2, W // 2, 4 * C)),
-                      noise="normal")
+    prior = IsotropicNormalPrior((H // 2, W // 2, 4 * C))
+    if data_type == "image":
+        dequant = VariationalDequant(data_shape, n_components,
+                                     n_blocks_dequant, filters, heads,
+                                     device=device)
+        flow = FlowppCifar10(data_shape, n_components, n_blocks_flow,
+                             filters, heads, device=device)
+        model = FlowModel(Chain([dequant, flow], name="flowpp"), prior,
+                          noise="normal")
+    else:
+        prep = SpecPreprocessing(minval=minval, maxval=maxval,
+                                 use_logit=False)
+        flow = FlowppCifar10(data_shape, n_components, n_blocks_flow,
+                             filters, heads, prep=prep, device=device)
+        model = FlowModel(Chain([flow], name="flowpp"), prior,
+                          noise="none", traced_leaves=("attn", "mixlog"))
     if minibatch is not None:
         model.init(minibatch, generator)
     return model

@@ -40,6 +40,9 @@ COUNTS = {
                      "launch_counts": {"fwd": 0, "bwd_nhwc": 0,
                                        "bwd_nchw": 0},
                      "layout_copies": 0},
+    # ops.attention: the Flow++ nets' attention calls, in all and by
+    # (N, heads, T, d); a shape's key is made at its first call
+    "attn": {"launch_count": 0, "shapes": {}},
 }
 
 
@@ -50,9 +53,10 @@ def snapshot(counts: dict = COUNTS) -> dict:
 
 
 def since(before: dict, counts: dict = COUNTS) -> dict:
-    """The counts since :func:`snapshot` gave ``before``, in its layout."""
-    return {k: since(before[k], n) if isinstance(n, dict) else n - before[k]
-            for k, n in counts.items()}
+    """The counts since :func:`snapshot` gave ``before``, in its layout (a
+    key made since counts from 0)."""
+    return {k: since(before.get(k, {}), n) if isinstance(n, dict)
+            else n - before.get(k, 0) for k, n in counts.items()}
 
 
 def add(launches: dict, times: int = 1, into: dict = COUNTS) -> None:

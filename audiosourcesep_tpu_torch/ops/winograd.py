@@ -27,7 +27,9 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
   kernel or raises. There is no fallback between the two.
 * Gradients: a ``torch.autograd.Function`` whose backward is the plain
   conv VJP (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``), as the
-  JAX custom VJP uses the XLA conv VJP; there is no backward kernel.
+  JAX custom VJP uses the XLA conv VJP; there is no backward kernel. A
+  float32 backward runs cuDNN with TF32 off, in full float32 as the
+  forward kernel computes (PyTorch allows TF32 in cuDNN by default).
 * A launch goes through ``kernels.build.launch`` and is counted in
   ``ops.counting``'s top level: ``launch_count`` counts kernel launches
   (and nothing else), ``launch_counts`` splits it by kernel name, and
@@ -44,6 +46,7 @@ Public layout is the JAX package's: NHWC activations, HWIO kernels.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -417,6 +420,19 @@ def _forward(x: torch.Tensor, kernel: torch.Tensor,
                      f"{x.device}")
 
 
+@contextlib.contextmanager
+def _cudnn_full_f32(dtype: torch.dtype):
+    """cuDNN's float32 convs in full float32 (no TF32) for the block if
+    ``dtype`` is float32; the caller's choice is restored afterwards."""
+    was = torch.backends.cudnn.allow_tf32
+    if dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
 class _WinogradConv2d(torch.autograd.Function):
     """Forward: the kernel (CUDA) or its plain version (CPU), at
     dilation d. Backward: the plain (dilated) conv VJP, as in the JAX
@@ -436,14 +452,15 @@ class _WinogradConv2d(torch.autograd.Function):
         xn = x.permute(0, 3, 1, 2)
         g = gy.permute(0, 3, 1, 2).to(x.dtype)
         gx = gk = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.nn.grad.conv2d_input(xn.shape, w, g, padding=d,
-                                            dilation=d)
-            gx = gx.permute(0, 2, 3, 1)
-        if ctx.needs_input_grad[1]:
-            gk = torch.nn.grad.conv2d_weight(xn, w.shape, g, padding=d,
-                                             dilation=d)
-            gk = gk.permute(2, 3, 1, 0).to(kernel.dtype)
+        with _cudnn_full_f32(x.dtype):
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(xn.shape, w, g, padding=d,
+                                                dilation=d)
+                gx = gx.permute(0, 2, 3, 1)
+            if ctx.needs_input_grad[1]:
+                gk = torch.nn.grad.conv2d_weight(xn, w.shape, g, padding=d,
+                                                 dilation=d)
+                gk = gk.permute(2, 3, 1, 0).to(kernel.dtype)
         return gx, gk, None, None
 
 

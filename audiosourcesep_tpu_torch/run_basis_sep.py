@@ -1,4 +1,4 @@
-"""BASIS source separation with two NCSN or two Glow priors, on PyTorch.
+"""BASIS source separation with two NCSN, Glow or Flow++ priors, on PyTorch.
 
 Port of the repository's ``run_basis_sep.py``: the same positional
 ``RESTORE1 RESTORE2`` (JAX-format flat-npz checkpoints or directories of
@@ -23,7 +23,11 @@ NCSN priors separate the mixture rescaled to ``[0, 1]``; Glow priors,
 trained on data-scale inputs, separate it in data scale (uniform init
 over ``[minval, maxval]``, outputs only clipped), with the score
 ``grad_x log p(x)`` taken through each level's flow, ``--score_chunk``
-frames at a time.
+frames at a time. ``--model_type flowpp`` (the port's own) does the same
+with a melspec Flow++ flow a noise level (``models.build_flowpp(...,
+data_type="melspec")``: ``--n_filters``, ``--n_blocks``,
+``--n_components``, ``--heads``), restored from the Glow chain's
+``sigma_{s}/ckpts`` layout of flat-npz checkpoints.
 
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
 
@@ -61,7 +65,7 @@ from .cli import (apply_config_override, describe_multihost, multihost,
                   setup_output_dir)
 from .parallel import is_main_process, make_layout, world_size
 from .data import get_mixture_toydata, get_song_extract, write_wav
-from .models import build_glow
+from .models import build_flowpp, build_glow
 from .models.ncsn import get_score_model, get_sigmas
 from .ops.inversion import mel_to_audio
 from .ops.mel import db_to_power
@@ -99,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="invert the separated sources to sep1.wav and "
                              "sep2.wav (NNLS + Griffin-Lim)")
     parser.add_argument("--model_type", type=str, default="ncsn",
-                        help="ncsn or glow")
+                        help="ncsn, glow or flowpp")
     parser.add_argument("--version", type=str, default="v1")
     parser.add_argument("--ema", action="store_true",
                         help="restore the EMA weights of the priors")
@@ -148,6 +152,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--K", type=int, default=32)
     parser.add_argument("--l2_reg", type=float, default=None)
     parser.add_argument("--learntop", action="store_true")
+    # Flow++ priors (--model_type flowpp; --n_filters is their width)
+    parser.add_argument("--n_blocks", type=int, default=10,
+                        help="Flow++: conv-attention blocks a coupling net")
+    parser.add_argument("--n_components", type=int, default=32,
+                        help="Flow++: logistics in a coupling's mixture")
+    parser.add_argument("--heads", type=int, default=4,
+                        help="Flow++: attention heads")
     # optimization (unused at separation time; kept for config compat)
     parser.add_argument("--optimizer", type=str, default="adamax")
     parser.add_argument("--batch_size", type=int, default=256)
@@ -181,16 +192,27 @@ def _restore_ncsn_models(args, data_shape, sigmas, device, sources):
 
 def _restore_glow(root, sigma, args, data_shape, data_type, minval, maxval,
                   alpha, device):
-    """The Glow prior of noise level ``sigma``, built on ``meta`` and
-    loaded strictly from the newest checkpoint in
-    ``root/sigma_{round(sigma, 2)}/ckpts``; its parameters take no
-    gradient (the score differentiates with respect to the input only)."""
+    """The Glow (or, with ``--model_type flowpp``, melspec Flow++) prior of
+    noise level ``sigma``, built on ``meta`` and loaded strictly from the
+    newest checkpoint in ``root/sigma_{round(sigma, 2)}/ckpts``; its
+    parameters take no gradient (the score differentiates with respect to
+    the input only)."""
     path = os.path.join(root, f"sigma_{round(float(sigma), 2)}", "ckpts")
-    model = build_glow(data_shape, L=args.L, K=args.K,
-                       n_filters=args.n_filters, learntop=args.learntop,
-                       data_type=data_type, use_logit=args.use_logit,
-                       alpha=alpha, minval=minval, maxval=maxval,
-                       device="meta")
+    if args.model_type == "flowpp":
+        if data_type != "melspec":
+            raise ValueError("--model_type flowpp separates mel frames "
+                             "(--dataset melspec)")
+        model = build_flowpp(data_shape, n_components=args.n_components,
+                             n_blocks_flow=args.n_blocks,
+                             filters=args.n_filters, heads=args.heads,
+                             data_type=data_type, minval=minval,
+                             maxval=maxval, device="meta")
+    else:
+        model = build_glow(data_shape, L=args.L, K=args.K,
+                           n_filters=args.n_filters, learntop=args.learntop,
+                           data_type=data_type, use_logit=args.use_logit,
+                           alpha=alpha, minval=minval, maxval=maxval,
+                           device="meta")
     sd = restore_ncsn_params(path, model.state_dict())
     model = model.to_empty(device=device)
     model.load_state_dict(sd)
@@ -219,10 +241,10 @@ def run(args: argparse.Namespace, device: torch.device) -> None:
             raise ValueError("scale should be 'power' or 'dB'")
     alpha = args.alpha or 1e-6
     out_dir = args.output
-    # Glow priors are trained on data-scale patches (their preprocessing
-    # bijector rescales inside the flow), so they separate in data scale;
-    # NCSN priors on [0,1]-rescaled ones
-    model_scale = args.model_type == "glow"
+    # flow priors (Glow, Flow++) are trained on data-scale patches (their
+    # preprocessing bijector rescales inside the flow), so they separate in
+    # data scale; NCSN priors on [0,1]-rescaled ones
+    model_scale = args.model_type in ("glow", "flowpp")
 
     # ---------------- data -------------------------------------------------
     t0 = time.time()

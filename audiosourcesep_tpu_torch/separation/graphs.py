@@ -36,8 +36,16 @@ so one step's working memory is held at a time and no cache is emptied
 between levels. (``torch.cuda.graph``'s entry empties the allocator's
 caches at every capture, so that each level allocated its memory anew, in
 host time that swung from level to level; and blocks are cached per
-stream, so a new side stream a level, or an anneal, would leave the
-blocks of the earlier ones cached and unused.)
+stream, so a new side stream a level would leave the blocks of the
+earlier ones cached and unused.) That holds a step's working
+memory twice, once cached by the warm-up and once in the graph's pool. So
+an anneal empties the cache once, before its first warm-up, and the blocks
+that warm-up leaves cached are then its step's working memory. Where the
+card's free memory is under that plus a tenth of the card (the
+allocator's rounding: a Flow++ score over 30 frames keeps ~43 GB), the
+anneal runs tight: each level frees the last graph before its warm-up and
+empties the allocator's cache after it, so that the capture, which
+cannot free cached blocks itself, finds the memory on the card.
 
 The eager path (the CPU, or ``graphed=False``) runs the same body on the
 same buffers, drawing or copying the noise before each step: the two
@@ -179,9 +187,8 @@ def use_graphs(graphed: Optional[bool], device, ranks: int = 1) -> bool:
 @functools.lru_cache(maxsize=None)
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
     """The side stream of every anneal's warm-ups and captures on
-    ``device``, one for the process, so that an anneal reuses the blocks
-    that the earlier ones cached on it. Anneals on one device run one
-    after another."""
+    ``device``, one for the process. Anneals on one device run one after
+    another."""
     return torch.cuda.Stream(device=device)
 
 
@@ -197,15 +204,30 @@ class LevelGraph:
         self.generator = generator
         self.graph = None
         self.side = _side_stream(self.device)
+        # whether a step's working memory does not fit on the card twice:
+        # decided at the first warm-up
+        self.tight = None
 
     def warm_up(self, fn: Callable[[], None]) -> None:
-        """``fn()`` on the side stream, then a wait for the card."""
+        """``fn()`` on the side stream, then a wait for the card. The
+        first empties the cache before; tight, each frees the last graph
+        first and empties the cache after."""
+        if self.tight is not False:
+            self.graph = None
+            torch.cuda.empty_cache()
         current = torch.cuda.current_stream(self.device)
         self.side.wait_stream(current)
         with torch.cuda.stream(self.side):
             fn()
         current.wait_stream(self.side)
         torch.cuda.synchronize(self.device)
+        if self.tight is None:
+            cached = torch.cuda.memory_reserved(self.device) \
+                - torch.cuda.memory_allocated(self.device)
+            free, total = torch.cuda.mem_get_info(self.device)
+            self.tight = free < cached + total // 10
+        if self.tight:
+            torch.cuda.empty_cache()
 
     def capture(self, fn: Callable[[], None], begun: Callable[[], None],
                 ended: Callable[[], None]) -> None:

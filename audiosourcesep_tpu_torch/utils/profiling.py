@@ -11,7 +11,9 @@ its own spans in it (``anneal.warmup``, ``anneal.capture``, ...) whenever a
 Module spans (:func:`span`, :func:`spanned`) mark blocks of the score nets
 and of the BASIS step: ``score``, ``score.forward``, ``score.backward``,
 ``basis.update`` and ``anneal.noise``, and the leaves (``LEAVES``):
-``conv``, ``conv.weights``, ``norm``, ``act``, ``pool``, ``resize``. They
+``conv``, ``conv.weights``, ``norm``, ``act``, ``pool``, ``resize``, and
+Flow++'s ``attn`` (an attention core) and ``mixlog`` (a coupling's
+mixture CDF and density). They
 are recorded only inside :func:`tracing`, which the anneal enters for a
 level whose warm-up and capture (or, eager, whose first step) start while
 a ``torch.profiler`` profile runs (:func:`profiler_running`): :func:`trace`
@@ -28,7 +30,8 @@ H100, and every span the capture's Python makes lands in the traced
 level's capture time. So the anneal traces a graphed level's capture with
 no leaves, and not its warm-up step: the captured step holds the outer
 spans, and the convs of a RefineNet forward, which asks for them (150 a
-step of two sources). An eager level's first step spans every leaf; inside
+step of two sources), as a Flow++ prior asks for its ``attn`` and
+``mixlog`` (198 a step). An eager level's first step spans every leaf; inside
 an :func:`every_leaf` block, a diagnostic, so do a graphed level's warm-up
 and capture.
 
@@ -74,7 +77,7 @@ def profiler_running() -> bool:
 
 
 LEAVES = frozenset(("conv", "conv.weights", "norm", "act", "pool",
-                    "resize"))
+                    "resize", "attn", "mixlog"))
 
 _EVERY_LEAF: contextvars.ContextVar = contextvars.ContextVar(
     "every_leaf", default=False)

@@ -489,6 +489,89 @@ def test_glow_cli_chain_outputs(glow_chain):
     assert log.count("Model at noise level") == 4 and "Duration:" in log
 
 
+# ---------------------------------------------------------------------------
+# Flow++: run_basis_sep --model_type flowpp on tiny random melspec priors
+# ---------------------------------------------------------------------------
+
+FLOWPP_TINY = ["--n_filters", "8", "--n_blocks", "1", "--n_components",
+               "2", "--heads", "2", "--device", "cpu"]
+
+
+def _flowpp_chain(root, seed):
+    """A noise-level chain of tiny random melspec Flow++ priors in the
+    Glow chain's layout (``sigma_{s}/ckpts``, flat-npz checkpoints); the
+    checkpoints' params, by level."""
+    from audiosourcesep_tpu_torch.models import build_flowpp
+    from audiosourcesep_tpu_torch.training import CheckpointManager as M
+    from audiosourcesep_tpu_torch.training.checkpoint import params_to_jax
+    saved = {}
+    for i, sigma in enumerate(("1.0", "0.1")):
+        g = torch.Generator().manual_seed(seed + i)
+        mb = torch.rand(4, 96, 64, 1, generator=g) * 120.0 - 100.0
+        m = build_flowpp((96, 64, 1), n_components=2, n_blocks_flow=1,
+                         filters=8, heads=2, data_type="melspec",
+                         minibatch=mb, generator=g)
+        params = params_to_jax(dict(m.named_parameters()))
+        M(os.path.join(root, f"sigma_{sigma}", "ckpts")).save(
+            {"params": params}, 3)
+        saved[sigma] = dict(m.named_parameters())
+    return saved
+
+
+def test_flowpp_cli_separates_with_restored_priors(tmp_path, song_dir,
+                                                   monkeypatch):
+    """``--model_type flowpp`` restores each level's melspec Flow++ of
+    each source strictly from its checkpoint (the weights equal what was
+    saved) and separates in data scale, graphed off on the CPU."""
+    from audiosourcesep_tpu_torch.models import flowpp as flowpp_mod
+    chains = [str(tmp_path / n) for n in ("p1", "p2")]
+    saved = [_flowpp_chain(c, s) for c, s in zip(chains, (0, 10))]
+    built = []
+    real = flowpp_mod.build_flowpp
+
+    def building(*args, **kwargs):
+        built.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(run_basis_sep, "build_flowpp", building)
+    restored = []
+    real_restore = run_basis_sep._restore_glow
+
+    def restore(root, sigma, *args):
+        model = real_restore(root, sigma, *args)
+        restored.append((root, round(float(sigma), 2), model))
+        return model
+
+    monkeypatch.setattr(run_basis_sep, "_restore_glow", restore)
+    out = str(tmp_path / "sep")
+    run_basis_sep.main([*chains, "--output", out, "--song_dir", song_dir,
+                        "--model_type", "flowpp", "--n_mixed", "2", "--T",
+                        "2", "--winograd", "--score_chunk", "1",
+                        *GLOW_SIGMAS, *FLOWPP_TINY])
+    assert len(built) == 4 and all(
+        k["data_type"] == "melspec" and k["filters"] == 8
+        and k["n_blocks_flow"] == 1 and k["n_components"] == 2
+        and k["heads"] == 2 for k in built)
+    assert len(restored) == 4
+    for root, sigma, model in restored:
+        want = saved[chains.index(root)][str(sigma)]
+        got = dict(model.named_parameters())
+        assert set(got) == set(want)
+        for name, t in got.items():
+            assert torch.equal(t, want[name]), name
+            assert not t.requires_grad
+    res = np.load(os.path.join(out, "results.npz"))
+    for key in ("x1", "x2", "mixed"):
+        assert res[key].shape == (2, 96, 64) and np.isfinite(res[key]).all()
+        assert res[key].min() >= -100.0 and res[key].max() <= 20.0
+    assert res["mixed"].min() < -1.0            # data scale
+    conv = np.load(os.path.join(out, "results_convergence.npz"))
+    assert conv["x1"].shape[:2] == (3, 2)
+    with open(os.path.join(out, "out.log")) as f:
+        log = f.read()
+    assert log.count("Model at noise level") == 4 and "Duration:" in log
+
+
 def latest_step(ckpt_dir):
     from audiosourcesep_tpu_torch.training import CheckpointManager as M
     return load_flat(M(ckpt_dir).latest())[1]

@@ -5,6 +5,7 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import collections
 import contextlib
 
 import pytest
@@ -2087,3 +2088,375 @@ def test_tiny_glow_score_replay_counts_four_launches_a_coupling(
     torch.cuda.synchronize()
     assert counting.since(before)["bias_relu_bn"] == launched
     assert torch.equal(out, eager)
+
+
+# ---------------------------------------------------------------------------
+# Flow++ priors over mel frames (the cell sep-flowpp-f32-5f's widths: 96
+# filters, 10 blocks, 4 heads, 32 components; attention on PyTorch's
+# memory-efficient kernels, ops.attention)
+# ---------------------------------------------------------------------------
+
+FLOWPP_SHAPE = (96, 64, 1)
+# the memory-efficient attention's backward sums its partial products in no
+# fixed order (its gradient of q differs from run to run), and the mixture
+# CDFs near their clip amplify that in a few elements of the score: a
+# graphed anneal and an eager one, or two eager ones, agree over two steps
+# of eta 0.2 to a few float32 steps of x (1.5e-5 to 2.7e-5 dB measured on
+# an H100, 2^-17 dB a step at 64), not bit for bit; 1e-3 dB leaves them
+# room, while a step captured wrong moves x by tenths of a dB
+FLOWPP_X_TOL_DB = 1e-3
+
+
+def _flowpp_cell_models(cuda, levels=1, sources=2, seed=2 ** 31 + 17):
+    """The cell's priors as the benchmark builds them (the configuration
+    file's widths and weights, drawn from ``seed``): ``(score_fn, cfg)``
+    over ``levels`` levels."""
+    from portbench import spec
+    from portbench.arch import flowpp as arch
+    cell = spec.cell("sep-flowpp-f32-5f")
+    traffic = dict(cell.traffic, sources=sources)
+    sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")[:levels]
+    return arch.build(cell.config, traffic, sigmas, seed, cuda), \
+        cell.config, traffic
+
+
+def test_graphed_flowpp_level_equals_eager_at_the_cells_widths(cuda):
+    """Two Flow++ priors at the cell's widths on 4 frames, f32, routed:
+    BASIS over the schedule's first and last levels (eta 0.2 and 2e-5),
+    graphed, equals the eager loop within FLOWPP_X_TOL_DB (the eager loop
+    against itself too), with an eager step's launches a replay,
+    attention calls included."""
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level)
+    T, N = 2, 4
+    score_fn, cfg, _ = _flowpp_cell_models(cuda, levels=2)
+    sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")[[0, -1]]
+    g = torch.Generator().manual_seed(3)
+    mixed = (-40.0 + 20.0 * torch.randn((N, *FLOWPP_SHAPE),
+                                        generator=g)).to(cuda)
+    x0 = (torch.rand((2, N, *FLOWPP_SHAPE), generator=g) * 120.0
+          - 100.0).to(cuda)
+    bcfg = BasisConfig(T=T, delta=2e-5, data_type="melspec", scale="dB")
+
+    def run(graphed):
+        return basis_separate_per_level(
+            score_fn, mixed, x0, sigmas,
+            torch.Generator(device=cuda).manual_seed(5), bcfg,
+            graphed=graphed)[0]
+
+    x, x_e = _graphed_and_eager(cuda, run, T)
+    try:
+        nn.set_winograd(True)
+        x_e2 = run(False)
+    finally:
+        nn.set_winograd(False)
+    print(f"Flow++ levels, graphed vs eager: max |dx| "
+          f"{(x - x_e).abs().max().item():.3e} dB; eager vs eager "
+          f"{(x_e2 - x_e).abs().max().item():.3e} dB; moved "
+          f"{(x - x0).abs().max().item():.3e} dB")
+    assert torch.isfinite(x).all() and (x - x0).abs().max() > 0.1
+    assert (x - x_e).abs().max().item() <= FLOWPP_X_TOL_DB
+    assert (x_e2 - x_e).abs().max().item() <= FLOWPP_X_TOL_DB
+
+
+def test_flowpp_score_on_the_card_is_within_f32_of_the_plain_reference(cuda):
+    """The cell's two priors' scores on 4 frames on the card (routed, the
+    memory-efficient attention, cuDNN left to allow TF32 as PyTorch does
+    by default and the benchmark leaves it: the routed convs' float32
+    input gradient turns it off itself) against the benchmark's plain
+    float32 reference on the same weights, TF32 off: on average
+    within a tenth of the reference's own distance in TF32, and nearer at
+    its largest too (a few elements near a mixture CDF's clip amplify any
+    rounding, so the largest differences are read, not bounded)."""
+    from portbench.arch import flowpp as arch
+    from portbench.reference.precision import Precision
+    score_fn, cfg, traffic = _flowpp_cell_models(cuda)
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand((2, 4, *FLOWPP_SHAPE), generator=g) * 120.0
+         - 100.0).to(cuda)
+    try:
+        nn.set_winograd(True)
+        torch.backends.cudnn.allow_tf32 = True
+        got = score_fn(x, torch.zeros(4, dtype=torch.long, device=cuda), 0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        nn.set_winograd(False)
+    del score_fn
+    cache = {}
+    with Precision("f32").flags():
+        want = arch.reference_scores(cfg, traffic, 2 ** 31 + 17, 0, cuda,
+                                     Precision("f32"), cache)(x)
+    prec = Precision("tf32")
+    with prec.flags():
+        low = arch.reference_scores(cfg, traffic, 2 ** 31 + 17, 0, cuda,
+                                    prec, cache)(x)
+    def dist(a):
+        d = (a - want).abs()
+        return (d.max() / want.abs().max()).item(), \
+            (d.mean() / want.abs().mean()).item()
+
+    (top, mean), (top_tf32, mean_tf32) = dist(got), dist(low)
+    print(f"Flow++ score vs the f32 reference: largest {top:.3e}, mean "
+          f"{mean:.3e} (of the reference's); the TF32 reference {top_tf32:.3e},"
+          f" {mean_tf32:.3e}")
+    assert torch.isfinite(got).all()
+    assert mean <= 0.1 * mean_tf32 and top < top_tf32
+
+
+def test_flowpp_attention_keeps_no_probabilities(cuda):
+    """One Flow++ score on 5 frames at the cell's widths: its attention
+    runs on the memory-efficient kernels forward and backward (the
+    profiler's rows), and the score's peak memory above its inputs and
+    weights (~7 GB of activations kept for the backward) stays under
+    12 GiB, where the 40 first-stage layers' ``[5, 4, 3072, 3072]``
+    float32 probabilities alone would take 30 GB; every call counted by
+    shape."""
+    from torch.profiler import ProfilerActivity, profile
+    score_fn, _, _ = _flowpp_cell_models(cuda, sources=1)
+    g = torch.Generator().manual_seed(5)
+    x = (torch.rand((1, 5, *FLOWPP_SHAPE), generator=g) * 120.0
+         - 100.0).to(cuda)
+    y = torch.zeros(5, dtype=torch.long, device=cuda)
+    try:
+        nn.set_winograd(True)
+        score_fn(x, y, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = counting.snapshot()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            s = score_fn(x, y, 0)
+            torch.cuda.synchronize()
+        launched = counting.since(before)["attn"]
+    finally:
+        nn.set_winograd(False)
+    extra = torch.cuda.max_memory_allocated() - base
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    fwd = sum("fmha_cutlassF" in n for n in names)
+    bwd = sum("fmha_cutlassB" in n for n in names)
+    print(f"Flow++ score, 5 frames: peak {extra / 2 ** 30:.2f} GiB above "
+          f"its inputs and weights; attention kernels {fwd} forward, "
+          f"{bwd} backward")
+    assert torch.isfinite(s).all()
+    assert fwd == bwd == 90
+    assert extra < 12 * 2 ** 30
+    assert launched["launch_count"] == 90
+    assert {k: n for k, n in launched["shapes"].items() if n} == {
+        (5, 4, 3072, 24): 40, (5, 4, 1536, 24): 20, (5, 4, 768, 24): 30}
+
+
+def test_attention_on_the_card_takes_no_silent_math_backend(cuda):
+    """``ops.attention`` on the card: float32 with d a multiple of 4 runs
+    the memory-efficient backend, which at T = 2,048 allocates a small
+    share of the ``[N, h, T, T]`` float32 weights (134 MB) that the math
+    backend would hold, and equals a float64 attention (the math backend)
+    to 1e-5; float32 with d = 25, which the memory-efficient backend
+    cannot take, raises rather than fall back."""
+    from audiosourcesep_tpu_torch.ops import attention
+    n, h, t = 2, 4, 2048
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((n, h, t, 24), device=cuda, generator=g)
+               for _ in range(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = attention.attention(q, k, v)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    weights = n * h * t * t * 4
+    print(f"attention, T={t}: {extra / 2 ** 20:.2f} MiB allocated; the "
+          f"weights would take {weights / 2 ** 20:.0f} MiB")
+    assert extra < weights // 8
+    want = attention.attention(q.double(), k.double(), v.double())
+    assert (got.double() - want).abs().max().item() <= 1e-5
+    q, k, v = (torch.randn((2, 4, 256, 25), device=cuda, generator=g)
+               for _ in range(3))
+    with pytest.raises(RuntimeError):
+        attention.attention(q, k, v)
+
+
+def test_flowpp_capture_records_attn_and_mixlog_pairs(cuda):
+    """A traced graphed level of two Flow++ priors (1 frame, the cell's
+    widths): the capture spans each attention core (``attn``, 90 a
+    source) and each coupling's mixture (``mixlog``, 9 a source) with an
+    event pair inside ``score.forward``, every pair timed by the last
+    replay; the replay's attention calls counted by shape."""
+    from torch.profiler import ProfilerActivity, profile
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     graphs)
+    score_fn, _, _ = _flowpp_cell_models(cuda, levels=2)
+    g = torch.Generator().manual_seed(6)
+    mixed = (-40.0 + 20.0 * torch.randn((1, *FLOWPP_SHAPE),
+                                        generator=g)).to(cuda)
+    x0 = (torch.rand((2, 1, *FLOWPP_SHAPE), generator=g) * 120.0
+          - 100.0).to(cuda)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        nn.set_winograd(True)
+        prof.start()
+        with graphs.recording() as record:
+            basis_separate_per_level(
+                score_fn, mixed, x0, get_sigmas(1.0, 0.01, 10,
+                                                "logarithmic")[:2],
+                torch.Generator(device=cuda).manual_seed(5),
+                BasisConfig(T=2, delta=2e-5), graphed=True)
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+        nn.set_winograd(False)
+    assert record.traced == [0, 1]
+    for level in (0, 1):
+        spans = [s for s in record.spans if s.level == level
+                 and s.phase == "capture" and s.device_ms is not None]
+        kinds = collections.Counter(s.name for s in spans)
+        assert kinds["attn"] == 180 and kinds["mixlog"] == 18, kinds
+        assert kinds["score.forward"] == 2 and kinds["conv"] == 0
+        for s in spans:
+            if s.name in ("attn", "mixlog"):
+                assert record.spans[s.parent].name == "score.forward"
+                assert s.device_ms > 0
+        attn = record.captures[level].launches["attn"]
+        assert attn["launch_count"] == 180
+        assert {k: n for k, n in attn["shapes"].items() if n} == {
+            (1, 4, 3072, 24): 80, (1, 4, 1536, 24): 40,
+            (1, 4, 768, 24): 60}
+
+
+def test_graphed_flowpp_anneal_runs_tight_and_equals_eager(cuda,
+                                                          monkeypatch):
+    """An anneal that sees too little free memory for a step twice (the
+    card's free memory read as none, as at the product's 30 frames, where
+    a step keeps ~43 GB) runs tight: each level's graph is freed before
+    the next warm-up, the cache emptied around it, and every capture takes
+    a new pool. The cell's two Flow++ priors, 4 frames, the schedule's
+    first and last levels, T=2: graphed tight equals the eager loop within
+    FLOWPP_X_TOL_DB."""
+    from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                     basis_separate_per_level,
+                                                     graphs)
+    T, N = 2, 4
+    score_fn, _, _ = _flowpp_cell_models(cuda, levels=2)
+    sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")[[0, -1]]
+    g = torch.Generator().manual_seed(8)
+    mixed = (-40.0 + 20.0 * torch.randn((N, *FLOWPP_SHAPE),
+                                        generator=g)).to(cuda)
+    x0 = (torch.rand((2, N, *FLOWPP_SHAPE), generator=g) * 120.0
+          - 100.0).to(cuda)
+    made, emptied = [], []
+    real, empty = graphs.LevelGraph, torch.cuda.empty_cache
+
+    class Seen(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    def run(graphed):
+        return basis_separate_per_level(
+            score_fn, mixed, x0, sigmas,
+            torch.Generator(device=cuda).manual_seed(5),
+            BasisConfig(T=T, delta=2e-5, collect_trajectory=False),
+            graphed=graphed)[0]
+
+    total = torch.cuda.mem_get_info(cuda)[1]
+    monkeypatch.setattr(graphs, "LevelGraph", Seen)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (0, total))
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: emptied.append(1) or empty())
+    try:
+        nn.set_winograd(True)
+        x = run(True)
+        monkeypatch.setattr(torch.cuda, "empty_cache", empty)
+        x_e = run(False)
+        torch.cuda.synchronize()
+    finally:
+        nn.set_winograd(False)
+    print(f"Flow++ tight anneal vs eager: max |dx| "
+          f"{(x - x_e).abs().max().item():.3e} dB")
+    assert len(made) == 1 and made[0].tight is True
+    assert len(emptied) == 4            # around each level's warm-up
+    assert torch.isfinite(x).all() and (x - x0).abs().max() > 0.1
+    assert (x - x_e).abs().max().item() <= FLOWPP_X_TOL_DB
+
+
+# one graphed anneal of the cell's priors over the product's 30 frames in a
+# process of its own; prints a JSON line of what it saw
+_FLOWPP_30_FRAMES = r"""
+import json, sys
+import torch
+sys.path.insert(0, ".")
+from audiosourcesep_tpu_torch import nn
+from audiosourcesep_tpu_torch.models.ncsn import get_sigmas
+from audiosourcesep_tpu_torch.separation import (BasisConfig,
+                                                 basis_separate_per_level,
+                                                 graphs)
+from portbench import spec
+from portbench.arch import flowpp as arch
+
+dev, N = torch.device("cuda"), 30
+seen = {}
+
+
+class Seen(graphs.LevelGraph):
+    def warm_up(self, fn):
+        def run():
+            fn()
+            torch.cuda.synchronize(dev)
+            seen.setdefault("warm_up_cached", torch.cuda.memory_reserved(dev)
+                            - torch.cuda.memory_allocated(dev))
+        super().warm_up(run)
+        seen.setdefault("tight", self.tight)
+
+    def capture(self, fn, begun, ended):
+        before = torch.cuda.memory_reserved(dev)
+        super().capture(fn, begun, ended)
+        seen.setdefault("pool", torch.cuda.memory_reserved(dev) - before)
+
+
+graphs.LevelGraph = Seen
+cell = spec.cell("sep-flowpp-f32-5f")
+traffic = dict(cell.traffic, frames=N, frame_chunk=0)
+sigmas = get_sigmas(1.0, 0.01, 10, "logarithmic")[:2]
+nn.set_winograd(True)
+score_fn = arch.build(cell.config, traffic, sigmas, 11, dev)
+g = torch.Generator(device=dev).manual_seed(1)
+mixed = (torch.randn((N, 96, 64, 1), device=dev, generator=g) * 0.2
+         + 0.5) * 120 - 100
+x0 = torch.rand((2, N, 96, 64, 1), device=dev, generator=g) * 120 - 100
+x, _ = basis_separate_per_level(
+    score_fn, mixed, x0, sigmas, g,
+    BasisConfig(T=2, delta=2e-5, collect_trajectory=False), graphed=True)
+torch.cuda.synchronize(dev)
+seen.update(finite=bool(torch.isfinite(x).all()),
+            peak=torch.cuda.max_memory_allocated(dev),
+            total=torch.cuda.mem_get_info(dev)[1])
+print(json.dumps(seen))
+"""
+
+
+def test_graphed_flowpp_level_at_30_frames_runs_tight(cuda):
+    """The cell's two Flow++ priors over the product's 30 frames
+    (frame_chunk 0), graphed, two levels of T=2, in a fresh process (the
+    memory earlier tests leave cached or alive is not the anneal's to
+    free): a step's working memory (~43 GB) does not fit twice, so the
+    anneal runs tight, and it completes with a finite x. The capture's
+    pool is read against the first warm-up's cached blocks: it must fit
+    in them plus the tenth of the card the tight rule leaves."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    done = subprocess.run([sys.executable, "-c", _FLOWPP_30_FRAMES],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    assert done.returncode == 0, done.stderr[-4000:]
+    seen = json.loads(done.stdout.strip().splitlines()[-1])
+    gb = 1e9
+    print(f"Flow++ 30 frames, graphed: tight {seen['tight']}; first "
+          f"warm-up cached {seen['warm_up_cached'] / gb:.2f} GB, first "
+          f"capture's pool {seen['pool'] / gb:.2f} GB, peak "
+          f"{seen['peak'] / gb:.2f} GB of {seen['total'] / gb:.2f}")
+    assert seen["finite"] and seen["tight"] is True
+    assert seen["pool"] <= seen["warm_up_cached"] + seen["total"] // 10

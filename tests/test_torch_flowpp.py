@@ -460,3 +460,104 @@ def test_flowpp_train_steps_match_jax(pair, tmp_path):
     # without a draw the step takes a normal one from its generator
     _, loss = step(state, _t(x), torch.Generator().manual_seed(0))
     assert np.isfinite(float(loss))
+
+
+# ---------------------------------------------------------------------------
+# the attention core and the melspec Flow++ (the port's own)
+# ---------------------------------------------------------------------------
+
+def test_gated_attn_core_is_sdpa_and_matches_the_jax_einsums(monkeypatch):
+    """``GatedAttn``'s core is one ``F.scaled_dot_product_attention`` call
+    of ``[N, heads, T, d]`` views (``ops.attention``), inside an ``attn``
+    span; at 4 heads over 48 positions it matches the JAX package's two
+    einsums and softmax, alone and inside ``ConvAttnBlock``."""
+    from audiosourcesep_tpu_torch.ops import attention as attn_op
+    seen = []
+    real = attn_op.F.scaled_dot_product_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), kw))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(attn_op.F, "scaled_dot_product_attention", spy)
+    x = _rand(20, (3, 6, 8, 16))
+    pos = _rand(21, (6, 8, 16))
+    jblock = jnets.ConvAttnBlock(16, context=False, heads=4)
+    block = nets.ConvAttnBlock(16, 0, heads=4)
+    for m in block.modules():
+        if isinstance(m, (nn.Conv2d, nn.Dense)):
+            m.reset_parameters(torch.Generator().manual_seed(3))
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+    jp = _carry(block, jax.eval_shape(lambda: jblock.init_params(
+        jax.random.PRNGKey(0), 0)))
+    _close(block.attn(_t(x), _t(pos)), jblock.attn.apply(
+        jp["attn"], jnp.asarray(x), jnp.asarray(pos)))
+    _close(block(_t(x), _t(pos)), jblock.apply(
+        jp, jnp.asarray(x), jnp.asarray(pos), None))
+    assert seen == [((3, 4, 48, 4), {"scale": 0.5})] * 2
+
+
+def _melspec_flowpp(shape=(16, 16, 1), seed=0):
+    g = torch.Generator().manual_seed(seed)
+    mb = torch.rand(4, *shape, generator=g) * 120.0 - 100.0
+    return build_flowpp(shape, n_components=2, n_blocks_flow=1, filters=8,
+                        heads=2, data_type="melspec", minibatch=mb,
+                        generator=g)
+
+
+def test_melspec_flowpp_has_no_dequantiser_and_draws_no_noise(monkeypatch):
+    """The melspec form: the CIFAR-10 bijector's 4 + 2 + 3 couplings with
+    no dequantisation, a model whose noise is ``none``; its log p and
+    score draw nothing (every draw raises) and repeat exactly. Its traced
+    score asks for the ``attn`` and ``mixlog`` leaves."""
+    from audiosourcesep_tpu_torch.models import FlowppCifar10
+    m = _melspec_flowpp().eval().requires_grad_(False)
+    assert not [b for b in m.modules() if isinstance(b, VariationalDequant)]
+    (flow,) = m.bijector.bijectors
+    assert isinstance(flow, FlowppCifar10)
+    assert [len(list(b.children())) for b in
+            (flow.block1, flow.block2, flow.block3)] == [4, 2, 3]
+    assert m.noise == "none" and m.draw_noise((2, 16, 16, 1)) is None
+    assert m.traced_leaves == ("attn", "mixlog")
+    names = {n for n, _ in m.named_parameters()}
+    assert "bijector.flowpp_cifar10_0.block3.layer_2.coupling.net." \
+        "block_0.attn.qkv.kernel" in names
+    assert not any("dequant" in n or "processor" in n for n in names)
+    x = torch.rand(3, 16, 16, 1, generator=torch.Generator().manual_seed(1)
+                   ) * 120.0 - 100.0
+    lp, s = m.log_prob(x), m.score(x)
+
+    def no_draw(*args, **kwargs):
+        raise AssertionError("a draw")
+
+    for name in ("randn", "rand", "randn_like", "rand_like", "normal"):
+        monkeypatch.setattr(torch, name, no_draw)
+    monkeypatch.setattr(torch, "Generator", no_draw)
+    assert torch.equal(m.log_prob(x), lp) and torch.equal(m.score(x), s)
+    assert torch.isfinite(s).all() and s.abs().max() > 0
+
+
+def test_melspec_flowpp_preprocessing_is_the_melspec_glows():
+    """The rescaling ``(x - min) / (max - min) - 0.5``, no logit, and its
+    log-det are ``build_glow(data_type="melspec")``'s, bit for bit; the
+    image form keeps its logit preprocessing and dequantisation."""
+    from audiosourcesep_tpu_torch.bijectors import (ImgPreprocessing,
+                                                    SpecPreprocessing)
+    from audiosourcesep_tpu_torch.models import build_glow
+    m = _melspec_flowpp()
+    glow = build_glow((16, 16, 1), L=2, K=1, n_filters=4,
+                      data_type="melspec", device="meta")
+    prep, gprep = m.bijector.bijectors[0].prep, glow.bijector.bijectors[0]
+    assert isinstance(prep, SpecPreprocessing) and not prep.use_logit
+    assert (prep.minval, prep.maxval) == (gprep.minval, gprep.maxval) == \
+        (-100.0, 20.0)
+    x = torch.rand(3, 16, 16, 1, generator=torch.Generator().manual_seed(2)
+                   ) * 120.0 - 100.0
+    (u, ld), (gu, gld) = prep(x), gprep(x)
+    assert torch.equal(u, gu) and torch.equal(ld, gld)
+    assert torch.equal(u, (x + 100.0) / 120.0 - 0.5)
+    image = build_flowpp(SHAPE, device="meta", **CFG)
+    assert isinstance(image.bijector.bijectors[1].prep, ImgPreprocessing)
+    assert isinstance(image.bijector.bijectors[0], VariationalDequant)
+    assert image.noise == "normal" and image.traced_leaves == ()

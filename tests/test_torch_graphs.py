@@ -6,6 +6,7 @@ package's own draws; the launch counters' arithmetic over a capture and
 its replays; and what the runner refuses. The card runs the real capture
 (tests/test_torch_cuda.py, chip_smoke.py phase 11)."""
 
+import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,6 +236,7 @@ def test_graphed_langevin_sampler_matches_jax(stand_in_graphs):
 
 
 BF16, F32 = W.KERNELS[torch.bfloat16], W.KERNELS[torch.float32]
+ATTN_SHAPE = (5, 4, 3072, 24)
 
 
 def _winograd_launch(name, path):
@@ -284,19 +286,32 @@ CAPTURES = {
         5, {"bias_relu_bn": {"launch_count": 4, "layout_copies": 0,
                              "launch_counts": {"fwd": 2, "bwd_nhwc": 1,
                                                "bwd_nchw": 1}}}),
+    # a Flow++ coupling net's ten attention cores at the first stage's
+    # shape and one at another, each counted by its (N, heads, T, d)
+    "attn": (
+        [{"attn": {"launch_count": 1, "shapes": {ATTN_SHAPE: 1}}}] * 10
+        + [{"attn": {"launch_count": 1, "shapes": {(5, 4, 768, 24): 1}}}],
+        2, {"attn": {"launch_count": 11,
+                     "shapes": {ATTN_SHAPE: 10, (5, 4, 768, 24): 1}}}),
 }
 
 
 @pytest.mark.parametrize("kernel", list(CAPTURES))
-def test_replays_count_what_the_capture_launched(kernel):
+def test_replays_count_what_the_capture_launched(kernel, monkeypatch):
     """A capture runs nothing on the card: the counters (``ops.counting``)
     lose what the wrappers counted while it captured and gain it again at
     every replay (the capture's counts x the replays), kernel by kernel
     and path by path, each module under its key of ``launches``."""
     counted, replays, one = CAPTURES[kernel]
+    # attention shapes as ops.attention counts them: each key made at its
+    # first call, one before the snapshot and one while the graph captures
+    monkeypatch.setitem(counting.COUNTS["attn"], "shapes",
+                        {ATTN_SHAPE: 0})
 
     def capture():
         for launch in counted:
+            for shape in launch.get("attn", {}).get("shapes", {}):
+                counting.COUNTS["attn"]["shapes"].setdefault(shape, 0)
             counting.add(launch)
 
     class Graph:         # a stand-in for torch.cuda.CUDAGraph
@@ -307,8 +322,10 @@ def test_replays_count_what_the_capture_launched(kernel):
 
     before = counting.snapshot()
     step = graphs.StepGraph(Graph(), capture)
-    assert counting.snapshot() == before
     want = counting.since(before)          # every count 0
+    # the counters as before, with the keys made while the graph captured
+    unmoved = {**before, "attn": counting.since(before)["attn"]}
+    assert counting.snapshot() == unmoved
     for key, n in one.items():
         want[key] = {**want[key], **n} if isinstance(n, dict) else n
     assert step.launches == want
@@ -318,7 +335,7 @@ def test_replays_count_what_the_capture_launched(kernel):
     got = counting.since(before)
     assert got == _scaled(want, replays)
     counting.add(got, -1)
-    assert counting.snapshot() == before
+    assert counting.snapshot() == unmoved
 
 
 def test_counters_keep_winograd_at_the_top_and_nest_the_others():
@@ -340,7 +357,8 @@ def test_counters_keep_winograd_at_the_top_and_nest_the_others():
                     "bias_relu_bn": {"launch_count": 0, "layout_copies": 0,
                                      "launch_counts": {"fwd": 0,
                                                        "bwd_nhwc": 0,
-                                                       "bwd_nchw": 0}}}
+                                                       "bwd_nchw": 0}},
+                    "attn": {"launch_count": 0, "shapes": {}}}
     got["pool"]["launch_counts"]["avg5"] += 1
     assert counting.since(got)["pool"]["launch_counts"]["avg5"] == -1
     got["pool"]["launch_counts"]["avg5"] -= 1
@@ -426,3 +444,50 @@ def test_recording_times_each_level():
     assert record.captures == [] and record.capture_s == 0.0
     basis_separate_per_level(score, mixed, x0, [1.0], config=BasisConfig(T=1))
     assert len(record.levels) == 2
+
+
+@pytest.mark.parametrize("free,cached,tight", [(80, 20, False),
+                                               (40, 35, True)])
+def test_level_graph_runs_tight_where_a_step_does_not_fit_twice(
+        monkeypatch, free, cached, tight):
+    """``LevelGraph``'s memory policy, the card's calls stood in for (units
+    of a 100-unit card): the first warm-up empties the cache before it,
+    and then runs tight where the card's free memory is under what the
+    warm-up left cached plus a tenth of the card. Untight, it empties no
+    cache again and keeps the last graph for the next capture's pool;
+    tight, it empties the cache after every warm-up, and before each later
+    one frees the last graph and empties the cache first."""
+    emptied = []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(graphs, "_side_stream", lambda device: Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: emptied.append(graph.graph))
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: 10)
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda device=None: 10 + cached)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (free, 100))
+    ran = []
+    graph = graphs.LevelGraph("cuda")
+    assert graph.tight is None
+    graph.warm_up(lambda: ran.append(0))
+    assert graph.tight is tight and ran == [0]
+    assert emptied == ([None, None] if tight else [None])
+    last = object()
+    graph.graph = last
+    graph.warm_up(lambda: ran.append(1))
+    assert ran == [0, 1]
+    if tight:
+        assert graph.graph is None and emptied == [None] * 4
+    else:
+        assert graph.graph is last and emptied == [None]

@@ -92,6 +92,34 @@ def test_autograd_matches_conv_gradient():
     np.testing.assert_allclose(kt.grad.numpy(), np.asarray(gk), atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype,tf32", [(torch.float32, False),
+                                        (torch.float64, True)])
+def test_float32_backward_runs_cudnn_without_tf32(monkeypatch, dtype, tf32):
+    """The backward's conv VJPs of a float32 conv run with cuDNN's TF32
+    off, as the forward kernel computes in full float32, whatever the
+    caller allowed (PyTorch allows it by default); another dtype keeps the
+    caller's choice; the choice is the caller's again afterwards."""
+    seen = []
+
+    def spy(fn):
+        def call(*args, **kwargs):
+            seen.append(torch.backends.cudnn.allow_tf32)
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(torch.nn.grad, "conv2d_input",
+                        spy(torch.nn.grad.conv2d_input))
+    monkeypatch.setattr(torch.nn.grad, "conv2d_weight",
+                        spy(torch.nn.grad.conv2d_weight))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x, k = _inputs(5, (1, 4, 6, 8), 8)
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    kt = torch.from_numpy(k).to(dtype).requires_grad_()
+    (twino.winograd_conv2d(xt, kt) ** 2).sum().backward()
+    assert seen == [tf32, tf32]
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
 def test_cpu_path_does_not_launch_and_counts_stay():
     before = counting.snapshot()
     x, k = _inputs(5, (1, 4, 4, 2), 2)
